@@ -10,3 +10,7 @@ def pytest_configure(config):
         "slow: long-running test (multi-device subprocess runs, multi-"
         "round differential engine comparisons); excluded from the fast "
         "CI lane via -m 'not slow'")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (a hand-written CUDA kernel has no CPU "
+        "mode); skips without one — run on the GPU with -m cuda")
