@@ -21,8 +21,9 @@
 // identity row of w (a round without communication) is an exact no-op.
 //
 // Bound: the function reads x, u and w once and writes y once,
-// (2 B L + K L + B K) * 4 bytes -- about 2.5 MB at the main path's
-// B = K = 30, L = 6922, which is 0.75 us at the H100's 3.35 TB/s; its
+// (2 B L + K L + B K) * 4 bytes. On the main path u is x, so it reads
+// x once: (2 B L + B K) * 4 bytes -- about 1.66 MB at B = K = 30,
+// L = 6922, which is 0.50 us at the H100's 3.35 TB/s; its
 // 3 B K L = 18.7 MFLOP (subtract, multiply, add) take 0.28 us at the
 // 67 TFLOP/s f32 peak. So bytes bound it, and at this size the launch
 // latency (a few us) dominates both.
