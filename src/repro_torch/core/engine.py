@@ -1,15 +1,23 @@
-"""The synchronous reference round engine (``run_dfl``) — the port of
-``repro.core.engine``'s dense, uncompressed path.
+"""The reference engines — the port of ``repro.core.engine``'s dense,
+single-device path.
 
-Per round the strategy plans (A^h, tau^h); the workers run tau_i local
-SGD steps (the whole fleet at once, masked to tau_i — masked steps still
-run and change nothing); the simulated clock charges
-t_i = tau_i mu_i + max_j beta_ij (Eq. 10); gossip mixes with the uniform
-matrix (Eq. 5-6) as ``x <- mix @ x``; measurements (consensus distances,
-update norms, the L/sigma estimates of Alg. 1 lines 4-5) feed back to the
-strategy. One Python iteration per round, with host syncs for the
-measurements: the semantic ground truth ``fused.run_dfl_fused`` is held
-against.
+``run_dfl``: per round the strategy plans (A^h, tau^h); the workers run
+tau_i local SGD steps (the whole fleet at once, masked to tau_i — masked
+steps still run and change nothing); the simulated clock charges
+t_i = tau_i mu_i + max_j beta_ij (Eq. 10; a compressed link's beta
+divided by the codec's wire ratio); gossip mixes with the uniform matrix
+(Eq. 5-6) as ``x <- mix @ x``, or under ``cfg.compress`` through the
+codec's compensated update (``compression.compressed_gossip_ref``);
+measurements (consensus distances, update norms, the L/sigma estimates
+of Alg. 1 lines 4-5) feed back to the strategy. One Python iteration per
+round, with host syncs for the measurements: the semantic ground truth
+``fused.run_dfl_fused`` is held against.
+
+``run_adpsgd``: the event-driven AD-PSGD baseline [23]. Its control
+plane (heap of finish times, partners, churn at round boundaries,
+staleness) is the pure host function ``adpsgd_schedule``; the engine
+replays the events one by one — the ground truth of
+``fused.run_adpsgd_fused``.
 
 Parameters live as ONE flat ``[W, P]`` f32 tensor in the reference's leaf
 layout (``modelspec``); the model sees leaf views of it. Every entry
@@ -19,12 +27,14 @@ only an explicit ``device="cpu"`` runs on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import heapq
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import FedHPConfig
+from repro_torch.core import compression
 from repro_torch.core import modelspec
 from repro_torch.core import topology as topo
 from repro_torch.core.algorithms import Strategy
@@ -112,8 +122,8 @@ def check_ported(cfg: FedHPConfig, *, mesh=None, seeds=None) -> None:
     """Raise ``NotImplementedError`` for a feature the port does not run
     yet, naming the ROADMAP.md item (queue 1) that brings it."""
     todo = []
-    if cfg.compress != "none":
-        todo.append(f"compress={cfg.compress!r} (item 5, wire codecs)")
+    if str(cfg.compress).startswith("leafmap:"):
+        todo.append("compress='leafmap:...' (item 8, registry models)")
     if cfg.gossip == "sparse":
         todo.append("gossip='sparse' (item 6, sparse edge-list gossip)")
     if cfg.sharded or mesh is not None:
@@ -124,8 +134,6 @@ def check_ported(cfg: FedHPConfig, *, mesh=None, seeds=None) -> None:
         todo.append("seeds= batching (item 4, the batched seeds axis)")
     if str(cfg.model).partition(":")[0] not in ("mlp", ""):
         todo.append(f"model={cfg.model!r} (item 8, registry models)")
-    if cfg.algorithm == "adpsgd":
-        todo.append("algorithm='adpsgd' (item 3, AD-PSGD)")
     if todo:
         raise NotImplementedError(
             "not ported to repro_torch yet (ROADMAP.md queue 1): "
@@ -308,12 +316,14 @@ def round_topology(plan, alive: np.ndarray, beta: np.ndarray) -> np.ndarray:
 
 
 def round_clock(adj, taus, mu, beta, plan, alive, crashed: bool,
-                crash_timeout: float) -> tuple[float, float]:
+                crash_timeout: float,
+                wire_ratio: float = 1.0) -> tuple[float, float]:
     """Eq. 10-11: the round time max_i t_i (plus the failure-detection
-    timeout after a crash) and the mean waiting time of the alive."""
+    timeout after a crash) and the mean waiting time of the alive. A
+    compressed link's comm time is beta / the codec's ``wire_ratio``."""
     comm = np.where(adj.sum(1) > 0,
                     np.where(adj > 0, beta, 0.0).max(1), 0.0)
-    t_i = taus * mu + comm
+    t_i = taus * mu + comm / wire_ratio
     if plan.extra_time is not None:
         t_i = t_i + plan.extra_time * alive
     t_round = float(t_i[alive].max()) if alive.any() else 0.0
@@ -321,6 +331,15 @@ def round_clock(adj, taus, mu, beta, plan, alive, crashed: bool,
         t_round += crash_timeout
     waiting = float((t_round - t_i[alive]).mean()) if alive.any() else 0.0
     return t_round, waiting
+
+
+def randk_gate(codec, skey, step: int, p_model: int, device):
+    """The rand-k mask draw of ``step`` as a [P] tensor on ``device``
+    (None for the other codecs)."""
+    if codec.kind != "randk":
+        return None
+    return torch.from_numpy(
+        compression.randk_scores(skey, step, p_model)).to(device)
 
 
 def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
@@ -352,6 +371,14 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
     # time-varying non-IID drift: a DriftingPartition swaps shard lists
     # on its schedule; static lists pass through untouched
     drifting = hasattr(shards, "shards_at")
+    # wire codec: its [W, P] state (int8 residual / top-k public copy) and
+    # the rand-k mask stream; the strategy may tighten a sparse codec's k
+    # per round through plan.codec
+    codec0 = compression.parse_mode(cfg.compress)
+    compress = codec0.kind != "none"
+    p_model = adapter.param_count
+    skey = compression.sparsify_base_key(cfg.seed)
+    err = compression.state_init(flat, codec0.kind, cfg.error_feedback)
 
     hist = History()
     clock = 0.0
@@ -361,13 +388,19 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
         if joined.any():
             donors = alive & ~joined
             if donors.any():
-                flat = _reinit_joined(flat,
-                                      torch.as_tensor(joined, device=device),
+                keep = torch.as_tensor(joined, device=device)
+                flat = _reinit_joined(flat, keep,
                                       torch.as_tensor(donors, device=device))
+                if err is not None:
+                    err = compression.state_after_join(
+                        err, keep[:, None], flat, codec0.kind,
+                        cfg.error_feedback)
         mu = cluster.sample_mu()
         beta = cluster.sample_beta()
 
         plan = strategy.plan(h, alive=alive)
+        rcodec = plan.codec if plan.codec is not None else codec0
+        comm_ratio = rcodec.wire_ratio(p_model) if compress else 1.0
         adj = round_topology(plan, alive, beta)
         taus = np.where(alive, np.clip(plan.taus, 1, cfg.tau_max), 0)
         lr = cfg.lr * (cfg.lr_decay ** h)
@@ -387,14 +420,21 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
         # --- clock (Eq. 10-11) ---
         t_round, waiting = round_clock(adj, taus, mu, beta, plan, alive,
                                        cluster.last_crashed.any(),
-                                       cfg.crash_timeout)
+                                       cfg.crash_timeout, comm_ratio)
         clock += t_round
 
-        # --- gossip aggregation (Eq. 5-6) ---
+        # --- gossip aggregation (Eq. 5-6), optionally compressed ---
         if adj.sum() > 0:
             mix = torch.as_tensor(mixfn(adj), dtype=torch.float32,
                                   device=device)
-            flat = _gossip(flat, mix)
+            if compress:
+                flat, err = compression.compressed_gossip_ref(
+                    flat, err, mix, error_feedback=cfg.error_feedback,
+                    kind=rcodec.kind, k=rcodec.resolve_k(p_model),
+                    scores=randk_gate(rcodec, skey, h, p_model, device),
+                    gamma=cfg.sparse_gamma)
+            else:
+                flat = _gossip(flat, mix)
 
         # --- measurements (Alg. 1 lines 4-5, 9-10) ---
         losses, ls, sigs, upds = (
@@ -412,7 +452,7 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
             smooth_l=float(np.median(ls[alive])),
             sigma=float(np.median(sigs[alive])),
             loss=float(np.mean(losses[alive])),
-            cross_loss=cross, alive=alive, wire_ratio=1.0)
+            cross_loss=cross, alive=alive, wire_ratio=comm_ratio)
 
         mean_acc, mean_loss = _mean_accuracy(adapter, flat, tx, ty, alive)
         fa = flat_np[alive] if alive.any() else flat_np
@@ -425,5 +465,325 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
             cumulative_time=clock))
         if time_budget is not None and clock >= time_budget:
             break
+    hist.final_params = adapter.unflatten(flat)
+    return hist
+
+
+# ---------------------------------------------------------------------------
+# Asynchronous engine (AD-PSGD baseline): event schedule + event loop
+# ---------------------------------------------------------------------------
+
+# partner selection / event ordering draws come from a stream derived from
+# (seed, _ADPSGD_STREAM), independent of the batch-sampling stream
+_ADPSGD_STREAM = 0xAD
+
+
+@dataclass(frozen=True)
+class AdpsgdEvent:
+    """One processed AD-PSGD completion event (AD-PSGD [23], Alg. 1).
+
+    ``worker`` finished tau local steps computed from its snapshot and
+    atomically pairwise-averages with ``partner`` at simulated ``time``.
+    ``staleness`` counts how many pairwise averages hit the worker's live
+    row since its snapshot was taken; ``inflight_bound`` is the number of
+    other workers' events processed in that window (staleness never
+    exceeds it)."""
+
+    worker: int
+    partner: int
+    time: float
+    staleness: int
+    inflight_bound: int
+
+
+@dataclass(frozen=True)
+class AdpsgdRound:
+    """N consecutive events plus the host state their record needs.
+
+    ``keep``/``donor_w`` describe the join re-initialization applied
+    BEFORE this round's events (all-False/zero when nobody joined);
+    ``alive`` is the membership in force DURING the events; ``clock`` is
+    the simulated time of the round's last event (the record's
+    ``cumulative_time``); ``lr`` the decayed learning rate in force."""
+
+    events: tuple[AdpsgdEvent, ...]
+    lr: float
+    alive: np.ndarray
+    clock: float
+    keep: np.ndarray
+    donor_w: np.ndarray
+
+    @property
+    def mean_staleness(self) -> float:
+        """Mean staleness over the round's events (the record field)."""
+        return float(np.mean([e.staleness for e in self.events]))
+
+
+@dataclass(frozen=True)
+class AdpsgdSchedule:
+    """The complete host-side control plane of one AD-PSGD run: what the
+    event loop does, minus the device math. Both engines consume it, which
+    makes their host-side records bit-identical."""
+
+    rounds: tuple[AdpsgdRound, ...]
+    tau: int
+    num_links: int
+    num_workers: int
+
+    @property
+    def events(self) -> list[AdpsgdEvent]:
+        """All processed events, flattened in completion order."""
+        return [e for r in self.rounds for e in r.events]
+
+
+def adpsgd_schedule(cluster: SimCluster, cfg: FedHPConfig, *,
+                    rounds: int | None = None,
+                    time_budget: float | None = None,
+                    p_model: int | None = None) -> AdpsgdSchedule:
+    """Precompute the AD-PSGD event schedule (pure host function, a copy
+    of ``repro.core.engine.adpsgd_schedule``).
+
+    A heap of per-worker finish times ``t + tau mu_i + beta_ij`` (Eq. 10
+    per event; compressed runs charge ``beta / wire_ratio``),
+    random-neighbor partner selection over the alive ring, churn applied
+    at round boundaries (every N processed events), and per-worker
+    staleness counters. Events of departed workers are dropped; joiners
+    are re-admitted with a fresh event. Consumes the cluster's RNG once
+    per event (mu, beta draws) plus once per join. ``p_model`` is the
+    model's true parameter count for the codec's wire ratio (default:
+    ``cluster.model_bits / 32``)."""
+    rounds = rounds or cfg.rounds
+    n = cfg.num_workers
+    rng = np.random.default_rng((cfg.seed, _ADPSGD_STREAM))
+    ring = topo.ring_topology(n)
+    neighbors = [np.nonzero(ring[i])[0] for i in range(n)]
+    tau = cfg.tau_init
+    codec = compression.parse_mode(cfg.compress)
+    comm_ratio = codec.wire_ratio(
+        p_model if p_model is not None
+        else int(cluster.model_bits // compression.FP32_BITS))
+
+    mu0 = cluster.sample_mu()
+    q = [(tau * mu0[i], i) for i in range(n)]
+    heapq.heapify(q)
+    alive = cluster.advance_round(0)
+    lr = cfg.lr
+    stale = np.zeros(n, np.int64)     # averages absorbed since snapshot
+    last_ev = np.full(n, -1)          # processed-event index of last event
+    out: list[AdpsgdRound] = []
+    cur: list[AdpsgdEvent] = []
+    keep = np.zeros(n, bool)
+    donor_w = np.zeros(n)
+    events = 0
+    clock = 0.0
+    while len(out) < rounds and q:
+        t_now, i = heapq.heappop(q)
+        clock = t_now
+        if not alive[i]:
+            continue                  # churned out: event dies with it
+        cand = [j for j in neighbors[i] if alive[j]]
+        if not cand:                  # ring neighbors churned out: any peer
+            cand = [j for j in np.nonzero(alive)[0] if j != i]
+        j = int(rng.choice(cand)) if cand else int(i)
+        bound = int(events - last_ev[i] - 1) if last_ev[i] >= 0 else events
+        cur.append(AdpsgdEvent(int(i), j, float(clock), int(stale[i]),
+                               bound))
+        stale[i] = 0
+        if j != i:
+            stale[j] += 1             # j's in-flight delta is now staler
+        last_ev[i] = events
+        mu = cluster.sample_mu()[i]
+        beta = cluster.sample_beta()[i, j] / comm_ratio
+        heapq.heappush(q, (t_now + tau * mu + beta, i))
+        events += 1
+        if events % n == 0:
+            out.append(AdpsgdRound(tuple(cur), lr, alive.copy(),
+                                   float(clock), keep, donor_w))
+            lr *= cfg.lr_decay
+            cur = []
+            keep = np.zeros(n, bool)
+            donor_w = np.zeros(n)
+            if time_budget is not None and clock >= time_budget:
+                break
+            # churn for the NEXT round advances after this round's record,
+            # matching run_dfl's round-start semantics
+            alive = cluster.advance_round(len(out))
+            joined = cluster.last_joined
+            donors = alive & ~joined
+            if joined.any() and donors.any():
+                keep = joined.copy()
+                donor_w = donors / donors.sum()
+                # re-init == fresh snapshot: counters reset AND the
+                # in-flight window restarts at the join boundary
+                stale[joined] = 0
+                last_ev[joined] = events - 1
+                mu_now = cluster.sample_mu()
+                for w in np.nonzero(joined)[0]:
+                    heapq.heappush(q, (clock + tau * mu_now[w], int(w)))
+    return AdpsgdSchedule(tuple(out), tau, int(ring.sum() // 2), n)
+
+
+def _adpsgd_delta(adapter, snap, bx, by, lr, tau: int) -> torch.Tensor:
+    """tau local SGD steps (Eq. 3) of one worker from its SNAPSHOT row
+    ``snap`` [P]; returns the delta [P]. AD-PSGD's defining staleness: the
+    delta is applied to whatever the live row has become meanwhile."""
+    row = snap[None]
+    out = _local_train(adapter, row, bx[None], by[None],
+                       torch.full((1,), tau, device=row.device), lr, tau)
+    return (out - row)[0]
+
+
+def _pair_average(xi: torch.Tensor, xj: torch.Tensor) -> torch.Tensor:
+    """The reference's atomic pairwise average ½ (x_i + x_j) (Eq. 5 on
+    one edge with the mix [[.5, .5], [.5, .5]])."""
+    return 0.5 * (xi + xj)
+
+
+def adpsgd_join(flat, snaps, err, keep, donor_w, kind: str, ef: bool):
+    """The join re-initialisation before a round's events: rows in
+    ``keep`` ([W] bool) adopt the ``donor_w``-weighted average of the
+    fleet, a fresh snapshot and a reset codec state -> (flat, snaps,
+    err)."""
+    flat = _blend_joined(flat, keep, donor_w)
+    snaps = torch.where(keep[:, None], flat, snaps)
+    if err is not None:
+        err = compression.state_after_join(err, keep[:, None], flat, kind,
+                                           ef)
+    return flat, snaps, err
+
+
+def adpsgd_event(adapter, flat, snaps, err, ev: AdpsgdEvent, bx, by, lr,
+                 tau: int, average, *, codec, k: int, ef: bool,
+                 gamma: float, scores=None) -> None:
+    """One AD-PSGD event, in place on the live rows ``flat``, the
+    snapshots ``snaps`` and the codec state ``err`` (all [W, P]): worker
+    i's tau-step delta from its snapshot lands on its live row, then i
+    and its partner j exchange — ``average(x_i, x_j)`` uncompressed, the
+    codec's compensated pairwise update (``scores``: the event's rand-k
+    draw) otherwise — and i takes a fresh snapshot. A self-event
+    (i == j) writes j's row last, as the reference does."""
+    i, j = ev.worker, ev.partner
+    delta = _adpsgd_delta(adapter, snaps[i], bx, by, lr, tau)
+    xi, xj = flat[i] + delta, flat[j].clone()
+    if codec.kind == "none":
+        xi = xj = average(xi, xj)
+    else:
+        xi, xj, ei, ej = compression.compressed_pair_ref(
+            xi, xj, None if err is None else err[i],
+            None if err is None else err[j], error_feedback=ef,
+            kind=codec.kind, k=k, gamma=gamma, scores=scores)
+        if err is not None:
+            err[i], err[j] = ei, ej
+    flat[i], flat[j] = xi, xj
+    snaps[i] = flat[i]
+
+
+def adpsgd_setup(cfg: FedHPConfig, cluster: SimCluster, adapter, *, rounds,
+                 time_budget, schedule):
+    """The shared preamble of both AD-PSGD engines -> (codec, schedule):
+    the parsed ``cfg.compress`` and the event schedule (generated unless
+    an explicit ``schedule`` replays one verbatim)."""
+    codec = compression.parse_mode(cfg.compress)
+    if schedule is None:
+        return codec, adpsgd_schedule(cluster, cfg, rounds=rounds,
+                                      time_budget=time_budget,
+                                      p_model=adapter.param_count)
+    if time_budget is not None:
+        raise ValueError(
+            "time_budget only applies while GENERATING a schedule; an "
+            "explicit schedule= replays verbatim (apply the budget in "
+            "adpsgd_schedule instead)")
+    return codec, schedule
+
+
+def round_batches(rng, data: Dataset, shards, rnd_idx: int,
+                  rnd: AdpsgdRound, tau: int, batch: int):
+    """The batches of one AD-PSGD round's events, in event order, drawn
+    from each event worker's shard: ([N, tau, B, *feat], [N, tau, B])."""
+    round_shards = (shards.shards_at(rnd_idx) if hasattr(shards, "shards_at")
+                    else shards)
+    bx = np.zeros((len(rnd.events), tau, batch) + data.x.shape[1:],
+                  data.x.dtype)
+    by = np.zeros((len(rnd.events), tau, batch), np.int32)
+    for k, e in enumerate(rnd.events):
+        shard = round_shards[e.worker]
+        ix = rng.integers(0, len(shard), (tau, batch))
+        bx[k] = data.x[shard[ix]]
+        by[k] = data.y[shard[ix]]
+    return bx, by
+
+
+def run_adpsgd(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
+               cfg: FedHPConfig, *, rounds: int | None = None,
+               hidden: int = 64, eval_subset: int = 512,
+               time_budget: float | None = None,
+               schedule: AdpsgdSchedule | None = None,
+               adapter: modelspec.ModelAdapter | None = None,
+               init_params=None, device=None) -> History:
+    """Event-driven AD-PSGD [23]: random pairwise averaging on completion.
+
+    One "round" = N worker-finish events, at which point metrics are
+    sampled (comparable x-axes with ``run_dfl``). The control plane comes
+    from ``adpsgd_schedule`` (an explicit ``schedule`` replays a custom
+    event sequence verbatim); this loop runs the device math event by
+    event, with a host sync per round for the metrics — the ground truth
+    ``fused.run_adpsgd_fused`` is held against. ``cfg.compress`` ("int8"
+    / "topk:<k>" / "randk:<k>") switches the pairwise exchange to the
+    codec's compensated update (``compression.compressed_pair_ref``).
+
+    ``init_params`` and ``device`` as in ``run_dfl``. The live rows, the
+    snapshots and the codec state are [W, P] tensors updated in place,
+    row by row (the reference scatters into fresh arrays)."""
+    device = resolve_device(device)
+    check_ported(cfg)
+    rounds = rounds or cfg.rounds
+    n = cfg.num_workers
+    if adapter is None:
+        adapter = modelspec.adapter_for(cfg, data, hidden=hidden)
+    codec, schedule = adpsgd_setup(cfg, cluster, adapter, rounds=rounds,
+                                   time_budget=time_budget,
+                                   schedule=schedule)
+    rng = np.random.default_rng(cfg.seed)       # batch-sampling stream
+    flat = initial_params(adapter, n, cfg.seed, init_params, device)
+    tx, ty = holdout_set(test_x, test_y, eval_subset, device)
+    tau = schedule.tau
+    p_model = adapter.param_count
+    err = compression.state_init(flat, codec.kind, cfg.error_feedback)
+    k_abs = codec.resolve_k(p_model)
+    skey = compression.sparsify_base_key(cfg.seed)
+    ev_idx = 0          # global event counter: the rand-k mask step
+    snaps = flat.clone()    # per-worker snapshot its computation started at
+
+    hist = History()
+    for rnd_idx, rnd in enumerate(schedule.rounds):
+        if rnd.keep.any():
+            flat, snaps, err = adpsgd_join(
+                flat, snaps, err, torch.as_tensor(rnd.keep, device=device),
+                torch.as_tensor(rnd.donor_w, dtype=torch.float32,
+                                device=device),
+                codec.kind, cfg.error_feedback)
+        bx, by = round_batches(rng, data, shards, rnd_idx, rnd, tau,
+                               cfg.batch_size)
+        bx = torch.as_tensor(bx, device=device)
+        by = torch.as_tensor(by, device=device).long()
+        lr = torch.tensor(rnd.lr, dtype=torch.float32, device=device)
+        for e_k, ev in enumerate(rnd.events):
+            adpsgd_event(adapter, flat, snaps, err, ev, bx[e_k], by[e_k], lr,
+                         tau, _pair_average, codec=codec, k=k_abs,
+                         ef=cfg.error_feedback, gamma=cfg.sparse_gamma,
+                         scores=randk_gate(codec, skey, ev_idx, p_model,
+                                           device))
+            ev_idx += 1
+        alive = rnd.alive
+        mean_acc, mean_loss = _mean_accuracy(adapter, flat, tx, ty, alive)
+        flat_np = flat.cpu().numpy()
+        fa = flat_np[alive] if alive.any() else flat_np
+        d_bar = float(np.linalg.norm(fa - fa.mean(0), axis=1).mean())
+        hist.records.append(RoundRecord(
+            round=len(hist.records), round_time=0.0,
+            waiting_time=0.0,          # async: no synchronization barrier
+            accuracy=mean_acc, loss=mean_loss, mean_tau=float(tau),
+            num_links=schedule.num_links, consensus=d_bar,
+            cumulative_time=rnd.clock, staleness=rnd.mean_staleness))
     hist.final_params = adapter.unflatten(flat)
     return hist

@@ -12,7 +12,7 @@ from repro_torch.configs.base import FedHPConfig
 from repro_torch.core import engine
 from repro_torch.core import modelspec
 from repro_torch.core.algorithms import make_strategy
-from repro_torch.core.fused import run_dfl_fused
+from repro_torch.core.fused import run_adpsgd_fused, run_dfl_fused
 from repro_torch.core.topology import make_base_topology
 from repro_torch.data.partition import DriftingPartition, pskew_partition
 from repro_torch.data.synthetic import Dataset
@@ -76,15 +76,22 @@ def run_algorithm(algorithm: str, cfg: FedHPConfig, *,
                   device=None):
     """Run one (algorithm, non-IID level) cell and return its History.
 
-    ``fused=True`` routes the run through ``fused.run_dfl_fused`` (gossip
-    through the CUDA ``gossip_mix`` kernel on the GPU); otherwise the
-    reference ``engine.run_dfl``. ``device``: ``None`` means the GPU and
-    raises without one; ``"cpu"`` runs on the CPU."""
+    ``fused=True`` routes the run through the fused engines
+    (``run_dfl_fused`` for the synchronous strategies,
+    ``run_adpsgd_fused`` for the event-driven AD-PSGD; the device
+    work goes through the CUDA kernels on the GPU); otherwise the
+    reference ``engine.run_dfl`` / ``engine.run_adpsgd``. ``device``:
+    ``None`` means the GPU and raises without one; ``"cpu"`` runs on the
+    CPU."""
     cfg = replace(cfg, algorithm=algorithm)
     engine.check_ported(cfg, mesh=mesh, seeds=seeds)
     train, tx, ty, shards, cluster = setup_experiment(
         cfg, non_iid_p=non_iid_p, fail_at=fail_at, spread=spread,
         churn=churn, rounds=rounds, num_samples=num_samples, device=device)
+    if algorithm == "adpsgd":
+        run = run_adpsgd_fused if fused else engine.run_adpsgd
+        return run(train, tx, ty, shards, cluster, cfg, rounds=rounds,
+                   time_budget=time_budget, device=device)
     base = make_base_topology(cfg.num_workers, cfg.base_topology, cfg.seed)
     strategy = make_strategy(cfg, base)
     run = run_dfl_fused if fused else engine.run_dfl

@@ -1,13 +1,14 @@
-"""The fused round engine (``run_dfl_fused``) — the port of
-``repro.core.fused``'s dense, uncompressed, single-lane path: the fast
-path next to ``engine.run_dfl``.
+"""The fused engines — the port of ``repro.core.fused``'s single-lane
+dense path: ``run_dfl_fused`` next to ``engine.run_dfl`` and
+``run_adpsgd_fused`` next to ``engine.run_adpsgd``.
 
 The host precomputes a segment of K rounds (cluster, strategy and batch
-streams advanced in ``run_dfl``'s exact order) and ships its control
-inputs to the device at once; the device then runs the K rounds as a
-Python loop over device tensors with no host sync inside — each round's
-metrics stay on the device and come to the host once, at the segment's
-end (the reference lowers the same loop to one ``jax.lax.scan``).
+streams advanced in the reference engine's exact order) and ships its
+control inputs to the device at once; the device then runs the K rounds
+as a Python loop over device tensors with no host sync inside — each
+round's metrics stay on the device and come to the host once, at the
+segment's end (the reference lowers the same loop to one
+``jax.lax.scan``).
 
 - Static-plan strategies (D-PSGD ring, LD-SGD alternation, the base
   strategy) run in segments of up to ``MAX_FUSE_ROUNDS`` rounds and take
@@ -17,14 +18,23 @@ end (the reference lowers the same loop to one ``jax.lax.scan``).
   Alg. 1 measurements surface at the segment's end, where the strategy's
   ``observe`` is replayed round by round. ``replan_every=1`` replans
   every round exactly like the reference engine.
-- Gossip (Eq. 5-6) runs through the hand-written ``gossip_mix`` CUDA
-  kernel (``kernels/ops.py``) on the flat ``[W, P]`` matrix as
-  y_i = x_i + sum_j w_ij (x_j - x_i), one launch per round; rounds
-  without communication carry an identity mix, which the kernel maps to
-  an exact no-op. (The reference engine mixes as sum_j w_ij x_j; the two
-  differ in the last ulp.)
-- Churn masks (join blend, alive-weighted metrics) are per-round device
-  inputs.
+- Gossip (Eq. 5-6) runs on communicating rounds only. Uncompressed, it
+  goes through the hand-written ``gossip_mix`` CUDA kernel
+  (``kernels/ops.py``) on the flat ``[W, P]`` matrix as
+  y_i = x_i + sum_j w_ij (x_j - x_i), one launch per round (the
+  reference engine mixes as sum_j w_ij x_j; the two differ in the last
+  ulp). Under ``cfg.compress`` the codec's compensated update
+  (``compression.compressed_gossip_ref``) runs instead: its round trip
+  through the quantize/dequantize or sparsify kernels, one launch each
+  per round, and its [W, P] state carried on the device across
+  segments. The segment's codec is frozen with its plan; rand-k masks
+  are drawn on the host and shipped with the segment.
+- Churn masks (join blend, codec-state reset, alive-weighted metrics)
+  are per-round device inputs.
+- AD-PSGD: the host schedule (``engine.adpsgd_schedule``) fixes every
+  event; a segment of ``ADPSGD_FUSE_ROUNDS`` rounds ships its batches at
+  once and replays its events on the device, the uncompressed pairwise
+  average through ``gossip_mix`` on one row with weight ½.
 
 The batched ``seeds=`` axis, CUDA graphs and the sharded twin are not
 ported yet (ROADMAP.md queue 1).
@@ -37,15 +47,20 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FedHPConfig
+from repro_torch.core import compression
 from repro_torch.core import modelspec
 from repro_torch.core.algorithms import Strategy
-from repro_torch.core.engine import (History, RoundRecord, _blend_joined,
+from repro_torch.core.compression import Codec
+from repro_torch.core.engine import (AdpsgdSchedule, History, RoundRecord,
+                                     _blend_joined,
                                      _cross_loss_matrix, _draw_batches,
                                      _fleet_metrics, _local_train, _measure,
-                                     check_ported, eval_batches,
-                                     holdout_set, initial_params, mixing_fn,
-                                     resolve_device, round_clock,
-                                     round_topology)
+                                     adpsgd_event, adpsgd_join,
+                                     adpsgd_setup, check_ported,
+                                     eval_batches, holdout_set,
+                                     initial_params, mixing_fn,
+                                     resolve_device, round_batches,
+                                     round_clock, round_topology)
 from repro_torch.data.synthetic import Dataset
 from repro_torch.kernels import ops
 from repro_torch.simulation.cluster import SimCluster
@@ -55,6 +70,10 @@ from repro_torch.simulation.cluster import SimCluster
 # that with no semantic difference (static plans are recomputed per round
 # either way)
 MAX_FUSE_ROUNDS = 64
+
+# AD-PSGD stages one batch tensor PER EVENT ([K, N, tau, B, D] — an extra
+# N factor over the synchronous engine), so its segments are shorter
+ADPSGD_FUSE_ROUNDS = 32
 
 
 # ---------------------------------------------------------------------------
@@ -73,6 +92,10 @@ class _Segment:
     cw: np.ndarray            # [K, W] f32  consensus weights
     keep: np.ndarray          # [K, W] bool join re-init mask
     rw: np.ndarray            # [K, W] f32  donor weights
+    comm: np.ndarray          # [K] bool: the round gossips
+    gates: np.ndarray | None  # [K, P] f32 rand-k mask draws (else None)
+    codec: Codec              # the segment's frozen wire codec
+    wire_ratio: list[float]   # [K] Eq. 10 comm divisor charged per round
     tau_cap: int
     alive: list[np.ndarray]
     adjs: list[np.ndarray]
@@ -91,14 +114,20 @@ class _Segment:
 def _precompute_segment(h0: int, seg_len: int, cluster: SimCluster,
                         strategy: Strategy, cfg: FedHPConfig, rng, data,
                         shards, mixfn, clock: float,
-                        time_budget: float | None, adaptive: bool):
+                        time_budget: float | None, adaptive: bool,
+                        codec0: Codec, p_model: int, skey):
     """Advance cluster/strategy/batch RNG streams for rounds h0..h0+K-1 in
     the exact order ``run_dfl`` would, and pack the device inputs.
 
     For an adaptive strategy the plan is frozen at the segment's first
     round; static strategies re-plan every round (observation-free, so
-    this is exactly the reference behavior)."""
+    this is exactly the reference behavior). The frozen plan also fixes
+    the segment's wire codec (``plan.codec``, else ``codec0``, the parsed
+    ``cfg.compress``), whose ``wire_ratio(p_model)`` divides the Eq. 10
+    comm term as in the reference engine; rand-k rounds draw their mask
+    here, from ``skey``, on the host."""
     n = cfg.num_workers
+    compress = codec0.kind != "none"
     drifting = hasattr(shards, "shards_at")
     per: list[dict] = []
     plan = None
@@ -112,6 +141,8 @@ def _precompute_segment(h0: int, seg_len: int, cluster: SimCluster,
         beta = cluster.sample_beta()
         if plan is None or not adaptive:
             plan = strategy.plan(h, alive=alive)
+        rcodec = plan.codec if plan.codec is not None else codec0
+        comm_ratio = rcodec.wire_ratio(p_model) if compress else 1.0
         adj = round_topology(plan, alive, beta)
         taus = np.where(alive, np.clip(plan.taus, 1, cfg.tau_max), 0)
         tau_cap = int(max(taus.max(), 1))
@@ -120,11 +151,14 @@ def _precompute_segment(h0: int, seg_len: int, cluster: SimCluster,
 
         # --- clock (Eq. 10-11), the reference engine's formulas ---
         t_round, waiting = round_clock(adj, taus, mu, beta, plan, alive,
-                                       crashed, cfg.crash_timeout)
+                                       crashed, cfg.crash_timeout,
+                                       comm_ratio)
         clock += t_round
 
         # --- device-side control inputs ---
         mix = mixfn(adj) if adj.sum() > 0 else np.eye(n)
+        gate = (compression.randk_scores(skey, h, p_model)
+                if codec0.kind == "randk" else None)
         donors = alive & ~joined
         do_reinit = joined.any() and donors.any()
         keep = joined if do_reinit else np.zeros(n, bool)
@@ -137,7 +171,9 @@ def _precompute_segment(h0: int, seg_len: int, cluster: SimCluster,
 
         per.append(dict(alive=alive, adj=adj, mu=mu, beta=beta, taus=taus,
                         tau_cap=tau_cap, bx=bx, by=by, mix=mix,
-                        keep=keep, rw=rw, ew=ew, cw=cw,
+                        keep=keep, rw=rw, ew=ew, cw=cw, gate=gate,
+                        comm=adj.sum() > 0, codec=rcodec,
+                        wire_ratio=comm_ratio,
                         lr=cfg.lr * (cfg.lr_decay ** h),
                         t_round=t_round, waiting=waiting,
                         mean_tau=float(taus[alive].mean())
@@ -165,6 +201,11 @@ def _precompute_segment(h0: int, seg_len: int, cluster: SimCluster,
         cw=np.stack([p["cw"] for p in per]).astype(np.float32),
         keep=np.stack([p["keep"] for p in per]),
         rw=np.stack([p["rw"] for p in per]).astype(np.float32),
+        comm=np.array([p["comm"] for p in per]),
+        gates=(np.stack([p["gate"] for p in per])
+               if codec0.kind == "randk" else None),
+        codec=per[0]["codec"],
+        wire_ratio=[p["wire_ratio"] for p in per],
         tau_cap=cap,
         alive=[p["alive"] for p in per], adjs=[p["adj"] for p in per],
         mus=[p["mu"] for p in per], betas=[p["beta"] for p in per],
@@ -180,47 +221,69 @@ def _precompute_segment(h0: int, seg_len: int, cluster: SimCluster,
 # device code: the K rounds of one segment
 # ---------------------------------------------------------------------------
 
-def _scan_segment(adapter, flat, seg: _Segment, ex, ey, px, py, tx, ty, *,
-                  measure: bool, needs_cross: bool):
+def _round_metrics(adapter, flat, tx, ty, ew, cw) -> dict:
+    """Fleet accuracy/loss over the alive workers (weights ``ew``) and the
+    consensus distance to the alive mean (weights ``cw``), on the device."""
+    accs, tloss = _fleet_metrics(adapter, flat, tx, ty)
+    dmean = cw @ flat
+    dists = torch.sqrt(torch.sum((flat - dmean[None]) ** 2, dim=1))
+    return dict(acc=ew @ accs, loss=ew @ tloss, consensus=cw @ dists)
+
+
+def _scan_segment(adapter, flat, err, seg: _Segment, ex, ey, px, py, tx, ty,
+                  *, measure: bool, needs_cross: bool, k: int, ef: bool,
+                  gamma: float):
     """Run the segment's rounds on ``flat``'s device with no host sync
     (the reference's ``lax.scan`` body as a Python loop); returns
-    (flat', outs) where outs maps each metric to a host array with a
-    leading [K] round axis."""
+    (flat', err', outs) where outs maps each metric to a host array with
+    a leading [K] round axis. ``err`` is the codec state [W, P] (None
+    for stateless runs); ``k`` the segment codec's resolved keep
+    count."""
     dev = flat.device
+    kind = seg.codec.kind
     bx = torch.as_tensor(seg.bx, device=dev)
     by = torch.as_tensor(seg.by, device=dev).long()
     taus, lrs, mixes, ew, cw, keep, rw = (
         torch.as_tensor(a, device=dev)
         for a in (seg.taus, seg.lrs, seg.mixes, seg.ew, seg.cw, seg.keep,
                   seg.rw))
+    gates = (torch.as_tensor(seg.gates, device=dev)
+             if seg.gates is not None else None)
     off_diag = 1.0 - torch.eye(flat.shape[0], device=dev)
     outs: dict[str, list] = {}
 
     def emit(**kw):
-        for k, v in kw.items():
-            outs.setdefault(k, []).append(v)
+        for key, v in kw.items():
+            outs.setdefault(key, []).append(v)
 
     for t in range(len(seg)):
         # --- join re-init (keep/donor weights precomputed host-side; an
-        # all-False keep makes the blend an exact no-op) ---
+        # all-False keep makes the blend an exact no-op), and the joined
+        # rows' codec state reset as in the reference engine ---
         flat = _blend_joined(flat, keep[t], rw[t])
+        if err is not None:
+            err = compression.state_after_join(err, keep[t][:, None], flat,
+                                               kind, ef)
         prev = flat
 
         # --- local updating (Eq. 3), masked to tau_i ---
         flat = _local_train(adapter, flat, bx[t], by[t], taus[t], lrs[t],
                             seg.tau_cap)
 
-        # --- gossip (Eq. 5-6): row b of the mixing matrix is the kernel's
-        # neighbour weights over all W rows ---
-        flat = ops.gossip_mix(flat, flat, mixes[t])
+        # --- gossip (Eq. 5-6) on communicating rounds only (the host
+        # knows which): uncompressed through the gossip_mix kernel, row b
+        # of the mixing matrix as the kernel's neighbour weights over all
+        # W rows; compressed through the codec kernels and the dense
+        # mixing delta, the codec state changing with the round ---
+        if seg.comm[t] and kind == "none":
+            flat = ops.gossip_mix(flat, flat, mixes[t])
+        elif seg.comm[t]:
+            flat, err = compression.compressed_gossip_ref(
+                flat, err, mixes[t], error_feedback=ef, kind=kind, k=k,
+                scores=gates[t] if gates is not None else None,
+                gamma=gamma)
 
-        # --- per-round metrics: fleet accuracy/loss over the alive
-        # workers + consensus distance to the alive mean ---
-        accs, tloss = _fleet_metrics(adapter, flat, tx, ty)
-        dmean = cw[t] @ flat
-        dists = torch.sqrt(torch.sum((flat - dmean[None]) ** 2, dim=1))
-        emit(acc=ew[t] @ accs, loss=ew[t] @ tloss, consensus=cw[t] @ dists)
-
+        emit(**_round_metrics(adapter, flat, tx, ty, ew[t], cw[t]))
         if measure:
             losses, ls, sigs, upds = _measure(adapter, flat, prev, ex, ey,
                                               px, py)
@@ -235,7 +298,8 @@ def _scan_segment(adapter, flat, seg: _Segment, ex, ey, px, py, tx, ty, *,
             if needs_cross:
                 emit(cross=_cross_loss_matrix(adapter, flat, ex[:, :64],
                                               ey[:, :64]))
-    return flat, {k: torch.stack(v).cpu().numpy() for k, v in outs.items()}
+    return flat, err, {key: torch.stack(v).cpu().numpy()
+                       for key, v in outs.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +332,12 @@ def run_dfl_fused(data: Dataset, test_x, test_y, shards,
     mixfn = mixing_fn(mixing)
     needs_cross = strategy.name == "pens"
     replan = max(int(cfg.replan_every), 1)
+    # the codec state stays on the device across segments (None when the
+    # codec carries none: uncompressed, rand-k, error feedback off)
+    codec0 = compression.parse_mode(cfg.compress)
+    p_model = adapter.param_count
+    skey = compression.sparsify_base_key(cfg.seed)
+    err = compression.state_init(flat, codec0.kind, cfg.error_feedback)
 
     hist = History()
     clock = 0.0
@@ -278,10 +348,12 @@ def run_dfl_fused(data: Dataset, test_x, test_y, shards,
                    else min(rounds - h, MAX_FUSE_ROUNDS))
         seg, clock, stop = _precompute_segment(
             h, seg_len, cluster, strategy, cfg, rng, data, shards, mixfn,
-            clock, time_budget, adaptive)
-        flat, outs = _scan_segment(adapter, flat, seg, ex, ey, px, py, tx,
-                                   ty, measure=adaptive,
-                                   needs_cross=needs_cross)
+            clock, time_budget, adaptive, codec0, p_model, skey)
+        flat, err, outs = _scan_segment(
+            adapter, flat, err, seg, ex, ey, px, py, tx, ty,
+            measure=adaptive, needs_cross=needs_cross,
+            k=seg.codec.resolve_k(p_model), ef=cfg.error_feedback,
+            gamma=cfg.sparse_gamma)
         for t in range(len(seg)):
             hist.records.append(RoundRecord(
                 round=h + t, round_time=seg.round_time[t],
@@ -303,7 +375,127 @@ def run_dfl_fused(data: Dataset, test_x, test_y, shards,
                     loss=float(np.mean(outs["losses"][t][a])),
                     cross_loss=np.asarray(outs["cross"][t], np.float64)
                     if needs_cross else None,
-                    alive=a, wire_ratio=1.0)
+                    alive=a, wire_ratio=seg.wire_ratio[t])
         h += len(seg)
+    hist.final_params = adapter.unflatten(flat)
+    return hist
+
+
+# ---------------------------------------------------------------------------
+# fused event-driven AD-PSGD
+# ---------------------------------------------------------------------------
+
+def _adpsgd_segment(adapter, flat, snaps, err, rounds, tx, ty, *,
+                    codec: Codec, k: int, ef: bool, gamma: float, tau: int,
+                    **inp):
+    """Replay a segment's rounds of AD-PSGD events on the device with no
+    host sync: ``rounds`` are the schedule's ``AdpsgdRound``s and ``inp``
+    their device inputs — batches ``bx``/``by`` [K, N, tau, B, *feat],
+    ``lrs`` [K], join masks ``keep`` and donor weights ``rw`` [K, W],
+    metric weights ``ew``/``cw`` [K, W] and the events' rand-k mask draws
+    ``gates`` [K·N, P] (or None). The live rows, the snapshots and the
+    codec state are updated in place, row by row. Returns
+    (flat, snaps, err, per-round metrics as host arrays)."""
+    half = torch.full((1, 1), 0.5, dtype=torch.float32, device=flat.device)
+
+    def average(xi, xj):
+        # the atomic pairwise average xi + ½ (xj - xi): one row through
+        # the gossip kernel
+        return ops.gossip_mix(xi[None], xj[None], half)[0]
+
+    outs: dict[str, list] = {}
+    ev = 0
+    for t, rnd in enumerate(rounds):
+        if rnd.keep.any():
+            flat, snaps, err = adpsgd_join(flat, snaps, err, inp["keep"][t],
+                                           inp["rw"][t], codec.kind, ef)
+        for e_k, e in enumerate(rnd.events):
+            adpsgd_event(adapter, flat, snaps, err, e, inp["bx"][t, e_k],
+                         inp["by"][t, e_k], inp["lrs"][t], tau, average,
+                         codec=codec, k=k, ef=ef, gamma=gamma,
+                         scores=None if inp["gates"] is None
+                         else inp["gates"][ev])
+            ev += 1
+        for key, v in _round_metrics(adapter, flat, tx, ty, inp["ew"][t],
+                                     inp["cw"][t]).items():
+            outs.setdefault(key, []).append(v)
+    return flat, snaps, err, {key: torch.stack(v).cpu().numpy()
+                              for key, v in outs.items()}
+
+
+def run_adpsgd_fused(data: Dataset, test_x, test_y, shards,
+                     cluster: SimCluster, cfg: FedHPConfig, *,
+                     rounds: int | None = None, hidden: int = 64,
+                     eval_subset: int = 512,
+                     time_budget: float | None = None, seeds=None,
+                     schedule: AdpsgdSchedule | None = None,
+                     adapter: modelspec.ModelAdapter | None = None,
+                     init_params=None, device=None) -> History:
+    """Drop-in fused replacement for ``engine.run_adpsgd``: the host
+    precomputes the event schedule (``engine.adpsgd_schedule``) and each
+    segment's per-event batches, and the device replays the events with
+    the reference loop's per-event math — snapshot deltas, the atomic
+    pairwise average through the ``gossip_mix`` kernel, or under
+    ``cfg.compress`` the compensated exchange through the codec kernels
+    (one quantize and one dequantize, or one sparsify, per event).
+    Matches ``run_adpsgd`` record for record: host fields (staleness
+    included) exactly, device metrics to float tolerance. ``device``:
+    ``None`` means the GPU (raises without one); ``"cpu"`` runs the same
+    loop with the kernels' plain versions."""
+    device = resolve_device(device)
+    check_ported(cfg, seeds=seeds)
+    rounds = rounds or cfg.rounds
+    n = cfg.num_workers
+    if adapter is None:
+        adapter = modelspec.adapter_for(cfg, data, hidden=hidden)
+    codec, schedule = adpsgd_setup(cfg, cluster, adapter, rounds=rounds,
+                                   time_budget=time_budget,
+                                   schedule=schedule)
+    tau = schedule.tau
+    p_model = adapter.param_count
+    k_abs = codec.resolve_k(p_model)
+    skey = compression.sparsify_base_key(cfg.seed)
+    rng = np.random.default_rng(cfg.seed)       # batch-sampling stream
+    flat = initial_params(adapter, n, cfg.seed, init_params, device)
+    snaps = flat.clone()
+    err = compression.state_init(flat, codec.kind, cfg.error_feedback)
+    tx, ty = holdout_set(test_x, test_y, eval_subset, device)
+
+    hist = History()
+    done = 0
+    ev0 = 0             # global event index: the rand-k mask step
+    while done < len(schedule.rounds):
+        seg = schedule.rounds[done:done + ADPSGD_FUSE_ROUNDS]
+        batches = [round_batches(rng, data, shards, done + t, r, tau,
+                                 cfg.batch_size) for t, r in enumerate(seg)]
+        n_ev = sum(len(r.events) for r in seg)
+        alive = np.stack([r.alive for r in seg])
+        n_alive = alive.sum(1, keepdims=True)
+        cw = np.where(n_alive > 0, alive / np.maximum(n_alive, 1), 1.0 / n)
+        ew = np.where(n_alive < n, cw, 1.0 / n)
+        inp = dict(
+            bx=np.stack([b[0] for b in batches]),
+            by=np.stack([b[1] for b in batches]).astype(np.int64),
+            lrs=np.array([r.lr for r in seg], np.float32),
+            keep=np.stack([r.keep for r in seg]),
+            rw=np.stack([r.donor_w for r in seg]).astype(np.float32),
+            ew=ew.astype(np.float32), cw=cw.astype(np.float32),
+            gates=np.stack([compression.randk_scores(skey, ev0 + e, p_model)
+                            for e in range(n_ev)])
+            if codec.kind == "randk" else None)
+        flat, snaps, err, outs = _adpsgd_segment(
+            adapter, flat, snaps, err, seg, tx, ty, codec=codec, k=k_abs,
+            ef=cfg.error_feedback, gamma=cfg.sparse_gamma, tau=tau,
+            **{key: None if v is None else torch.as_tensor(v, device=device)
+               for key, v in inp.items()})
+        for t, r in enumerate(seg):
+            hist.records.append(RoundRecord(
+                round=done + t, round_time=0.0, waiting_time=0.0,
+                accuracy=float(outs["acc"][t]), loss=float(outs["loss"][t]),
+                mean_tau=float(tau), num_links=schedule.num_links,
+                consensus=float(outs["consensus"][t]),
+                cumulative_time=r.clock, staleness=r.mean_staleness))
+        done += len(seg)
+        ev0 += n_ev
     hist.final_params = adapter.unflatten(flat)
     return hist

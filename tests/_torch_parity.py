@@ -106,10 +106,11 @@ class ReplayStrategy:
         pass
 
 
-def run_reference(algo: str, churn: bool, rounds: int = ROUNDS):
+def run_reference(algo: str, churn: bool, rounds: int = ROUNDS, **cfg_kw):
     """The reference ``engine.run_dfl`` from the JAX init; returns
-    (History, RecordingStrategy)."""
-    cfg = JaxConfig(**CFG_KW, algorithm=algo)
+    (History, RecordingStrategy). ``cfg_kw`` adds config fields (e.g. a
+    codec) to ``CFG_KW``."""
+    cfg = JaxConfig(**CFG_KW, algorithm=algo, **cfg_kw)
     train, tx, ty, shards, cluster = jax_experiment.setup_experiment(
         cfg, churn=jax_churn(churn), rounds=rounds, **DATA_KW)
     strategy = RecordingStrategy(jax_make_strategy(
@@ -122,10 +123,11 @@ def run_reference(algo: str, churn: bool, rounds: int = ROUNDS):
 
 
 def run_port(algo: str, churn: bool, engine_name: str, *,
-             rounds: int = ROUNDS, replay: RecordingStrategy | None = None):
+             rounds: int = ROUNDS, replay: RecordingStrategy | None = None,
+             **cfg_kw):
     """The port's ``run_dfl`` or ``run_dfl_fused`` on the CPU from the same
     JAX init — with its own strategy, or replaying ``replay``'s plans."""
-    cfg = FedHPConfig(**CFG_KW, algorithm=algo)
+    cfg = FedHPConfig(**CFG_KW, algorithm=algo, **cfg_kw)
     train, tx, ty, shards, cluster = experiment.setup_experiment(
         cfg, churn=torch_churn(churn), rounds=rounds, device="cpu",
         **DATA_KW)
@@ -138,6 +140,41 @@ def run_port(algo: str, churn: bool, engine_name: str, *,
                init_params=params_from_jax(jax_init(cfg.seed,
                                                     cfg.num_workers)),
                device="cpu")
+
+
+def run_reference_adpsgd(churn: bool, rounds: int = ROUNDS, **cfg_kw):
+    """The reference ``engine.run_adpsgd`` (which starts from the JAX
+    init ``jax_init`` gives)."""
+    cfg = JaxConfig(**CFG_KW, algorithm="adpsgd", **cfg_kw)
+    train, tx, ty, shards, cluster = jax_experiment.setup_experiment(
+        cfg, churn=jax_churn(churn), rounds=rounds, **DATA_KW)
+    return jax_engine.run_adpsgd(train, tx, ty, shards, cluster, cfg,
+                                 rounds=rounds)
+
+
+def run_port_adpsgd(churn: bool, engine_name: str, *, rounds: int = ROUNDS,
+                    **cfg_kw):
+    """The port's ``run_adpsgd`` or ``run_adpsgd_fused`` on the CPU from
+    the JAX init."""
+    cfg = FedHPConfig(**CFG_KW, algorithm="adpsgd", **cfg_kw)
+    train, tx, ty, shards, cluster = experiment.setup_experiment(
+        cfg, churn=torch_churn(churn), rounds=rounds, device="cpu",
+        **DATA_KW)
+    run = {"reference": engine.run_adpsgd,
+           "fused": fused.run_adpsgd_fused}[engine_name]
+    return run(train, tx, ty, shards, cluster, cfg, rounds=rounds,
+               init_params=params_from_jax(jax_init(cfg.seed,
+                                                    cfg.num_workers)),
+               device="cpu")
+
+
+def worst_diffs(a: dict, b: dict) -> dict[str, float]:
+    """The largest device-metric differences of two ``as_arrays()``:
+    accuracy absolute, loss and consensus relative to ``a``."""
+    return {"accuracy": float(np.abs(a["accuracy"] - b["accuracy"]).max()),
+            **{k: float((np.abs(a[k] - b[k])
+                         / np.maximum(np.abs(a[k]), 1e-12)).max())
+               for k in ("loss", "consensus")}}
 
 
 def port_config(**kw) -> FedHPConfig:

@@ -92,13 +92,18 @@ def test_run_algorithm_on_cpu_learns(fused):
     assert arr["accuracy"][-1] > arr["accuracy"][0] > 0.2
 
 
-@pytest.mark.parametrize("field,value", [
-    ("compress", "int8"), ("compress", "topk:0.1"), ("gossip", "sparse"),
-    ("sharded", True), ("byzantine", (1,)), ("robust", "median"),
-    ("model", "dense:d=16"), ("algorithm", "adpsgd")])
-def test_unported_options_raise(field, value):
-    cfg = port_config(**{field: value})
-    algo = cfg.algorithm if field == "algorithm" else "dpsgd"
+@pytest.mark.parametrize("algo,fields", [
+    ("dpsgd", dict(compress="leafmap:default=int8")),
+    ("dpsgd", dict(gossip="sparse", compress="int8")),
+    ("dpsgd", dict(gossip="sparse")), ("dpsgd", dict(sharded=True)),
+    ("dpsgd", dict(byzantine=(1,))), ("dpsgd", dict(robust="median")),
+    ("dpsgd", dict(model="dense:d=16")),
+    ("adpsgd", dict(robust="screen:3"))],
+    ids=["compress-leafmap", "gossip-sparse-compress-int8", "gossip-sparse",
+         "sharded-True", "byzantine-value4", "robust-median",
+         "model-dense:d=16", "adpsgd-robust-screen"])
+def test_unported_options_raise(algo, fields):
+    cfg = port_config(**fields)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run_algorithm(algo, cfg, rounds=2, device="cpu")
 

@@ -1,12 +1,15 @@
-"""The port's gossip_mix kernel module against the reference.
+"""The port's kernel module against the reference: gossip_mix here, the
+wire codecs' kernels in ``tests/test_torch_codecs.py`` — and every CUDA
+kernel against its plain version on a card (the ``cuda`` cases).
 
 On the CPU ``ops.gossip_mix`` runs the kernel's plain version
 (``ref.gossip_mix_ref``); it is held against the reference's Pallas
 ``gossip_mix_2d`` in interpret mode, called as the reference's fused
 engine calls it (``repro/core/fused.py:284-290``: the flat rows padded to
 the int8 tile layout, the kernel vmapped over the output rows with all W
-rows as neighbour buffers). The CUDA kernel itself is held against the
-plain version bit for bit by the ``cuda``-marked test, on a card.
+rows as neighbour buffers). The CUDA kernels themselves are held against
+their plain versions bit for bit by the ``cuda``-marked tests, on a
+card.
 
 The file imports JAX only inside the tests that compare with it, so the
 ``cuda`` tests also run where only PyTorch is installed:
@@ -117,3 +120,47 @@ def test_cuda_kernel_bit_equal_to_plain_version(b, k, length):
     assert torch.equal(y, ref.gossip_mix_ref(x, u, w))
     if b > 2:
         assert torch.equal(y[2], x[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,p", [(30, 6922), (2, 6922), (30, 100000),
+                                 (30, 1000)])
+def test_cuda_codec_kernels_bit_equal_to_plain_versions(w, p):
+    """quantize_block, dequantize_block and sparsify_block (a gate per
+    row, and one shared row) against their plain versions on the card,
+    with identity cases: an all-zero row (floor scale, zero codes, exact
+    zeros back), a threshold of -inf (everything kept, whole tiles
+    counted) and +inf (nothing kept)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(p + w)
+    x = torch.randn(w, p, generator=gen, device="cuda")
+    x[-1] = 0.0
+    before = dict(ops.LAUNCHES)
+    q, scales = ops.quantize_block(x)
+    y = ops.dequantize_block(q, scales, p)
+    q_ref, s_ref = ref.quantize_block_ref(x)
+    assert torch.equal(q, q_ref) and torch.equal(scales, s_ref)
+    assert torch.equal(y, ref.dequantize_block_ref(q, scales, p))
+    assert not y[-1].any() and not q[-1].any()
+
+    k = max(p // 10, 1)
+    shared = torch.rand(1, p, generator=gen, device="cuda")
+    _, tile_len, n_tiles = ref.wire_tiles(p)
+    tile_sizes = torch.tensor([min(tile_len, p - t * tile_len)
+                               for t in range(n_tiles)], dtype=torch.int32,
+                              device="cuda")
+    for gate in (x.abs(), shared):
+        thresh = torch.topk(gate, k, dim=1).values[:, -1].expand(w)
+        for th in (thresh.contiguous(), torch.full((w,), -float("inf"),
+                                                   device="cuda"),
+                   torch.full((w,), float("inf"), device="cuda")):
+            y_s, nnz = ops.sparsify_block(x, gate, th)
+            y_r, nnz_r = ref.sparsify_block_ref(x, gate, th)
+            assert torch.equal(y_s, y_r) and torch.equal(nnz, nnz_r)
+        assert torch.equal(y_s, torch.zeros_like(x)) and not nnz.any()
+    full, nnz = ops.sparsify_block(x, shared, th.neg())
+    assert torch.equal(full, x) and torch.equal(nnz, tile_sizes.expand(w, -1))
+    assert ops.LAUNCHES["quantize_block"] == before["quantize_block"] + 1
+    assert ops.LAUNCHES["dequantize_block"] == before["dequantize_block"] + 1
+    assert ops.LAUNCHES["sparsify_block"] == before["sparsify_block"] + 7
