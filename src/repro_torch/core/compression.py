@@ -24,7 +24,8 @@ The codec round trips (``qdq_rows``, ``sparsify_rows``) go through
 ``kernels/ops.py``: CUDA tensors launch the hand-written quantize,
 dequantize and sparsify kernels, CPU tensors run their plain versions.
 The mixing delta ``W v - v`` stays a dense ``torch.matmul``, as the
-reference leaves it to XLA. The top-k threshold (each row's k-th largest
+reference leaves it to XLA, or over edge lists the deterministic
+segment sum ``edge_mix_delta``. The top-k threshold (each row's k-th largest
 gate) comes from ``torch.topk`` outside the kernel, as the reference
 takes it from ``lax.top_k``.
 """
@@ -35,6 +36,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.core import robust
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import BLOCK_COLS, BLOCK_ROWS
 
@@ -320,9 +322,18 @@ def compress_decompress(flat, err, *, error_feedback: bool = True,
     return yhat, (z - yhat if ef else err)
 
 
+def edge_mix_delta(v: torch.Tensor, edges) -> torch.Tensor:
+    """The sparse mixing delta ``W v - v`` = sum_{j != i} W_ij (v_j - v_i)
+    from the directed edges alone, O(E P): ``edges`` is the CSR form
+    (row_ptr, col, w) of ``topology.edges_to_csr``; each row sums its
+    edges' deltas from zero in list order, deterministic on every device
+    (the reference's ``segment_sum``)."""
+    return robust.segment_mix_delta(v, v, edges)
+
+
 def compressed_gossip_ref(flat, err, mix, *, error_feedback: bool = True,
                           kind: str = "int8", k: int = 0, scores=None,
-                          gamma: float = 1.0):
+                          gamma: float = 1.0, edges=None, mix_delta_fn=None):
     """One compressed gossip round on the flat [W, P] params with the
     dense [W, W] ``mix``, for any codec -> (x', state'):
 
@@ -333,8 +344,15 @@ def compressed_gossip_ref(flat, err, mix, *, error_feedback: bool = True,
     Both forms preserve the fleet average for a doubly stochastic W and
     are exact no-ops through an identity mix. ``err`` is the state buffer
     (``state_init``; None for the stateless codecs), ``scores`` the
-    round's rand-k mask draw on the device."""
+    round's rand-k mask draw on the device. ``edges`` (a CSR edge list;
+    pass ``mix=None``) takes the mixing delta from the edges
+    (``edge_mix_delta``); ``mix_delta_fn`` replaces it outright (the
+    fused engine's ``gossip_edges(v) - v``)."""
     def mix_delta(v):
+        if mix_delta_fn is not None:
+            return mix_delta_fn(v)
+        if edges is not None:
+            return edge_mix_delta(v, edges)
         return torch.matmul(mix, v) - v
 
     if kind == "topk" and error_feedback:

@@ -6,8 +6,11 @@ tau_i local SGD steps (the whole fleet at once, masked to tau_i — masked
 steps still run and change nothing); the simulated clock charges
 t_i = tau_i mu_i + max_j beta_ij (Eq. 10; a compressed link's beta
 divided by the codec's wire ratio); gossip mixes with the uniform matrix
-(Eq. 5-6) as ``x <- mix @ x``, or under ``cfg.compress`` through the
-codec's compensated update (``compression.compressed_gossip_ref``);
+(Eq. 5-6) as ``x <- mix @ x`` — or over the round's directed edge list
+under ``cfg.gossip="sparse"`` — or under ``cfg.compress`` through the
+codec's compensated update (``compression.compressed_gossip_ref``), or
+under the Byzantine scenario axis (``cfg.byzantine`` / ``cfg.robust``)
+over the lying wire, plainly or robustly (``core/robust.py``);
 measurements (consensus distances, update norms, the L/sigma estimates
 of Alg. 1 lines 4-5) feed back to the strategy. One Python iteration per
 round, with host syncs for the measurements: the semantic ground truth
@@ -17,7 +20,8 @@ round, with host syncs for the measurements: the semantic ground truth
 plane (heap of finish times, partners, churn at round boundaries,
 staleness) is the pure host function ``adpsgd_schedule``; the engine
 replays the events one by one — the ground truth of
-``fused.run_adpsgd_fused``.
+``fused.run_adpsgd_fused``. Attackers lie on its pairwise wire too, and
+``cfg.robust="screen:<z>"`` screens each incoming payload.
 
 Parameters live as ONE flat ``[W, P]`` f32 tensor in the reference's leaf
 layout (``modelspec``); the model sees leaf views of it. Every entry
@@ -36,6 +40,7 @@ import torch
 from repro_torch.configs.base import FedHPConfig
 from repro_torch.core import compression
 from repro_torch.core import modelspec
+from repro_torch.core import robust
 from repro_torch.core import topology as topo
 from repro_torch.core.algorithms import Strategy
 from repro_torch.core.consensus import pairwise_distances
@@ -68,10 +73,13 @@ class History:
     """Per-round trajectory of one run — the common result type of the
     engines. ``final_params`` is the last worker-stacked parameter dict
     ``{name: [W, ...]}`` (not a per-round field, so ``as_arrays``
-    ignores it)."""
+    ignores it). ``screen_rejects`` is set only by screened AD-PSGD runs
+    (``cfg.robust="screen:<z>"``): per round, the rejected pairwise
+    payloads (up to two per event, each endpoint screens its own)."""
 
     records: list[RoundRecord] = field(default_factory=list)
     final_params: object = None
+    screen_rejects: list[int] | None = None
 
     def completion_time(self, target_acc: float) -> float | None:
         """Paper metric: total time until the average model reaches
@@ -120,16 +128,19 @@ def resolve_device(device=None) -> torch.device:
 
 def check_ported(cfg: FedHPConfig, *, mesh=None, seeds=None) -> None:
     """Raise ``NotImplementedError`` for a feature the port does not run
-    yet, naming the ROADMAP.md item (queue 1) that brings it."""
+    yet, naming the ROADMAP.md item (queue 1) that brings it — after the
+    ``ValueError`` the reference raises for the Byzantine scenario axis
+    on the sharded path, which does not compose with it."""
+    sharded = cfg.sharded or mesh is not None
+    if sharded and (cfg.byzantine or cfg.robust != "none"):
+        raise ValueError(
+            "the sharded path does not compose with cfg.byzantine / "
+            "cfg.robust (data-dependent sorts are single-device-only)")
     todo = []
     if str(cfg.compress).startswith("leafmap:"):
         todo.append("compress='leafmap:...' (item 8, registry models)")
-    if cfg.gossip == "sparse":
-        todo.append("gossip='sparse' (item 6, sparse edge-list gossip)")
-    if cfg.sharded or mesh is not None:
+    if sharded:
         todo.append("sharded execution / mesh= (item 9)")
-    if cfg.byzantine or cfg.robust != "none":
-        todo.append("byzantine / robust gossip (item 7, scenario axis)")
     if seeds is not None:
         todo.append("seeds= batching (item 4, the batched seeds axis)")
     if str(cfg.model).partition(":")[0] not in ("mlp", ""):
@@ -188,6 +199,55 @@ def _local_train(adapter, flat, bx, by, taus, lr, tau_cap: int):
 def _gossip(flat, mix):
     """x_i <- sum_j mix_ij x_j (Eq. 5 in matrix form)."""
     return torch.matmul(mix, flat)
+
+
+def round_edges(adj: np.ndarray, mixing: str):
+    """The round's directed edge list in CSR form (``topology.
+    edges_to_csr``) with the per-edge mixing weights, bit-identical to
+    the dense matrix's off-diagonals: (row_ptr, col, w) as numpy."""
+    e = topo.edges_from_adj(adj)
+    src, dst, w = topo.directed_edges(
+        e, topo.edge_mixing_weights(e, adj.shape[0], mixing))
+    return topo.edges_to_csr(src, dst, w, adj.shape[0])
+
+
+def _on(arrays, device):
+    return tuple(torch.as_tensor(a, device=device) for a in arrays)
+
+
+def _gossip_scenario(flat, adj, scen, byz, *, sparse: bool, mixing: str):
+    """One round of gossip under the Byzantine scenario axis: byzantine
+    rows (``byz``, [W] bool on the device) lie on the wire; the robust
+    modes aggregate each closed neighbourhood coordinate-wise instead of
+    the weighted mix — trimmed over edge lists by peeling
+    (``robust.trimmed_mean_edges``), trimmed dense and median through the
+    gathered table — and without one the attacked baseline mixes the
+    lying wire, dense or over edges."""
+    n = flat.shape[0]
+    transmitted = (robust.apply_attack(flat, byz, scen.scale,
+                                       kind=scen.attack)
+                   if scen.has_byz else flat)
+    if scen.mode == "trimmed" and sparse:
+        e = topo.edges_from_adj(adj)
+        src, dst, _ = topo.directed_edges(e, np.zeros(e.shape[0]))
+        cnt = adj.sum(1) + 1
+        # the peeling depth, in f64 on the host as the reference has it
+        bi = np.minimum(np.floor(scen.knob * cnt) if scen.knob < 1
+                        else np.full(n, scen.knob), (cnt - 1) // 2)
+        return robust.trimmed_mean_edges(flat, transmitted, src, dst,
+                                         b=scen.knob, num_workers=n,
+                                         b_max=max(int(bi.max()), 0))
+    if scen.mode in ("trimmed", "median"):
+        nbr, deg = _on(robust.neighbor_table(adj), flat.device)
+        return robust.robust_gossip_dense(flat, transmitted, nbr, deg,
+                                          b=scen.knob, mode=scen.mode)
+    if sparse:
+        return robust.gossip_byz_edges(flat, transmitted,
+                                       _on(round_edges(adj, mixing),
+                                           flat.device))
+    mix = torch.as_tensor(mixing_fn(mixing)(adj), dtype=torch.float32,
+                          device=flat.device)
+    return robust.gossip_byz_dense(flat, transmitted, mix)
 
 
 def _blend_joined(flat, keep, w):
@@ -358,6 +418,7 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
     the GPU (raises without one); ``"cpu"`` runs on the CPU."""
     device = resolve_device(device)
     check_ported(cfg, mesh=mesh)
+    scen = robust.scenario(cfg, asynchronous=False)
     rounds = rounds or cfg.rounds
     n = cfg.num_workers
     rng = np.random.default_rng(cfg.seed)
@@ -379,6 +440,8 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
     p_model = adapter.param_count
     skey = compression.sparsify_base_key(cfg.seed)
     err = compression.state_init(flat, codec0.kind, cfg.error_feedback)
+    sparse = cfg.gossip == "sparse"
+    byz = torch.as_tensor(scen.byz, device=device)
 
     hist = History()
     clock = 0.0
@@ -423,8 +486,22 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
                                        cfg.crash_timeout, comm_ratio)
         clock += t_round
 
-        # --- gossip aggregation (Eq. 5-6), optionally compressed ---
-        if adj.sum() > 0:
+        # --- gossip aggregation (Eq. 5-6): the Byzantine scenario axis,
+        # or dense / over the round's edge list, optionally compressed ---
+        if adj.sum() > 0 and scen.active:
+            flat = _gossip_scenario(flat, adj, scen, byz, sparse=sparse,
+                                    mixing=mixing)
+        elif adj.sum() > 0 and sparse:
+            csr = _on(round_edges(adj, mixing), device)
+            if compress:
+                flat, err = compression.compressed_gossip_ref(
+                    flat, err, None, error_feedback=cfg.error_feedback,
+                    kind=rcodec.kind, k=rcodec.resolve_k(p_model),
+                    scores=randk_gate(rcodec, skey, h, p_model, device),
+                    gamma=cfg.sparse_gamma, edges=csr)
+            else:
+                flat = flat + compression.edge_mix_delta(flat, csr)
+        elif adj.sum() > 0:
             mix = torch.as_tensor(mixfn(adj), dtype=torch.float32,
                                   device=device)
             if compress:
@@ -436,7 +513,9 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
             else:
                 flat = _gossip(flat, mix)
 
-        # --- measurements (Alg. 1 lines 4-5, 9-10) ---
+        # --- measurements (Alg. 1 lines 4-5, 9-10), over the honest
+        # alive workers (byzantine rows are adversaries, not clients) ---
+        meas = scen.honest(alive)
         losses, ls, sigs, upds = (
             v.cpu().numpy() for v in _measure(adapter, flat, prev, ex, ey,
                                               px, py))
@@ -448,14 +527,14 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
         strategy.observe(
             h, adj=adj, mu=mu, beta=beta,
             edge_dist=pairwise_distances(flat_np),
-            update_norms=upds[alive] if alive.any() else [0.0],
-            smooth_l=float(np.median(ls[alive])),
-            sigma=float(np.median(sigs[alive])),
-            loss=float(np.mean(losses[alive])),
+            update_norms=upds[meas] if meas.any() else [0.0],
+            smooth_l=float(np.median(ls[meas])),
+            sigma=float(np.median(sigs[meas])),
+            loss=float(np.mean(losses[meas])),
             cross_loss=cross, alive=alive, wire_ratio=comm_ratio)
 
-        mean_acc, mean_loss = _mean_accuracy(adapter, flat, tx, ty, alive)
-        fa = flat_np[alive] if alive.any() else flat_np
+        mean_acc, mean_loss = _mean_accuracy(adapter, flat, tx, ty, meas)
+        fa = flat_np[meas] if meas.any() else flat_np
         d_bar = float(np.linalg.norm(fa - fa.mean(0), axis=1).mean())
         hist.records.append(RoundRecord(
             round=h, round_time=t_round, waiting_time=waiting,
@@ -559,6 +638,7 @@ def adpsgd_schedule(cluster: SimCluster, cfg: FedHPConfig, *,
     neighbors = [np.nonzero(ring[i])[0] for i in range(n)]
     tau = cfg.tau_init
     codec = compression.parse_mode(cfg.compress)
+    robust.scenario(cfg, asynchronous=True)      # the reference's rejects
     comm_ratio = codec.wire_ratio(
         p_model if p_model is not None
         else int(cluster.model_bits // compression.FP32_BITS))
@@ -639,17 +719,54 @@ def _pair_average(xi: torch.Tensor, xj: torch.Tensor) -> torch.Tensor:
     return 0.5 * (xi + xj)
 
 
-def adpsgd_join(flat, snaps, err, keep, donor_w, kind: str, ef: bool):
+def adpsgd_join(flat, snaps, err, histn, keep, donor_w, kind: str,
+                ef: bool):
     """The join re-initialisation before a round's events: rows in
     ``keep`` ([W] bool) adopt the ``donor_w``-weighted average of the
-    fleet, a fresh snapshot and a reset codec state -> (flat, snaps,
-    err)."""
+    fleet, a fresh snapshot, a reset codec state and a fresh screening
+    history -> (flat, snaps, err, histn)."""
     flat = _blend_joined(flat, keep, donor_w)
     snaps = torch.where(keep[:, None], flat, snaps)
     if err is not None:
         err = compression.state_after_join(err, keep[:, None], flat, kind,
                                            ef)
-    return flat, snaps, err
+    histn = torch.where(keep, torch.zeros((), device=histn.device), histn)
+    return flat, snaps, err, histn
+
+
+def adpsgd_event_lying(adapter, flat, snaps, histn, ev: AdpsgdEvent, bx, by,
+                       lr, tau: int, pair_mix, scen):
+    """One AD-PSGD event over a lying wire, in place on ``flat``,
+    ``snaps`` and the screening history ``histn`` [W]: byzantine
+    endpoints transmit a corrupted copy of their row (no wire on a
+    self-event), each endpoint mixes its row with the payload it
+    receives — ``pair_mix(a, b)`` [2, P] takes row r to the average of
+    a[r] and b[r] — and under ``screen:<z>`` worker i first folds its
+    fresh delta norm into its history, then each endpoint keeps its own
+    row if the payload fails its z-test. Returns the event's rejections
+    (a 0-d tensor on the device; None when nothing is screened)."""
+    i, j = ev.worker, ev.partner
+    delta = _adpsgd_delta(adapter, snaps[i], bx, by, lr, tau)
+    xi, xj = flat[i] + delta, flat[j].clone()
+    wire = i != j
+    ti = robust.attack_row(xi, wire and scen.byz[i], scen.scale,
+                           kind=scen.attack)
+    tj = robust.attack_row(xj, wire and scen.byz[j], scen.scale,
+                           kind=scen.attack)
+    row_i, row_j = pair_mix(torch.stack([xi, ti]), torch.stack([tj, xj]))
+    rejects = None
+    if scen.mode == "screen":
+        h_i = robust.screen_fold(histn[i], torch.linalg.vector_norm(delta))
+        histn[i] = h_i
+        if wire:
+            acc_i = robust.screen_accept(xi, tj, h_i, scen.knob)
+            acc_j = robust.screen_accept(xj, ti, histn[j], scen.knob)
+            row_i = torch.where(acc_i, row_i, xi)
+            row_j = torch.where(acc_j, row_j, xj)
+            rejects = (~acc_i).to(torch.int32) + (~acc_j).to(torch.int32)
+    flat[i], flat[j] = row_i, row_j
+    snaps[i] = flat[i]
+    return rejects
 
 
 def adpsgd_event(adapter, flat, snaps, err, ev: AdpsgdEvent, bx, by, lr,
@@ -680,20 +797,22 @@ def adpsgd_event(adapter, flat, snaps, err, ev: AdpsgdEvent, bx, by, lr,
 
 def adpsgd_setup(cfg: FedHPConfig, cluster: SimCluster, adapter, *, rounds,
                  time_budget, schedule):
-    """The shared preamble of both AD-PSGD engines -> (codec, schedule):
-    the parsed ``cfg.compress`` and the event schedule (generated unless
-    an explicit ``schedule`` replays one verbatim)."""
+    """The shared preamble of both AD-PSGD engines -> (codec, scenario,
+    schedule): the parsed ``cfg.compress``, the Byzantine scenario axis
+    and the event schedule (generated unless an explicit ``schedule``
+    replays one verbatim)."""
+    scen = robust.scenario(cfg, asynchronous=True)
     codec = compression.parse_mode(cfg.compress)
     if schedule is None:
-        return codec, adpsgd_schedule(cluster, cfg, rounds=rounds,
-                                      time_budget=time_budget,
-                                      p_model=adapter.param_count)
+        return codec, scen, adpsgd_schedule(cluster, cfg, rounds=rounds,
+                                            time_budget=time_budget,
+                                            p_model=adapter.param_count)
     if time_budget is not None:
         raise ValueError(
             "time_budget only applies while GENERATING a schedule; an "
             "explicit schedule= replays verbatim (apply the budget in "
             "adpsgd_schedule instead)")
-    return codec, schedule
+    return codec, scen, schedule
 
 
 def round_batches(rng, data: Dataset, shards, rnd_idx: int,
@@ -730,6 +849,10 @@ def run_adpsgd(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
     ``fused.run_adpsgd_fused`` is held against. ``cfg.compress`` ("int8"
     / "topk:<k>" / "randk:<k>") switches the pairwise exchange to the
     codec's compensated update (``compression.compressed_pair_ref``).
+    ``cfg.byzantine`` workers lie on the pairwise wire and
+    ``cfg.robust="screen:<z>"`` screens each incoming payload
+    (``adpsgd_event_lying``), with the rejections per round in
+    ``History.screen_rejects``; the metrics cover the honest workers.
 
     ``init_params`` and ``device`` as in ``run_dfl``. The live rows, the
     snapshots and the codec state are [W, P] tensors updated in place,
@@ -740,9 +863,10 @@ def run_adpsgd(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
     n = cfg.num_workers
     if adapter is None:
         adapter = modelspec.adapter_for(cfg, data, hidden=hidden)
-    codec, schedule = adpsgd_setup(cfg, cluster, adapter, rounds=rounds,
-                                   time_budget=time_budget,
-                                   schedule=schedule)
+    codec, scen, schedule = adpsgd_setup(cfg, cluster, adapter,
+                                         rounds=rounds,
+                                         time_budget=time_budget,
+                                         schedule=schedule)
     rng = np.random.default_rng(cfg.seed)       # batch-sampling stream
     flat = initial_params(adapter, n, cfg.seed, init_params, device)
     tx, ty = holdout_set(test_x, test_y, eval_subset, device)
@@ -753,12 +877,16 @@ def run_adpsgd(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
     skey = compression.sparsify_base_key(cfg.seed)
     ev_idx = 0          # global event counter: the rand-k mask step
     snaps = flat.clone()    # per-worker snapshot its computation started at
+    histn = torch.zeros(n, device=device)       # own-delta-norm EMA
 
     hist = History()
+    if scen.mode == "screen":
+        hist.screen_rejects = []
     for rnd_idx, rnd in enumerate(schedule.rounds):
         if rnd.keep.any():
-            flat, snaps, err = adpsgd_join(
-                flat, snaps, err, torch.as_tensor(rnd.keep, device=device),
+            flat, snaps, err, histn = adpsgd_join(
+                flat, snaps, err, histn,
+                torch.as_tensor(rnd.keep, device=device),
                 torch.as_tensor(rnd.donor_w, dtype=torch.float32,
                                 device=device),
                 codec.kind, cfg.error_feedback)
@@ -767,17 +895,25 @@ def run_adpsgd(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
         bx = torch.as_tensor(bx, device=device)
         by = torch.as_tensor(by, device=device).long()
         lr = torch.tensor(rnd.lr, dtype=torch.float32, device=device)
+        rejects = 0
         for e_k, ev in enumerate(rnd.events):
-            adpsgd_event(adapter, flat, snaps, err, ev, bx[e_k], by[e_k], lr,
-                         tau, _pair_average, codec=codec, k=k_abs,
-                         ef=cfg.error_feedback, gamma=cfg.sparse_gamma,
-                         scores=randk_gate(codec, skey, ev_idx, p_model,
-                                           device))
+            if scen.active:
+                r = adpsgd_event_lying(adapter, flat, snaps, histn, ev,
+                                       bx[e_k], by[e_k], lr, tau,
+                                       _pair_average, scen)
+                rejects = rejects if r is None else rejects + r
+            else:
+                adpsgd_event(adapter, flat, snaps, err, ev, bx[e_k],
+                             by[e_k], lr, tau, _pair_average, codec=codec,
+                             k=k_abs, ef=cfg.error_feedback,
+                             gamma=cfg.sparse_gamma,
+                             scores=randk_gate(codec, skey, ev_idx, p_model,
+                                               device))
             ev_idx += 1
-        alive = rnd.alive
-        mean_acc, mean_loss = _mean_accuracy(adapter, flat, tx, ty, alive)
+        meas = scen.honest(rnd.alive)
+        mean_acc, mean_loss = _mean_accuracy(adapter, flat, tx, ty, meas)
         flat_np = flat.cpu().numpy()
-        fa = flat_np[alive] if alive.any() else flat_np
+        fa = flat_np[meas] if meas.any() else flat_np
         d_bar = float(np.linalg.norm(fa - fa.mean(0), axis=1).mean())
         hist.records.append(RoundRecord(
             round=len(hist.records), round_time=0.0,
@@ -785,5 +921,7 @@ def run_adpsgd(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
             accuracy=mean_acc, loss=mean_loss, mean_tau=float(tau),
             num_links=schedule.num_links, consensus=d_bar,
             cumulative_time=rnd.clock, staleness=rnd.mean_staleness))
+        if hist.screen_rejects is not None:
+            hist.screen_rejects.append(int(rejects))
     hist.final_params = adapter.unflatten(flat)
     return hist

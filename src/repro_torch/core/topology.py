@@ -403,6 +403,21 @@ def directed_edges(edges: np.ndarray,
     return src, dst, np.concatenate([w, w])
 
 
+def edges_to_csr(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
+                 n: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Directed ``(src, dst, w)`` -> the CSR form the port's edge kernels
+    walk: ``(row_ptr [n + 1] int32, col [E] int32, w [E] f32)``, row d
+    holding the sources and weights of the edges into d. The sort by
+    destination is stable, so each row keeps its edges in list order —
+    the order the reference adds them in."""
+    dst = np.asarray(dst).reshape(-1)
+    order = np.argsort(dst, kind="stable")
+    row_ptr = np.zeros(n + 1, np.int32)
+    np.cumsum(np.bincount(dst, minlength=n), out=row_ptr[1:])
+    return (row_ptr, np.asarray(src, np.int32).reshape(-1)[order],
+            np.asarray(w, np.float32).reshape(-1)[order])
+
+
 def connected_components_edges(edges: np.ndarray, n: int,
                                nodes: np.ndarray | None = None
                                ) -> list[np.ndarray]:

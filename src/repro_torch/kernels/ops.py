@@ -35,12 +35,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"gossip_mix": 0, "quantize_block": 0, "dequantize_block": 0,
-            "sparsify_block": 0}
+            "sparsify_block": 0, "gossip_edges": 0, "robust_gossip": 0}
 
 # gossip_mix stages one row of weights in static shared memory (48 KB);
 # every kernel puts its rows (B, or the W workers) on the grid's y axis
 _MAX_NEIGHBORS = 48 * 1024 // 4
 _MAX_ROWS = 65535
+# robust_gossip's template instances: one per power of two up to this
+# many neighbours (a window of D_PAD + 1 registers a thread)
+ROBUST_MAX_DEGREE = 64
 
 _lib = None
 
@@ -110,8 +113,14 @@ def _library() -> ctypes.CDLL:
         lib.sparsify_block_f32.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64] + \
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.gossip_edges_f32.argtypes = [ctypes.c_void_p] * 6 + \
+            [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.robust_gossip_f32.argtypes = [ctypes.c_void_p] * 5 + \
+            [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+                                  ctypes.c_void_p]
         for fn in (lib.gossip_mix_f32, lib.quantize_block_f32,
-                   lib.dequantize_block_f32, lib.sparsify_block_f32):
+                   lib.dequantize_block_f32, lib.sparsify_block_f32,
+                   lib.gossip_edges_f32, lib.robust_gossip_f32):
             fn.restype = ctypes.c_int
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
@@ -258,3 +267,73 @@ def sparsify_block(x: torch.Tensor, gate: torch.Tensor,
             x.data_ptr(), gate.data_ptr(), gate_stride, thresh.data_ptr(),
             y.data_ptr(), nnz.data_ptr(), w, p, tile_len, n_tiles)
     return y, nnz
+
+
+def gossip_edges(x: torch.Tensor, t: torch.Tensor, row_ptr: torch.Tensor,
+                 col: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Sparse Eq. 5 over a CSR edge list sorted by destination: y[d] =
+    x[d] + sum_e w_e (t[col_e] - x[d]), row d's edges in list order.
+
+    x, t: [W, P] f32 (t = x for honest gossip, the transmitted copy for
+    a lying wire); row_ptr [W + 1], col [E] int32; w [E] f32
+    (``core/topology.edges_to_csr``). CPU tensors run the plain version
+    (``ref.gossip_edges_ref``); CUDA tensors launch the kernel."""
+    if x.dim() != 2 or t.shape != x.shape or row_ptr.dim() != 1 or \
+            row_ptr.shape[0] != x.shape[0] + 1 or col.dim() != 1 or \
+            w.shape != col.shape:
+        raise ValueError("gossip_edges takes x, t [W, P], row_ptr [W + 1], "
+                         f"col [E], w [E]; got {tuple(x.shape)}, "
+                         f"{tuple(t.shape)}, {tuple(row_ptr.shape)}, "
+                         f"{tuple(col.shape)}, {tuple(w.shape)}")
+    if _on_cpu(x, t, row_ptr, col, w):
+        return ref.gossip_edges_ref(x, t, row_ptr, col, w)
+    _check_cuda("gossip_edges", {"x": x, "t": t, "row_ptr": row_ptr,
+                                 "col": col, "w": w},
+                {"row_ptr": torch.int32, "col": torch.int32})
+    n, p = x.shape
+    _check_rows("gossip_edges", n, p)
+    y = torch.empty_like(x)
+    _launch("gossip_edges", _library().gossip_edges_f32, x.device,
+            x.data_ptr(), t.data_ptr(), row_ptr.data_ptr(), col.data_ptr(),
+            w.data_ptr(), y.data_ptr(), n, p)
+    return y
+
+
+def robust_gossip(x: torch.Tensor, t: torch.Tensor, nbr: torch.Tensor,
+                  deg: torch.Tensor, *, b: float, mode: str) -> torch.Tensor:
+    """Coordinate-wise robust aggregation of each worker's closed
+    neighbourhood: its own row x[i] and the transmitted rows
+    t[nbr[i, :deg[i]]], trimmed mean (``mode="trimmed"``, trim knob
+    ``b``: a fraction of the neighbourhood when < 1, else a count) or
+    median (``mode="median"``); deg 0 keeps x[i].
+
+    x, t: [W, P] f32; nbr: [W, D] int32 padded table, D <=
+    ``ROBUST_MAX_DEGREE``; deg: [W] int32. CPU tensors run the plain
+    version (``ref.robust_gossip_ref``); CUDA tensors launch the kernel
+    instance for D rounded up to a power of two, and raise above the
+    largest instance."""
+    if mode not in ("trimmed", "median"):
+        raise ValueError(f"unknown robust mode {mode!r}")
+    if x.dim() != 2 or t.shape != x.shape or nbr.dim() != 2 or \
+            nbr.shape[0] != x.shape[0] or tuple(deg.shape) != (x.shape[0],):
+        raise ValueError("robust_gossip takes x, t [W, P], nbr [W, D], "
+                         f"deg [W]; got {tuple(x.shape)}, {tuple(t.shape)}, "
+                         f"{tuple(nbr.shape)}, {tuple(deg.shape)}")
+    d = nbr.shape[1]
+    if d > ROBUST_MAX_DEGREE:
+        raise ValueError(f"robust_gossip supports neighbour tables of D <= "
+                         f"{ROBUST_MAX_DEGREE} (its largest kernel "
+                         f"instance); got D={d}")
+    if _on_cpu(x, t, nbr, deg):
+        return ref.robust_gossip_ref(x, t, nbr, deg, b=b, mode=mode)
+    _check_cuda("robust_gossip", {"x": x, "t": t, "nbr": nbr, "deg": deg},
+                {"nbr": torch.int32, "deg": torch.int32})
+    n, p = x.shape
+    _check_rows("robust_gossip", n, p)
+    d_pad = 1 << max(d - 1, 0).bit_length()
+    y = torch.empty_like(x)
+    _launch("robust_gossip", _library().robust_gossip_f32, x.device,
+            x.data_ptr(), t.data_ptr(), nbr.data_ptr(), deg.data_ptr(),
+            y.data_ptr(), n, p, d, d_pad, int(mode == "median"), float(b),
+            int(b) if b >= 1.0 else -1)
+    return y

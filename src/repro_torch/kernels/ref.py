@@ -86,3 +86,90 @@ def sparsify_block_ref(x: torch.Tensor, gate: torch.Tensor,
     y = torch.where(keep, x, torch.zeros((), dtype=x.dtype))
     nnz = _tiled(keep.expand(w, p).to(torch.int32), tile_len, n_tiles)
     return y, nnz.sum(dim=2, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# edge-list gossip and robust aggregation
+# ---------------------------------------------------------------------------
+
+def csr_slots(row_ptr: torch.Tensor, col: torch.Tensor, w: torch.Tensor):
+    """The CSR edge list slot by slot: for j = 0 .. max in-degree - 1
+    yields (w_j [W], col_j [W]), the weight and source of every row's
+    j-th incoming edge (weight 0 and source 0 where a row has fewer than
+    j + 1 edges). Walking the slots in order adds each row's edges in
+    list order, as the kernels do."""
+    start = row_ptr[:-1].long()
+    count = row_ptr[1:].long() - start
+    slots = int(count.max()) if count.numel() else 0
+    for j in range(slots):
+        valid = count > j
+        e = torch.where(valid, start + j, torch.zeros_like(start))
+        yield (torch.where(valid, w[e], torch.zeros((), dtype=w.dtype,
+                                                     device=w.device)),
+               torch.where(valid, col[e].long(), torch.zeros_like(start)))
+
+
+def gossip_edges_ref(x: torch.Tensor, t: torch.Tensor, row_ptr: torch.Tensor,
+                     col: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x, t: [W, C] f32; a CSR edge list sorted by destination (row_ptr
+    [W + 1], col [E] the sources, w [E] the weights) -> y[d] = x[d] +
+    sum_e w_e (t[col_e] - x[d]) over row d's edges in list order, one
+    rounding per subtract, multiply and add — the kernel's order, so the
+    two agree bit for bit. Empty slots carry weight 0 and add an exact
+    zero; t = x is honest gossip, t != x a lying wire."""
+    acc = x
+    for wj, cj in csr_slots(row_ptr, col, w):
+        acc = acc + wj[:, None] * (t[cj] - x)
+    return acc
+
+
+def resolve_trim(b: float, cnt: torch.Tensor) -> torch.Tensor:
+    """Per-worker trim count from the spec's ``b`` and the closed
+    neighbourhood sizes ``cnt`` (int): a fractional b scales with cnt as
+    floor(b · cnt) in f32, an absolute b is int(b); clamped to
+    (cnt - 1) // 2 so the trimmed window is never empty."""
+    if b < 1.0:
+        bi = torch.floor(torch.tensor(b, dtype=torch.float32,
+                                      device=cnt.device)
+                         * cnt.to(torch.float32)).to(cnt.dtype)
+    else:
+        bi = torch.full_like(cnt, int(b))
+    return torch.minimum(bi, torch.div(cnt - 1, 2, rounding_mode="floor"))
+
+
+def robust_gossip_ref(x: torch.Tensor, t: torch.Tensor, nbr: torch.Tensor,
+                      deg: torch.Tensor, *, b: float,
+                      mode: str) -> torch.Tensor:
+    """x, t: [W, C] f32; nbr: [W, D] padded neighbour table; deg: [W] ->
+    per worker the coordinate-wise ``mode`` statistic of its own row x[i]
+    and the transmitted rows t[nbr[i, :deg[i]]]: the window is sorted
+    ascending (+inf in the padding slots sinks past it), then
+    ``"trimmed"`` averages positions [b_i, cnt - b_i) (cnt = deg + 1,
+    b_i = ``resolve_trim``), added in ascending position order and
+    divided by cnt - 2 b_i, and ``"median"`` is half the sum of the two
+    middle order statistics. Workers with deg 0 keep their row."""
+    n, d_pad = nbr.shape
+    deg = deg.long()
+    slot = torch.arange(d_pad, device=x.device)[None, :]
+    gathered = torch.where((slot < deg[:, None])[:, :, None],
+                           t[nbr.long()], float("inf"))
+    sv = torch.sort(torch.cat([x[:, None, :], gathered], dim=1), dim=1).values
+    cnt = deg + 1
+    if mode == "trimmed":
+        bi = resolve_trim(b, cnt)
+        acc = torch.zeros_like(x)
+        for pos in range(d_pad + 1):
+            inside = ((pos >= bi) & (pos < cnt - bi))[:, None]
+            acc = acc + torch.where(inside, sv[:, pos], 0.0)
+        # a tensor divisor: on CUDA a Python scalar divisor becomes a
+        # reciprocal multiply
+        y = acc / (cnt - 2 * bi).to(torch.float32)[:, None]
+    elif mode == "median":
+        lo = torch.div(cnt - 1, 2, rounding_mode="floor")[:, None, None]
+        hi = torch.div(cnt, 2, rounding_mode="floor")[:, None, None]
+        idx = lambda k: k.expand(n, 1, x.shape[1])  # noqa: E731
+        y = 0.5 * (torch.gather(sv, 1, idx(lo))[:, 0]
+                   + torch.gather(sv, 1, idx(hi))[:, 0])
+    else:
+        raise ValueError(f"unknown robust mode {mode!r}")
+    return torch.where((deg > 0)[:, None], y, x)

@@ -106,11 +106,12 @@ class ReplayStrategy:
         pass
 
 
-def run_reference(algo: str, churn: bool, rounds: int = ROUNDS, **cfg_kw):
+def run_reference(algo: str, churn: bool, rounds: int = ROUNDS, *,
+                  mixing: str = "uniform", **cfg_kw):
     """The reference ``engine.run_dfl`` from the JAX init; returns
     (History, RecordingStrategy). ``cfg_kw`` adds config fields (e.g. a
-    codec) to ``CFG_KW``."""
-    cfg = JaxConfig(**CFG_KW, algorithm=algo, **cfg_kw)
+    codec) to ``CFG_KW`` or overrides them."""
+    cfg = JaxConfig(**{**CFG_KW, **cfg_kw}, algorithm=algo)
     train, tx, ty, shards, cluster = jax_experiment.setup_experiment(
         cfg, churn=jax_churn(churn), rounds=rounds, **DATA_KW)
     strategy = RecordingStrategy(jax_make_strategy(
@@ -118,16 +119,16 @@ def run_reference(algo: str, churn: bool, rounds: int = ROUNDS, **cfg_kw):
                                cfg.seed)))
     hist = jax_engine.run_dfl(
         train, tx, ty, shards, cluster, cfg, strategy, rounds=rounds,
-        init_params=jax_init(cfg.seed, cfg.num_workers))
+        mixing=mixing, init_params=jax_init(cfg.seed, cfg.num_workers))
     return hist, strategy
 
 
 def run_port(algo: str, churn: bool, engine_name: str, *,
              rounds: int = ROUNDS, replay: RecordingStrategy | None = None,
-             **cfg_kw):
+             mixing: str = "uniform", **cfg_kw):
     """The port's ``run_dfl`` or ``run_dfl_fused`` on the CPU from the same
     JAX init — with its own strategy, or replaying ``replay``'s plans."""
-    cfg = FedHPConfig(**CFG_KW, algorithm=algo, **cfg_kw)
+    cfg = FedHPConfig(**{**CFG_KW, **cfg_kw}, algorithm=algo)
     train, tx, ty, shards, cluster = experiment.setup_experiment(
         cfg, churn=torch_churn(churn), rounds=rounds, device="cpu",
         **DATA_KW)
@@ -137,6 +138,7 @@ def run_port(algo: str, churn: bool, engine_name: str, *,
     run = {"reference": engine.run_dfl,
            "fused": fused.run_dfl_fused}[engine_name]
     return run(train, tx, ty, shards, cluster, cfg, strategy, rounds=rounds,
+               mixing=mixing,
                init_params=params_from_jax(jax_init(cfg.seed,
                                                     cfg.num_workers)),
                device="cpu")
@@ -145,7 +147,7 @@ def run_port(algo: str, churn: bool, engine_name: str, *,
 def run_reference_adpsgd(churn: bool, rounds: int = ROUNDS, **cfg_kw):
     """The reference ``engine.run_adpsgd`` (which starts from the JAX
     init ``jax_init`` gives)."""
-    cfg = JaxConfig(**CFG_KW, algorithm="adpsgd", **cfg_kw)
+    cfg = JaxConfig(**{**CFG_KW, **cfg_kw}, algorithm="adpsgd")
     train, tx, ty, shards, cluster = jax_experiment.setup_experiment(
         cfg, churn=jax_churn(churn), rounds=rounds, **DATA_KW)
     return jax_engine.run_adpsgd(train, tx, ty, shards, cluster, cfg,
@@ -156,7 +158,7 @@ def run_port_adpsgd(churn: bool, engine_name: str, *, rounds: int = ROUNDS,
                     **cfg_kw):
     """The port's ``run_adpsgd`` or ``run_adpsgd_fused`` on the CPU from
     the JAX init."""
-    cfg = FedHPConfig(**CFG_KW, algorithm="adpsgd", **cfg_kw)
+    cfg = FedHPConfig(**{**CFG_KW, **cfg_kw}, algorithm="adpsgd")
     train, tx, ty, shards, cluster = experiment.setup_experiment(
         cfg, churn=torch_churn(churn), rounds=rounds, device="cpu",
         **DATA_KW)

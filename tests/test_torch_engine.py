@@ -94,14 +94,17 @@ def test_run_algorithm_on_cpu_learns(fused):
 
 @pytest.mark.parametrize("algo,fields", [
     ("dpsgd", dict(compress="leafmap:default=int8")),
-    ("dpsgd", dict(gossip="sparse", compress="int8")),
-    ("dpsgd", dict(gossip="sparse")), ("dpsgd", dict(sharded=True)),
-    ("dpsgd", dict(byzantine=(1,))), ("dpsgd", dict(robust="median")),
+    ("dpsgd", dict(gossip="sparse", compress="leafmap:default=int8")),
+    ("dpsgd", dict(gossip="sparse", sharded=True)),
+    ("dpsgd", dict(sharded=True)),
+    ("dpsgd", dict(gossip="sparse", model="dense:d=16")),
+    ("dpsgd", dict(robust="median", model="dense:d=16")),
     ("dpsgd", dict(model="dense:d=16")),
-    ("adpsgd", dict(robust="screen:3"))],
-    ids=["compress-leafmap", "gossip-sparse-compress-int8", "gossip-sparse",
-         "sharded-True", "byzantine-value4", "robust-median",
-         "model-dense:d=16", "adpsgd-robust-screen"])
+    ("adpsgd", dict(robust="screen:3", compress="leafmap:default=int8"))],
+    ids=["compress-leafmap", "gossip-sparse-compress-leafmap",
+         "gossip-sparse-sharded", "sharded-True", "gossip-sparse-model-dense",
+         "robust-median-model-dense", "model-dense:d=16",
+         "adpsgd-robust-screen-leafmap"])
 def test_unported_options_raise(algo, fields):
     cfg = port_config(**fields)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

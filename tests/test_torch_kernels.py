@@ -1,6 +1,8 @@
 """The port's kernel module against the reference: gossip_mix here, the
-wire codecs' kernels in ``tests/test_torch_codecs.py`` — and every CUDA
-kernel against its plain version on a card (the ``cuda`` cases).
+wire codecs' kernels in ``tests/test_torch_codecs.py``, gossip_edges in
+``tests/test_torch_sparse_gossip.py``, robust_gossip in
+``tests/test_torch_robust.py`` — the wrappers' shape checks, and every
+CUDA kernel against its plain version on a card (the ``cuda`` cases).
 
 On the CPU ``ops.gossip_mix`` runs the kernel's plain version
 (``ref.gossip_mix_ref``); it is held against the reference's Pallas
@@ -23,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import topology as topo
 from repro_torch.core.topology import erdos_topology, mixing_matrix_uniform
 from repro_torch.kernels import ops, ref
 
@@ -87,6 +90,33 @@ def test_gossip_mix_rejects_bad_shapes(shapes):
     x, u, w = (torch.zeros(s) for s in shapes)
     with pytest.raises(ValueError):
         ops.gossip_mix(x, u, w)
+
+
+def test_gossip_edges_rejects_bad_shapes():
+    x = torch.zeros(4, 10)
+    row_ptr = torch.zeros(5, dtype=torch.int32)
+    col = torch.zeros(3, dtype=torch.int32)
+    w = torch.zeros(3)
+    for args in ((x, torch.zeros(4, 9), row_ptr, col, w),
+                 (x, x, torch.zeros(4, dtype=torch.int32), col, w),
+                 (x, x, row_ptr, col, torch.zeros(2))):
+        with pytest.raises(ValueError):
+            ops.gossip_edges(*args)
+
+
+def test_robust_gossip_rejects_bad_calls():
+    x = torch.zeros(4, 10)
+    deg = torch.ones(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match=str(ops.ROBUST_MAX_DEGREE)):
+        ops.robust_gossip(x, x, torch.zeros(4, ops.ROBUST_MAX_DEGREE + 1,
+                                            dtype=torch.int32), deg, b=1.0,
+                          mode="trimmed")
+    with pytest.raises(ValueError):
+        ops.robust_gossip(x, x, torch.zeros(3, 2, dtype=torch.int32), deg,
+                          b=1.0, mode="trimmed")
+    with pytest.raises(ValueError):
+        ops.robust_gossip(x, x, torch.zeros(4, 2, dtype=torch.int32), deg,
+                          b=1.0, mode="mean")
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -164,3 +194,86 @@ def test_cuda_codec_kernels_bit_equal_to_plain_versions(w, p):
     assert ops.LAUNCHES["quantize_block"] == before["quantize_block"] + 1
     assert ops.LAUNCHES["dequantize_block"] == before["dequantize_block"] + 1
     assert ops.LAUNCHES["sparsify_block"] == before["sparsify_block"] + 7
+
+
+def _edge_case_graph(w: int, spec: str, seed: int):
+    """A ``spec`` graph's directed edges in CSR form with uniform
+    weights, one worker cut off (a row with no edges)."""
+    adj = topo.make_base_topology(w, spec, seed)
+    adj[3, :] = adj[:, 3] = 0
+    e = topo.edges_from_adj(adj)
+    src, dst, wts = topo.directed_edges(e, topo.edge_mixing_weights(e, w))
+    return adj, src, dst, wts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,spec", [(30, "full"), (30, "ring"),
+                                    (2048, "ring"), (2048, "ba:2")])
+def test_cuda_gossip_edges_bit_equal_to_plain_version(w, spec):
+    """gossip_edges against its plain version on the card: t = x and
+    t != x, a row with no edges, and zero-weight padding edges and
+    entries past row_ptr[W] (exact no-ops)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    _, src, dst, wts = _edge_case_graph(w, spec, seed=w)
+    pad = 8
+    src_p = np.concatenate([src, np.zeros(pad, np.int32)])
+    dst_p = np.concatenate([dst, np.zeros(pad, np.int32)])
+    wts_p = np.concatenate([wts, np.zeros(pad, np.float32)])
+    csr = [torch.from_numpy(a).cuda() for a in
+           topo.edges_to_csr(src, dst, wts, w)]
+    csr_p = [torch.from_numpy(a).cuda() for a in
+             topo.edges_to_csr(src_p, dst_p, wts_p, w)]
+    gen = torch.Generator(device="cuda").manual_seed(w)
+    x = torch.randn(w, 6922, generator=gen, device="cuda")
+    t = torch.where(torch.arange(w, device="cuda")[:, None] % 5 == 0, -x, x)
+    before = ops.LAUNCHES["gossip_edges"]
+    for src_rows in (x, t):
+        y = ops.gossip_edges(x, src_rows, *csr)
+        assert torch.equal(y, ref.gossip_edges_ref(x, src_rows, *csr))
+        assert torch.equal(y, ops.gossip_edges(x, src_rows, *csr_p))
+        assert torch.equal(y[3], x[3])
+    row_ptr, col, wt = csr
+    tail = torch.full((5,), 1, dtype=torch.int32, device="cuda")
+    y = ops.gossip_edges(x, x, row_ptr, torch.cat([col, tail]),
+                         torch.cat([wt, tail.float()]))
+    assert torch.equal(y, ref.gossip_edges_ref(x, x, *csr))
+    assert ops.LAUNCHES["gossip_edges"] == before + 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_table,spec,w", [(1, "ring", 30), (2, "ring", 30),
+                                            (2, "ring", 2048),
+                                            (32, "full", 30),
+                                            (64, "full", 30),
+                                            (64, "full", 60)])
+def test_cuda_robust_gossip_bit_equal_to_plain_version(d_table, spec, w):
+    """robust_gossip against its plain version on the card: trimmed with
+    an integer and a fractional b, and the median, at D_PAD 1, 2, 32 and
+    64, with degree-0 rows and sign-flipped rows in t. A table wider
+    than the neighbourhoods (padding slots past deg) picks a wider
+    instance and gives the same result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.core import robust
+    adj, *_ = _edge_case_graph(w, spec, seed=w)
+    if d_table == 1:                    # a matching: every degree <= 1
+        adj = np.zeros((w, w), np.int8)
+        for i in range(0, w - 1, 2):
+            adj[i, i + 1] = adj[i + 1, i] = 1
+        adj[3, :] = adj[:, 3] = 0
+    nbr, deg = robust.neighbor_table(adj)
+    assert nbr.shape[1] <= d_table
+    nbr = np.pad(nbr, ((0, 0), (0, d_table - nbr.shape[1])))
+    nbr, deg = torch.from_numpy(nbr).cuda(), torch.from_numpy(deg).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(d_table + w)
+    x = torch.randn(w, 6922, generator=gen, device="cuda")
+    t = torch.where(torch.arange(w, device="cuda")[:, None] % 5 == 0, -x, x)
+    before = ops.LAUNCHES["robust_gossip"]
+    for mode, b in (("trimmed", 6.0), ("trimmed", 1.0), ("trimmed", 0.2),
+                    ("median", 0.0)):
+        y = ops.robust_gossip(x, t, nbr, deg, b=b, mode=mode)
+        assert torch.equal(y, ref.robust_gossip_ref(x, t, nbr, deg, b=b,
+                                                    mode=mode)), (mode, b)
+        assert torch.equal(y[3], x[3])
+    assert ops.LAUNCHES["robust_gossip"] == before + 4
