@@ -10,15 +10,22 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    ``nvcc`` compiles ``src/repro_torch/kernels/csrc`` for sm_90a, one
    process per source started together;
 2. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and a few others — bit-equality required — with
+   main path's shapes and a few others — bit-equality required of the
+   gossip and codec kernels — with
    CUDA-event times of the kernel, the plain version and the nearest
    PyTorch library call computing the same function: ``gossip_mix``,
    the wire codecs' ``quantize_block``, ``dequantize_block`` and
    ``sparsify_block`` (a top-k gate per row, and rand-k's shared row),
    the edge-list ``gossip_edges`` (W = 30 full graph and ring, the
    W = 2,048 ring and a W = 2,048 ``ba:2`` graph, honest and over a
-   lying wire) and the Byzantine-robust ``robust_gossip`` (trimmed and
-   median, W = 30 full graph and the W = 2,048 ring);
+   lying wire), the Byzantine-robust ``robust_gossip`` (trimmed and
+   median, W = 30 full graph and the W = 2,048 ring), ``flash_attention``
+   (the registry path's local step and measurement stack, smollm-360m's
+   train shape, a gemma3-27b local layer, a 192-wide head, the forced
+   causal rule; within 2e-5, with the operations and bytes bound and
+   ``scaled_dot_product_attention``'s time) and ``consensus_dist`` (the
+   kernel benchmark's shape and the registry path's width; within 1e-6
+   relative);
 3. the main path: ``run_algorithm(algo, cfg, fused=True)`` at the
    paper's fleet (30 workers) and MLP (P = 6,922) — FedHP and the
    synchronous baselines uncompressed, FedHP and D-PSGD under int8,
@@ -26,19 +33,30 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    edge-list gossip (FedHP, D-PSGD, under int8 and top-k, and the
    reference's W = 2,048 ring); 20% sign-flip attackers with the
    attacked baseline dense and sparse, trimmed:6 dense and sparse, the
-   median under a norm-blown attack and AD-PSGD screening — each after
-   a short warm-up run, with the launch counters zeroed before each
-   timed run and read after it, and held to what the path must launch;
+   median under a norm-blown attack and AD-PSGD screening; and the
+   registry path: a dense LM at smollm-360m's widths (d 960, 15 / 5
+   heads of 64, d_ff 2,560; 4 layers, a vocabulary of 6,144) with
+   ``use_flash_kernel=True``, FedHP and D-PSGD at W = 8 through
+   ``run_dfl_fused(adapter=...)`` — each after a short warm-up run, with
+   the launch counters zeroed before each timed run and read after it,
+   and held to what the path must launch;
 4. the reference engine against the fused engine on the card — FedHP
    uncompressed, under int8 and under top-k, AD-PSGD uncompressed and
    under int8, sparse FedHP uncompressed and under int8, trimmed:6
-   sparse and dense, the median, AD-PSGD screening: host record fields
-   (and screening's rejection counts) equal, device metrics within the
-   tests' tolerances (int8's wider, ``tests/test_torch_codec_engine.py``).
+   sparse and dense, the median, AD-PSGD screening, and the registry
+   path's FedHP over an ``erdos:0.5`` base: host record fields (and screening's rejection counts)
+   equal, device metrics within the tests' tolerances (int8's wider,
+   ``tests/test_torch_codec_engine.py``).
 
 Then a JSON line describing every kernel, the card line, and the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without a CUDA device or outside a checkout of the repo.
+
+    python3 chip_smoke.py --trace
+
+instead traces one round of the registry path's FedHP and D-PSGD with
+``torch.profiler`` (after a warm-up round): wall and device-busy seconds
+and the kernels that take the most device time.
 """
 from __future__ import annotations
 
@@ -55,12 +73,17 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs import smollm_360m  # noqa: E402
 from repro_torch.configs.base import FedHPConfig  # noqa: E402
 from repro_torch.core import compression  # noqa: E402
+from repro_torch.core import engine, fused, modelspec  # noqa: E402
 from repro_torch.core import robust  # noqa: E402
 from repro_torch.core import topology as topo  # noqa: E402
-from repro_torch.core.experiment import run_algorithm  # noqa: E402
+from repro_torch.core.algorithms import make_strategy  # noqa: E402
+from repro_torch.core.experiment import (run_algorithm,  # noqa: E402
+                                         setup_experiment)
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.simulation.cluster import SimCluster  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores — the bound of a kernel is the larger of its bytes
@@ -123,6 +146,42 @@ PARITY_PATHS = (("fedhp", {}), ("fedhp", dict(compress="int8")),
 MAIN_ROUNDS = 20
 WARMUP_ROUNDS = 2
 PARITY_ROUNDS = 10
+
+# the registry path: smollm-360m's published widths, its depth cut from 32
+# to 4 layers and its vocabulary from 49,152 to 6,144 (make_token_data
+# draws a dense V x V transition matrix per document class), trained in
+# f32 with the flash-attention kernel in every forward pass
+LM_MODEL = replace(smollm_360m.CONFIG, num_layers=4, vocab_size=6144,
+                   dtype="float32", remat="none", use_flash_kernel=True)
+LM_PARAMS = 45_228_480
+# the spec that builds the same token corpus (the spec cannot tie the
+# embeddings or turn the kernel on, so the run's adapter is built from
+# LM_MODEL); S = 16 is the spec's default sequence length
+LM_SPEC = "dense:d=960,layers=4,heads=15,kv=5,ff=2560,vocab=6144,seq=16"
+LM_SEQ = 16
+LM_CLASSES = 8
+# the reference's quick-mode fleet (benchmarks/run.py:763-766)
+LM_CFG = FedHPConfig(num_workers=8, tau_init=6, tau_max=12, lr=0.05,
+                     seed=5, model=LM_SPEC)
+LM_KW = dict(non_iid_p=0.4)
+LM_ROUNDS = 3
+LM_WARMUP_ROUNDS = 1
+# phase 4 over a sparse base (17 of 28 links at W = 8, seed 5): on a
+# complete or near-complete mix (erdos:0.9, 27 links) the fleet ends the
+# round 0.028 apart at P = 45 M, and the two engines' mixing formulas,
+# which differ in the last ulp, move that distance by 2.8e-4 relative —
+# past the 1e-4 of the parity contract; over this base the distance is
+# 0.25-0.29 and they agree within 2e-6 (PERF.md, section 6, PR 14)
+LM_PARITY_FIELDS = dict(base_topology="erdos:0.5")
+
+# the kernels' agreement with their plain versions where it is not
+# bit-equality: flash attention reassociates the softmax sums (the
+# reference's own flash tolerance, tests/test_kernels.py), consensus_dist
+# sums in another order
+FLASH_ATOL = FLASH_RTOL = 2e-5
+CONSENSUS_RTOL = 1e-6
+# kernels no main path launches
+OFF_PATH = ("consensus_dist",)
 
 # reference vs fused on the card: the tests' tolerances
 # (tests/test_torch_engine.py, tests/test_torch_codec_engine.py) — host
@@ -591,6 +650,144 @@ def check_robust_gossip(cycles_per_ms: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: flash attention and consensus distance
+# ---------------------------------------------------------------------------
+
+# (case, B, S, Hq, Hkv, hd, causal, window, main): the registry path's
+# launches (S = 15, the next-token inputs of 16-token sequences): a local
+# SGD step (W = 8 workers x 32 sequences), one group of the measurement
+# stack (2 workers x 2,048 sequences: the engines compute the stack's
+# gradients 2 workers a pass, ModelAdapter.workers_per_pass; the fleet
+# metrics' 8 x 512 sequences are the same B) and the whole stack in one
+# launch (8 x 2,048); smollm-360m's train shape, a gemma3-27b local layer,
+# a nemotron-4 head width (192) and the forced causal rule (non-causal, S
+# not a multiple of 128)
+FLASH_CASES = (("local-step", 256, 15, 15, 5, 64, True, 0, False),
+               ("measurement-group", 4096, 15, 15, 5, 64, True, 0, True),
+               ("measurement-stack", 16384, 15, 15, 5, 64, True, 0, False),
+               ("smollm-train", 2, 4096, 15, 5, 64, True, 0, False),
+               ("gemma3-local", 1, 4096, 32, 16, 128, True, 1024, False),
+               ("hd192", 1, 1000, 96, 8, 192, True, 0, False),
+               ("forced-causal", 4, 100, 6, 2, 64, False, 0, False))
+
+
+def check_flash_attention(cycles_per_ms: float) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst, main = 0.0, None
+    for case, b, s, hq, hkv, hd, causal, window, is_main in FLASH_CASES:
+        q = torch.randn(b, s, hq, hd, generator=gen, device="cuda")
+        k = torch.randn(b, s, hkv, hd, generator=gen, device="cuda")
+        v = torch.randn(b, s, hkv, hd, generator=gen, device="cuda")
+        forced = causal or s % 128 != 0
+        y = ops.flash_attention(q, k, v, causal=causal, window=window)
+        y_ref = ref.flash_attention_ref(q, k, v, causal=forced,
+                                        window=window)
+        torch.cuda.synchronize()
+        diff = (y - y_ref).abs()
+        err = float(diff.max())
+        if bool((diff > FLASH_ATOL + FLASH_RTOL * y_ref.abs()).any()):
+            raise AssertionError(f"flash_attention[{case}] differs from its "
+                                 f"plain version: max |diff| = {err}")
+        worst = max(worst, err)
+        mask = ref.attention_mask(s, s, causal=forced, window=window,
+                                  device="cuda")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def library():
+            # one PyTorch call: scaled_dot_product_attention over the
+            # [B, H, S, hd] views, GQA by its own head grouping
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask if window else None,
+                is_causal=forced and not window, enable_gqa=True)
+        lib_err = float((library().transpose(1, 2) - y_ref).abs().max())
+        heavy = s >= 1000
+        kernel_ms = time_ms(
+            lambda: ops.flash_attention(q, k, v, causal=causal,
+                                        window=window), cycles_per_ms,
+            batch=2 if heavy else 5, reps=10 if heavy else 30)
+        plain_ms = time_ms(
+            lambda: ref.flash_attention_ref(q, k, v, causal=forced,
+                                            window=window), cycles_per_ms,
+            batch=1, reps=5 if heavy else 10)
+        library_ms = time_ms(library, cycles_per_ms, batch=2 if heavy else 5,
+                             reps=10 if heavy else 30)
+        # q, k and v read once, o written once; two products of 2 hd
+        # operations per (query, key in reach) pair and query head
+        pairs = int(mask.sum())
+        nbytes = (2 * b * s * hq * hd + 2 * b * s * hkv * hd) * 4
+        flops = 4 * b * hq * hd * pairs
+        bound_ms, bound_by = _bound(nbytes, flops)
+        log("phase2", kernel="flash_attention", case=case, B=b, S=s, Hq=hq,
+            Hkv=hkv, hd=hd, causal=forced, window=window,
+            max_abs_err=err, sdpa_max_abs_diff=lib_err,
+            ms=f"{kernel_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
+            sdpa_ms=f"{library_ms:.6f}", bound_ms=f"{bound_ms:.6f}",
+            bound_by=bound_by, bound_mb=f"{nbytes / 1e6:.6f}",
+            gflop=f"{flops / 1e9:.6f}",
+            tflops=f"{flops / kernel_ms / 1e9:.3f}")
+        if is_main:
+            main = dict(ms=kernel_ms, plain_ms=plain_ms,
+                        library_ms=library_ms, bound_ms=bound_ms,
+                        bound_by=bound_by)
+        del q, k, v, y, y_ref, mask
+        torch.cuda.empty_cache()
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:77",
+                max_abs_err=worst, **main)
+
+
+def check_consensus_dist(cycles_per_ms: float) -> dict:
+    """consensus_dist at the reference kernel benchmark's shape (L = 2^17,
+    K = 4) and at the registry path's width (one worker's row against
+    its 7 peers' rows, L = 45,228,480), neighbours near x: 1e-6
+    relative, and the same bits on a second run."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst, main = 0.0, None
+    for case, k, length in (("kernel-bench", 4, 2 ** 17),
+                            ("path-width", 7, LM_PARAMS)):
+        x = torch.randn(length, generator=gen, device="cuda")
+        u = x + 0.1 * torch.randn(k, length, generator=gen, device="cuda")
+        d = ops.consensus_dist(x, u)
+        d_ref = ref.consensus_dist_ref(x, u)
+        rel = float(((d - d_ref).abs() / d_ref).max())
+        if rel > CONSENSUS_RTOL or not torch.equal(d, ops.consensus_dist(x,
+                                                                         u)):
+            raise AssertionError(f"consensus_dist[{case}]: relative "
+                                 f"difference {rel} or not repeatable")
+        err = float((d - d_ref).abs().max())
+        worst = max(worst, err)
+
+        def library():
+            return torch.linalg.vector_norm(u - x, dim=1)
+        lib_rel = float(((library() - d_ref).abs() / d_ref).max())
+        kernel_ms = time_ms(lambda: ops.consensus_dist(x, u), cycles_per_ms,
+                            batch=5, reps=20)
+        plain_ms = time_ms(lambda: ref.consensus_dist_ref(x, u),
+                           cycles_per_ms, batch=2, reps=10)
+        library_ms = time_ms(library, cycles_per_ms, batch=2, reps=10)
+        # x and u read once, the K distances written once; a subtract, a
+        # multiply and an add per element of u
+        nbytes = ((k + 1) * length + k) * 4
+        bound_ms, bound_by = _bound(nbytes, 3 * k * length)
+        log("phase2", kernel="consensus_dist", case=case, K=k, L=length,
+            max_rel_err=rel, max_abs_err=err, vector_norm_max_rel_diff=lib_rel,
+            ms=f"{kernel_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
+            vector_norm_ms=f"{library_ms:.6f}", bound_ms=f"{bound_ms:.6f}",
+            bound_by=bound_by, bound_mb=f"{nbytes / 1e6:.6f}")
+        if case == "path-width":
+            main = dict(ms=kernel_ms, plain_ms=plain_ms,
+                        library_ms=library_ms, bound_ms=bound_ms,
+                        bound_by=bound_by)
+        del x, u
+        torch.cuda.empty_cache()
+    return dict(name="consensus_dist", route="cuda",
+                source="src/repro_torch/kernels/csrc/consensus_dist.cu",
+                replaces="src/repro/kernels/consensus_dist.py:37",
+                max_abs_err=worst, **main)
+
+
+# ---------------------------------------------------------------------------
 # phases 3-4: the main path
 # ---------------------------------------------------------------------------
 
@@ -659,13 +856,19 @@ def _timed_run(algo: str, cfg: FedHPConfig, rounds: int, warmup: int,
 
 def _check_run(name: str, algo: str, cfg: FedHPConfig, rounds: int, hist,
                counts: dict) -> None:
-    arr = hist.as_arrays()
-    if len(hist.records) != rounds:
-        raise AssertionError(f"{name}: {len(hist.records)} records")
     expected = _expected_launches(algo, cfg, hist)
     if counts != expected:
         raise AssertionError(f"{name}: launched {counts}, the path must "
                              f"launch {expected}")
+    _check_history(name, cfg, rounds, hist)
+
+
+def _check_history(name: str, cfg: FedHPConfig, rounds: int, hist) -> None:
+    """The run's records: as many as its rounds, finite metrics, finite
+    final parameters of every worker, and rejections where it screens."""
+    arr = hist.as_arrays()
+    if len(hist.records) != rounds:
+        raise AssertionError(f"{name}: {len(hist.records)} records")
     for key in ("accuracy", "loss", "consensus"):
         if not np.isfinite(arr[key]).all():
             raise AssertionError(f"{name}: non-finite {key}")
@@ -706,57 +909,245 @@ def run_main_path() -> dict[str, int]:
     return total
 
 
+class _PlanRecorder:
+    """Wraps a strategy and keeps each round's taus as the engines apply
+    them (clipped to [1, tau_max] on the alive workers, 0 elsewhere)."""
+
+    def __init__(self, inner, tau_max: int):
+        self.inner = inner
+        self.name = inner.name
+        self.adaptive = getattr(inner, "adaptive", False)
+        self.tau_max = tau_max
+        self.taus: list[np.ndarray] = []
+
+    def plan(self, h, alive=None):
+        p = self.inner.plan(h, alive=alive)
+        live = np.ones(len(p.taus), bool) if alive is None else alive
+        self.taus.append(np.where(live, np.clip(p.taus, 1, self.tau_max), 0))
+        return p
+
+    def observe(self, h, **kw):
+        self.inner.observe(h, **kw)
+
+
+def _pow2(v: int) -> int:
+    return 1 << (v - 1).bit_length() if v > 1 else 1
+
+
+def _lm_forwards(adapter, cfg: FedHPConfig, taus: list[np.ndarray],
+                 adaptive: bool) -> int:
+    """The model forward passes a fused run must make (fused.py's
+    _scan_segment): per round its segment's tau extent (the largest tau
+    of the segment, rounded up to a power of two; a segment is one round
+    for an adaptive strategy, the whole run here for a static one) of
+    local SGD steps, the fleet metrics' accuracy and loss, and for an
+    adaptive strategy the three measurement gradients (the eval stack
+    twice, the probe once); a gradient pass on a batch runs in
+    ceil(W / workers_per_pass) groups of workers."""
+    w, s = cfg.num_workers, adapter.seq_len
+
+    def groups(*shape):
+        x = torch.zeros(1, dtype=torch.int32).expand(*shape)
+        return -(-w // adapter.workers_per_pass(x))
+
+    local = groups(w, cfg.batch_size, s)
+    measure = 2 * groups(w, w, 256, s) + groups(w, w, 32, s)
+    caps = ([_pow2(int(max(t.max(), 1))) for t in taus] if adaptive else
+            [_pow2(int(max(max(t.max() for t in taus), 1)))] * len(taus))
+    return sum(cap * local + 2 + (measure if adaptive else 0)
+               for cap in caps)
+
+
+def _lm_data():
+    """The registry path's corpus, test split and shards, once: from the
+    spec through the user's entry point (``setup_experiment``)."""
+    t0 = time.perf_counter()
+    train, tx, ty, shards, _ = setup_experiment(LM_CFG, device="cuda",
+                                                **LM_KW)
+    return (train, tx, ty, shards), time.perf_counter() - t0
+
+
+def _lm_run(adapter, data, algo: str, rounds: int, *, fused_engine: bool,
+            **fields):
+    """One registry-path run from a fresh cluster (which prices a model
+    transfer at the trained model's size) and strategy -> (history, the
+    recorded taus)."""
+    cfg = replace(LM_CFG, algorithm=algo, **fields)
+    train, tx, ty, shards = data
+    cluster = SimCluster(cfg.num_workers, model_bits=adapter.model_bits,
+                         seed=cfg.seed)
+    strategy = _PlanRecorder(make_strategy(cfg, topo.make_base_topology(
+        cfg.num_workers, cfg.base_topology, cfg.seed)), cfg.tau_max)
+    run = fused.run_dfl_fused if fused_engine else engine.run_dfl
+    hist = run(train, tx, ty, shards, cluster, cfg, strategy, rounds=rounds,
+               adapter=adapter, device="cuda")
+    return hist, strategy.taus
+
+
+def lm_adapter():
+    adapter = modelspec.RegistryAdapter(LM_MODEL, LM_SEQ, LM_CLASSES,
+                                        spec="smollm-360m:layers=4,"
+                                             "vocab=6144,flash")
+    if adapter.param_count != LM_PARAMS:
+        raise AssertionError(f"registry path: P = {adapter.param_count}")
+    return adapter
+
+
+def run_lm_path(adapter, data) -> dict[str, int]:
+    """Phase 3's registry path: FedHP and D-PSGD through the fused
+    engine, a warm-up run and then the timed run, each held to exactly
+    the flash_attention launches (layers x forward passes) and gossip_mix
+    launches (communicating rounds) the path must make."""
+    total = {k: 0 for k in ops.LAUNCHES}
+    for algo in ("fedhp", "dpsgd"):
+        _lm_run(adapter, data, algo, LM_WARMUP_ROUNDS, fused_engine=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        hist, taus = _lm_run(adapter, data, algo, LM_ROUNDS,
+                             fused_engine=True)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        arr = hist.as_arrays()
+        adaptive = algo == "fedhp"
+        forwards = _lm_forwards(adapter, LM_CFG, taus, adaptive)
+        expected = {k: 0 for k in ops.LAUNCHES}
+        expected["flash_attention"] = LM_MODEL.num_layers * forwards
+        expected["gossip_mix"] = int((arr["num_links"] > 0).sum())
+        name = f"{algo}/smollm-360m-4l"
+        if counts != expected:
+            raise AssertionError(f"{name}: launched {counts}, the path must "
+                                 f"launch {expected}")
+        _check_history(name, LM_CFG, LM_ROUNDS, hist)
+        for k in total:
+            total[k] += counts[k]
+        log("phase3", path=name, rounds=LM_ROUNDS, P=adapter.param_count,
+            launches={k: v for k, v in counts.items() if v},
+            forward_passes=forwards,
+            seconds_per_round=f"{elapsed / LM_ROUNDS:.4f}",
+            seconds=f"{elapsed:.3f}",
+            first_accuracy=f"{arr['accuracy'][0]:.9f}",
+            last_accuracy=f"{arr['accuracy'][-1]:.9f}",
+            first_loss=f"{arr['loss'][0]:.7f}",
+            last_loss=f"{arr['loss'][-1]:.7f}",
+            mean_tau=arr["mean_tau"].tolist(),
+            num_links=arr["num_links"].tolist(),
+            peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    return total
+
+
+def check_lm_engines_agree(adapter, data) -> None:
+    """Phase 4 on the registry path: FedHP through both engines."""
+    hists, secs = {}, {}
+    for fused_engine in (False, True):
+        t0 = time.perf_counter()
+        hists[fused_engine], _ = _lm_run(adapter, data, "fedhp", LM_ROUNDS,
+                                         fused_engine=fused_engine,
+                                         **LM_PARITY_FIELDS)
+        torch.cuda.synchronize()
+        secs[fused_engine] = time.perf_counter() - t0
+    _compare_engines("fedhp/smollm-360m-4l/erdos:0.5", hists, secs,
+                     int8=False, rounds=LM_ROUNDS)
+
+
 def check_engines_agree() -> None:
     """Phase 4: each PARITY_PATHS run through both engines."""
     for algo, fields in PARITY_PATHS:
         cfg = replace(PAPER_CFG, replan_every=1, **fields)
         hists, secs = {}, {}
-        for fused in (False, True):
+        for fused_engine in (False, True):
             t0 = time.perf_counter()
-            hists[fused] = run_algorithm(algo, cfg, rounds=PARITY_ROUNDS,
-                                         fused=fused, **PAPER_KW)
-            secs[fused] = time.perf_counter() - t0
-        a, b = hists[False].as_arrays(), hists[True].as_arrays()
-        name = _label(algo, fields)
-        for k in EXACT:
-            if not np.array_equal(a[k], b[k]):
-                raise AssertionError(f"{name}: host field {k} differs: "
-                                     f"{a[k]} vs {b[k]}")
-        if hists[False].screen_rejects != hists[True].screen_rejects:
-            raise AssertionError(
-                f"{name}: screen rejections differ: "
-                f"{hists[False].screen_rejects} vs "
-                f"{hists[True].screen_rejects}")
-        int8 = cfg.compress == "int8"
-        acc = float(np.abs(a["accuracy"] - b["accuracy"]).max())
-        rel = {k: float((np.abs(a[k] - b[k])
-                         / np.maximum(np.abs(a[k]), 1e-12)).max())
-               for k in ("loss", "consensus")}
-        np.testing.assert_allclose(a["accuracy"], b["accuracy"], rtol=0,
-                                   atol=ACC_ATOL, err_msg=name)
-        np.testing.assert_allclose(a["loss"], b["loss"], err_msg=name,
-                                   rtol=INT8_LOSS_RTOL if int8 else REL_TOL)
-        np.testing.assert_allclose(
-            a["consensus"], b["consensus"], atol=CONSENSUS_ATOL,
-            rtol=INT8_CONSENSUS_RTOL if int8 else REL_TOL, err_msg=name)
-        # the rounds that pass only through the absolute term, with both
-        # engines' consensus values there
-        cdiff = np.abs(a["consensus"] - b["consensus"])
-        worst = int(np.argmax(cdiff))
-        abs_only = np.nonzero(cdiff > REL_TOL * np.abs(b["consensus"]))[0]
-        extra = ({} if hists[True].screen_rejects is None
-                 else dict(screen_rejects=hists[True].screen_rejects))
-        log("phase4", path=name, rounds=PARITY_ROUNDS,
-            host_fields_equal=True, acc_max_abs_diff=acc,
-            loss_max_rel_diff=rel["loss"],
-            consensus_max_rel_diff=rel["consensus"],
-            consensus_max_abs_diff=float(cdiff[worst]), at_round=worst,
-            consensus_there=[float(a["consensus"][worst]),
-                             float(b["consensus"][worst])],
-            rounds_admitted_by_atol=abs_only.tolist(),
-            reference_s=f"{secs[False]:.3f}", fused_s=f"{secs[True]:.3f}",
-            mean_tau=a["mean_tau"].tolist(),
-            num_links=a["num_links"].tolist(), **extra)
+            hists[fused_engine] = run_algorithm(
+                algo, cfg, rounds=PARITY_ROUNDS, fused=fused_engine,
+                **PAPER_KW)
+            secs[fused_engine] = time.perf_counter() - t0
+        _compare_engines(_label(algo, fields), hists, secs,
+                         int8=cfg.compress == "int8", rounds=PARITY_ROUNDS)
+
+
+def _compare_engines(name: str, hists: dict, secs: dict, *, int8: bool,
+                     rounds: int) -> None:
+    """Reference (``hists[False]``) against fused (``hists[True]``): host
+    fields and rejection counts equal, device metrics within the tests'
+    tolerances; logs the differences."""
+    a, b = hists[False].as_arrays(), hists[True].as_arrays()
+    for k in EXACT:
+        if not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"{name}: host field {k} differs: "
+                                 f"{a[k]} vs {b[k]}")
+    if hists[False].screen_rejects != hists[True].screen_rejects:
+        raise AssertionError(
+            f"{name}: screen rejections differ: "
+            f"{hists[False].screen_rejects} vs "
+            f"{hists[True].screen_rejects}")
+    acc = float(np.abs(a["accuracy"] - b["accuracy"]).max())
+    rel = {k: float((np.abs(a[k] - b[k])
+                     / np.maximum(np.abs(a[k]), 1e-12)).max())
+           for k in ("loss", "consensus")}
+    np.testing.assert_allclose(a["accuracy"], b["accuracy"], rtol=0,
+                               atol=ACC_ATOL, err_msg=name)
+    np.testing.assert_allclose(a["loss"], b["loss"], err_msg=name,
+                               rtol=INT8_LOSS_RTOL if int8 else REL_TOL)
+    np.testing.assert_allclose(
+        a["consensus"], b["consensus"], atol=CONSENSUS_ATOL,
+        rtol=INT8_CONSENSUS_RTOL if int8 else REL_TOL, err_msg=name)
+    # how far apart the engines' final parameters are (the reference
+    # mixes as sum_j w_ij x_j, the kernel as x_i + sum_j w_ij (x_j - x_i))
+    param_diff = max(float((hists[False].final_params[k].double()
+                            - hists[True].final_params[k].double())
+                           .abs().max())
+                     for k in hists[False].final_params)
+    # the rounds that pass only through the absolute term, with both
+    # engines' consensus values there
+    cdiff = np.abs(a["consensus"] - b["consensus"])
+    worst = int(np.argmax(cdiff))
+    abs_only = np.nonzero(cdiff > REL_TOL * np.abs(b["consensus"]))[0]
+    extra = ({} if hists[True].screen_rejects is None
+             else dict(screen_rejects=hists[True].screen_rejects))
+    log("phase4", path=name, rounds=rounds,
+        host_fields_equal=True, acc_max_abs_diff=acc,
+        loss_max_rel_diff=rel["loss"],
+        consensus_max_rel_diff=rel["consensus"],
+        consensus_max_abs_diff=float(cdiff[worst]), at_round=worst,
+        consensus_there=[float(a["consensus"][worst]),
+                         float(b["consensus"][worst])],
+        rounds_admitted_by_atol=abs_only.tolist(),
+        param_max_abs_diff=param_diff,
+        reference_s=f"{secs[False]:.3f}", fused_s=f"{secs[True]:.3f}",
+        mean_tau=a["mean_tau"].tolist(),
+        num_links=a["num_links"].tolist(), **extra)
+
+
+def trace_lm_rounds(adapter, data) -> None:
+    """One traced round of each registry-path algorithm: the device's
+    busy time (the sum of its kernels' times; one stream, so they do not
+    overlap) against the round's wall time, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    for algo in ("fedhp", "dpsgd"):
+        _lm_run(adapter, data, algo, 1, fused_engine=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _lm_run(adapter, data, algo, 1, fused_engine=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                     reverse=True)[:15]
+        log("trace", path=f"{algo}/smollm-360m-4l", rounds=1,
+            wall_s=f"{wall:.4f}", device_busy_s=f"{busy_us / 1e6:.4f}",
+            idle_share=f"{1 - busy_us / 1e6 / wall:.4f}",
+            kernels=len(kernels))
+        for e in top:
+            log("trace", kernel=repr(e.key[:90]), calls=e.count,
+                device_ms=f"{e.self_device_time_total / 1e3:.3f}",
+                share=f"{e.self_device_time_total / busy_us:.4f}")
 
 
 def main() -> int:
@@ -768,6 +1159,12 @@ def main() -> int:
     t0 = time.perf_counter()
     lib, nvcc_log = ops.build()
     build_s = time.perf_counter() - t0
+    if sys.argv[1:] == ["--trace"]:
+        log("trace", card=repr(card), build_s=f"{build_s:.3f}")
+        adapter = lm_adapter()
+        data, _ = _lm_data()
+        trace_lm_rounds(adapter, data)
+        return 0
     ptxas = [ln.strip() for ln in nvcc_log.splitlines()
              if "registers" in ln or "spill" in ln]
     log("phase1", card=repr(card), torch=torch.__version__,
@@ -777,14 +1174,27 @@ def main() -> int:
     cycles_per_ms = _sleep_cycles_per_ms()
     kernels = [check_gossip_mix(cycles_per_ms), *check_codecs(cycles_per_ms),
                check_gossip_edges(cycles_per_ms),
-               check_robust_gossip(cycles_per_ms)]
+               check_robust_gossip(cycles_per_ms),
+               check_flash_attention(cycles_per_ms),
+               check_consensus_dist(cycles_per_ms)]
     launches = run_main_path()
+    adapter = lm_adapter()
+    data, data_s = _lm_data()
+    log("phase3", registry_corpus=LM_SPEC, setup_s=f"{data_s:.3f}",
+        sequences=len(data[0].x) + len(data[1]))
+    for k, v in run_lm_path(adapter, data).items():
+        launches[k] += v
     for kernel in kernels:
         kernel["launches"] = launches[kernel["name"]]
-        if kernel["launches"] == 0:
+        if kernel["name"] in OFF_PATH:
+            if kernel["launches"]:
+                raise AssertionError(f"{kernel['name']} launched on the main "
+                                     "path, which has no call to it")
+        elif kernel["launches"] == 0:
             raise AssertionError(f"{kernel['name']} never launched on the "
                                  "main path")
     check_engines_agree()
+    check_lm_engines_agree(adapter, data)
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

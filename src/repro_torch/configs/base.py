@@ -1,11 +1,72 @@
-"""Run configuration of the FedHP technique (Alg. 1-3): a field-for-field
-copy of ``repro.configs.base.FedHPConfig`` with the same defaults, so one
-config value drives either package. The model-architecture configs
-(``ModelConfig``, ``SHAPES``, ``RunConfig``) arrive with the registry
-slice of the port."""
+"""Configs: the run configuration of the FedHP technique (Alg. 1-3) and
+the model-architecture description of the registry models — field-for-
+field copies of ``repro.configs.base.FedHPConfig`` and ``ModelConfig``
+with the same defaults, so one config value drives either package. The
+input-shape table (``SHAPES``) and ``RunConfig`` arrive with the launch
+and serving slice (ROADMAP.md queue 1, item 10)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description shared by the whole model zoo.
+
+    ``family`` selects the model implementation in
+    ``repro_torch.models.registry``: dense | moe | encdec | hybrid |
+    xlstm | vlm (only ``dense`` is ported)."""
+
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0               # 0 -> d_model // num_heads
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0               # expert hidden dim (if != d_ff)
+    num_shared_experts: int = 0
+    # --- attention variants ---
+    sliding_window: int = 0         # 0 -> full attention
+    global_every: int = 0           # gemma3: 1 global layer every N (0 -> all global)
+    rope_theta: float = 10_000.0
+    mrope: bool = False             # qwen2-vl multimodal RoPE
+    # --- activation ---
+    act: str = "silu"               # silu | gelu | relu2 (squared relu)
+    # --- SSM / recurrent ---
+    ssm_state: int = 0              # mamba2 state dim
+    ssm_every: int = 0              # hybrid: attn block every N mamba blocks
+    slstm_every: int = 0            # xlstm: sLSTM block every N mLSTM blocks
+    # --- enc-dec ---
+    encoder_layers: int = 0
+    decoder_layers: int = 0
+    # --- misc ---
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    # --- distribution (per-arch defaults of the reference's meshes) ---
+    worker_axes: tuple[str, ...] = ("pod", "data")   # mesh axes enumerating DFL workers
+    fsdp_axes: tuple[str, ...] = ()                   # axes for FSDP param sharding within worker
+    tp_axes: tuple[str, ...] = ("model",)             # tensor-parallel axes within worker
+    within_worker: str = "tp"       # tp | dp
+    # --- perf knobs (defaults = paper-faithful baseline) ---
+    serve_seq_shard: bool = False   # sequence parallelism in serving
+    moe_shard_groups: int = 0       # shard-local MoE dispatch groups
+    use_flash_kernel: bool = False  # the hand-written flash-attention
+    # kernel for the full-sequence paths (kernels/csrc/flash_attention.cu)
+    remat: str = "block"            # none | block | full
+    skip_shapes: tuple[str, ...] = ()                 # documented skips
+    notes: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        """The attention head width: ``head_dim`` or d_model / heads."""
+        return self.head_dim or self.d_model // self.num_heads
 
 
 @dataclass(frozen=True)

@@ -143,8 +143,9 @@ def check_ported(cfg: FedHPConfig, *, mesh=None, seeds=None) -> None:
         todo.append("sharded execution / mesh= (item 9)")
     if seeds is not None:
         todo.append("seeds= batching (item 4, the batched seeds axis)")
-    if str(cfg.model).partition(":")[0] not in ("mlp", ""):
-        todo.append(f"model={cfg.model!r} (item 8, registry models)")
+    family = str(cfg.model).partition(":")[0].strip()
+    if family in ("moe", "hybrid", "xlstm"):
+        todo.append(f"model={cfg.model!r} (item 8, the {family} family)")
     if todo:
         raise NotImplementedError(
             "not ported to repro_torch yet (ROADMAP.md queue 1): "
@@ -175,13 +176,23 @@ def initial_params(adapter: modelspec.ModelAdapter, num_workers: int,
 
 def _loss_and_grad(adapter, flat, x, y):
     """Per-worker losses [W] and their gradients [W, P]: autograd on the
-    SUM of the W independent per-worker losses gives each worker's own
-    gradient exactly."""
+    SUM of the independent per-worker losses gives each worker's own
+    gradient exactly. A fleet whose activations would not fit one pass
+    (``adapter.workers_per_pass``) runs in groups of workers."""
+    n = flat.shape[0]
+    step = adapter.workers_per_pass(x)
+    losses, grads = [], []
     with torch.enable_grad():
-        p = flat.detach().requires_grad_(True)
-        losses = adapter.loss(adapter.views(p), x, y)
-        (g,) = torch.autograd.grad(losses.sum(), p)
-    return losses.detach(), g
+        for lo in range(0, n, step):
+            p = flat[lo:lo + step].detach().requires_grad_(True)
+            part = adapter.loss(adapter.views(p), x[lo:lo + step],
+                                y[lo:lo + step])
+            (g,) = torch.autograd.grad(part.sum(), p)
+            losses.append(part.detach())
+            grads.append(g)
+    if len(grads) == 1:
+        return losses[0], grads[0]
+    return torch.cat(losses), torch.cat(grads)
 
 
 def _local_train(adapter, flat, bx, by, taus, lr, tau_cap: int):
@@ -412,6 +423,9 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
     """time_budget: stop once the simulated clock passes it — the paper's
     equal-wall-time comparison (completion time is the metric, Fig. 3).
 
+    ``adapter`` picks the model (default: the one ``cfg.model`` names,
+    ``modelspec.adapter_for``) — e.g. a ``modelspec.RegistryAdapter``
+    built from a ``ModelConfig`` with ``use_flash_kernel=True``.
     ``init_params`` starts from a worker-stacked dict ``{name: [W, ...]}``
     (e.g. the reference's init through ``convert.params_from_jax``)
     instead of broadcasting ``adapter.init``. ``device``: ``None`` means

@@ -426,6 +426,7 @@ def run_dfl_fused(data: Dataset, test_x, test_y, shards,
     """Drop-in fused replacement for ``engine.run_dfl``: one experiment
     from ``cfg.seed``, returning a ``History`` that matches the reference
     engine's — host fields exactly, device metrics to float tolerance.
+    ``adapter`` and ``init_params`` as in ``engine.run_dfl``.
     ``device``: ``None`` means the GPU (raises without one); ``"cpu"``
     runs the same loop with the kernel's plain version."""
     device = resolve_device(device)

@@ -35,15 +35,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"gossip_mix": 0, "quantize_block": 0, "dequantize_block": 0,
-            "sparsify_block": 0, "gossip_edges": 0, "robust_gossip": 0}
+            "sparsify_block": 0, "gossip_edges": 0, "robust_gossip": 0,
+            "flash_attention": 0, "consensus_dist": 0}
 
 # gossip_mix stages one row of weights in static shared memory (48 KB);
-# every kernel puts its rows (B, or the W workers) on the grid's y axis
+# the gossip and codec kernels put their rows (B, or the W workers) on
+# the grid's y axis
 _MAX_NEIGHBORS = 48 * 1024 // 4
 _MAX_ROWS = 65535
 # robust_gossip's template instances: one per power of two up to this
 # many neighbours (a window of D_PAD + 1 registers a thread)
 ROBUST_MAX_DEGREE = 64
+# consensus_dist's first pass: columns per block (256 threads, 8 each)
+CONSENSUS_BLOCK_COLS = 2048
+# flash_attention's query tile: rows of the g = Hq / Hkv heads that share
+# a KV head, packed (head-major) into tiles of this many rows
+FLASH_TILE_ROWS = 64
+# flash_attention's template instances: the registry models' head widths
+# (smollm 64; gemma3 and internlm2 128; nemotron 192)
+FLASH_HEAD_DIMS = (64, 128, 192)
 
 _lib = None
 
@@ -118,9 +128,14 @@ def _library() -> ctypes.CDLL:
         lib.robust_gossip_f32.argtypes = [ctypes.c_void_p] * 5 + \
             [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
                                   ctypes.c_void_p]
+        lib.flash_attention_f32.argtypes = [ctypes.c_void_p] * 4 + \
+            [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        lib.consensus_dist_f32.argtypes = [ctypes.c_void_p] * 4 + \
+            [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
         for fn in (lib.gossip_mix_f32, lib.quantize_block_f32,
                    lib.dequantize_block_f32, lib.sparsify_block_f32,
-                   lib.gossip_edges_f32, lib.robust_gossip_f32):
+                   lib.gossip_edges_f32, lib.robust_gossip_f32,
+                   lib.flash_attention_f32, lib.consensus_dist_f32):
             fn.restype = ctypes.c_int
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
@@ -337,3 +352,104 @@ def robust_gossip(x: torch.Tensor, t: torch.Tensor, nbr: torch.Tensor,
             y.data_ptr(), n, p, d, d_pad, int(mode == "median"), float(b),
             int(b) if b >= 1.0 else -1)
     return y
+
+
+def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, window: int) -> torch.Tensor:
+    _check_cuda("flash_attention", {"q": q, "k": k, "v": v})
+    b, s, hq, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    _launch("flash_attention", _library().flash_attention_f32, q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
+            sk, hq, hkv, hd, int(causal), window, hd ** -0.5)
+    return o
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel on CUDA tensors, the plain version on CPU
+    tensors. Backward: recompute through the plain version under
+    autograd — the reference's custom VJP (``repro/kernels/ops.py``),
+    which has no backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        if _on_cpu(q, k, v):
+            return ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window)
+        return _flash_launch(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ref.flash_attention_ref(*inputs, causal=ctx.causal,
+                                          window=ctx.window)
+            grads = torch.autograd.grad(out, inputs, g)
+        return (*grads, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Grouped-query attention forward with an online softmax, in the
+    models' layout: q [B, S, Hq, hd], k and v [B, Sk, Hkv, hd], f32 ->
+    [B, S, Hq, hd]; query head h reads KV head h // (Hq / Hkv).
+
+    The mask follows the reference's ``ops._flash_fwd_impl``: causal
+    and/or a sliding window, and causal forced whenever Sk is not a
+    multiple of its 128-key block (the reference masks its padded keys
+    that way). hd must be one of ``FLASH_HEAD_DIMS``, Hq a multiple of
+    Hkv and S <= Sk (every query then has a key in reach).
+    Differentiable: the backward recomputes through the plain version.
+    CPU tensors run the plain version (``ref.flash_attention_ref``);
+    CUDA tensors launch the kernel (f32 only) and count the launch."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or \
+            q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
+        raise ValueError("flash_attention takes q [B, S, Hq, hd], k and v "
+                         f"[B, Sk, Hkv, hd]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, s, hq, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention has kernel instances for head "
+                         f"dims {FLASH_HEAD_DIMS}; got hd={hd}")
+    if hq % hkv:
+        raise ValueError(f"flash_attention needs Hq a multiple of Hkv; got "
+                         f"Hq={hq}, Hkv={hkv}")
+    if s > sk:
+        raise ValueError(f"flash_attention needs S <= Sk; got S={s}, "
+                         f"Sk={sk}")
+    tiles = -(-(hq // hkv) * s // FLASH_TILE_ROWS)
+    if b * hkv * tiles >= 2 ** 31:
+        raise ValueError("flash_attention: B * Hkv * query tiles must fit "
+                         "the kernel grid's x axis (< 2**31)")
+    causal = bool(causal) or sk % 128 != 0
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal, int(window))
+
+
+def consensus_dist(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Eq. 7 consensus distances ||u_k - x|| (square root included): x
+    [L], u [K, L] f32 -> [K]. CPU tensors run the plain version
+    (``ref.consensus_dist_ref``); CUDA tensors launch the kernel — a
+    deterministic two-pass reduction, one count per call."""
+    if x.dim() != 1 or u.dim() != 2 or u.shape[1] != x.shape[0]:
+        raise ValueError("consensus_dist takes x [L], u [K, L]; got "
+                         f"{tuple(x.shape)}, {tuple(u.shape)}")
+    if _on_cpu(x, u):
+        return ref.consensus_dist_ref(x, u)
+    _check_cuda("consensus_dist", {"x": x, "u": u})
+    k, length = u.shape
+    if k > _MAX_ROWS:
+        raise ValueError(f"consensus_dist supports K <= {_MAX_ROWS}; "
+                         f"got K={k}")
+    out = torch.empty(k, dtype=torch.float32, device=x.device)
+    n_blocks = -(-length // CONSENSUS_BLOCK_COLS)
+    partial = torch.empty(k, max(n_blocks, 1), dtype=torch.float32,
+                          device=x.device)
+    _launch("consensus_dist", _library().consensus_dist_f32, x.device,
+            x.data_ptr(), u.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            k, length)
+    return out

@@ -7,10 +7,18 @@ codec's tile layout (``wire_tiles``): a worker's row is read as a
 ``[rows, cols]`` matrix with cols = min(1024, P), cut into tiles of
 br = min(8, rows) whole rows, so tile t is the contiguous span
 [t·br·cols, (t+1)·br·cols) of the row, clipped at P.
+
+The attention functions take the registry models' layout: q [B, S, Hq,
+hd], k and v [B, Sk, Hkv, hd].
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+# the reference's masked score (``repro/kernels/flash_attention.py``)
+NEG_INF = -1e30
 
 # the int8 codec's wire tile (``repro/kernels/quantize_block.py``)
 BLOCK_ROWS = 8
@@ -173,3 +181,53 @@ def robust_gossip_ref(x: torch.Tensor, t: torch.Tensor, nbr: torch.Tensor,
     else:
         raise ValueError(f"unknown robust mode {mode!r}")
     return torch.where((deg > 0)[:, None], y, x)
+
+
+# ---------------------------------------------------------------------------
+# attention and consensus distance
+# ---------------------------------------------------------------------------
+
+def attention_mask(q_len: int, kv_len: int, *, causal: bool, window: int,
+                   device=None) -> torch.Tensor:
+    """Boolean [q_len, kv_len] mask: key kp is in reach of query qp when
+    kp <= qp (causal) and kp > qp - window (a sliding window)."""
+    qp = torch.arange(q_len, device=device)[:, None]
+    kp = torch.arange(kv_len, device=device)[None, :]
+    m = torch.ones(q_len, kv_len, dtype=torch.bool, device=device)
+    if causal:
+        m = m & (kp <= qp)
+    if window:
+        m = m & (kp > qp - window)
+    return m
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Grouped-query attention, the reference's composition: q [B, S,
+    Hq, hd], k and v [B, Sk, Hkv, hd] -> [B, S, Hq, hd]; query head h
+    reads KV head h // (Hq / Hkv). Scores are divided by sqrt(hd), masked
+    to -1e30 outside ``mask`` [S, Sk] and soft-maxed over the keys."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, hq // hkv, hd)
+    scores = torch.einsum("bshgd,bthd->bhgst", qg, k) / math.sqrt(hd)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhgst,bthd->bshgd", w, v).reshape(b, s, hq, hd)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool, window: int) -> torch.Tensor:
+    """The flash-attention kernel's function: ``gqa_attention`` under the
+    causal / sliding-window mask (no mask when neither is set)."""
+    mask = (attention_mask(q.shape[1], k.shape[1], causal=causal,
+                           window=window, device=q.device)
+            if causal or window else None)
+    return gqa_attention(q, k, v, mask)
+
+
+def consensus_dist_ref(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """x: [L]; u: [K, L] -> [K] L2 distances ||u_k - x|| (Eq. 7, square
+    root included)."""
+    return torch.sqrt(((u - x) ** 2).sum(1))

@@ -58,14 +58,17 @@ def torch_churn(churn: bool):
 
 
 def jax_init(seed: int, num_workers: int, dim: int = 32, hidden: int = 64,
-             num_classes: int = 10) -> dict[str, np.ndarray]:
-    """The reference's ``adapter.init(PRNGKey(seed))``, broadcast to a
-    worker-stacked numpy dict — the weights both packages start from."""
-    adapter = jax_modelspec.get_adapter("mlp", dim=dim, hidden=hidden,
+             num_classes: int = 10, model: str = "mlp") -> dict:
+    """The reference's ``adapter.init(PRNGKey(seed))`` for the model
+    ``model`` names, broadcast to a worker-stacked numpy pytree (nested
+    dicts for a registry model) — the weights both packages start
+    from."""
+    adapter = jax_modelspec.get_adapter(model, dim=dim, hidden=hidden,
                                         num_classes=num_classes)
     p0 = adapter.init(jax.random.PRNGKey(seed))
-    return {k: np.broadcast_to(np.asarray(v), (num_workers,) + v.shape)
-            for k, v in p0.items()}
+    return jax.tree.map(
+        lambda v: np.broadcast_to(np.asarray(v), (num_workers,) + v.shape),
+        p0)
 
 
 class RecordingStrategy:
@@ -119,7 +122,8 @@ def run_reference(algo: str, churn: bool, rounds: int = ROUNDS, *,
                                cfg.seed)))
     hist = jax_engine.run_dfl(
         train, tx, ty, shards, cluster, cfg, strategy, rounds=rounds,
-        mixing=mixing, init_params=jax_init(cfg.seed, cfg.num_workers))
+        mixing=mixing, init_params=jax_init(cfg.seed, cfg.num_workers,
+                                            model=cfg.model))
     return hist, strategy
 
 
@@ -140,7 +144,8 @@ def run_port(algo: str, churn: bool, engine_name: str, *,
     return run(train, tx, ty, shards, cluster, cfg, strategy, rounds=rounds,
                mixing=mixing,
                init_params=params_from_jax(jax_init(cfg.seed,
-                                                    cfg.num_workers)),
+                                                    cfg.num_workers,
+                                                    model=cfg.model)),
                device="cpu")
 
 
@@ -166,8 +171,38 @@ def run_port_adpsgd(churn: bool, engine_name: str, *, rounds: int = ROUNDS,
            "fused": fused.run_adpsgd_fused}[engine_name]
     return run(train, tx, ty, shards, cluster, cfg, rounds=rounds,
                init_params=params_from_jax(jax_init(cfg.seed,
-                                                    cfg.num_workers)),
+                                                    cfg.num_workers,
+                                                    model=cfg.model)),
                device="cpu")
+
+
+# the registry slice's tiny dense LM (tests/test_torch_registry_engine.py
+# says why this size)
+TINY_LM = "dense:d=32,layers=2,heads=2,kv=1,ff=32,vocab=32,seq=12"
+# the parity contract (tests/test_torch_engine.py)
+EXACT = ("round", "round_time", "waiting_time", "mean_tau", "num_links",
+         "cumulative_time", "staleness")
+ACC_ATOL = 1.0 / 512
+REL_TOL = 1e-4
+CONSENSUS_ATOL = 1e-6
+
+
+def assert_parity(h_ref, h_port, rounds: int) -> None:
+    """The parity contract between a reference and a port History: host
+    fields exactly equal, accuracy within 1/512, loss and consensus
+    within 1e-4 relative (consensus also 1e-6 absolute), finite final
+    parameters of the adapter's leaves."""
+    assert len(h_ref.records) == len(h_port.records) == rounds
+    a, b = h_ref.as_arrays(), h_port.as_arrays()
+    for k in EXACT:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    np.testing.assert_allclose(a["accuracy"], b["accuracy"], rtol=0,
+                               atol=ACC_ATOL)
+    np.testing.assert_allclose(a["loss"], b["loss"], rtol=REL_TOL)
+    np.testing.assert_allclose(a["consensus"], b["consensus"],
+                               rtol=REL_TOL, atol=CONSENSUS_ATOL)
+    for name, leaf in h_port.final_params.items():
+        assert bool(torch.isfinite(leaf).all()), name
 
 
 def worst_diffs(a: dict, b: dict) -> dict[str, float]:

@@ -92,23 +92,46 @@ def test_run_algorithm_on_cpu_learns(fused):
     assert arr["accuracy"][-1] > arr["accuracy"][0] > 0.2
 
 
+def _remat_block_through_an_adapter(cfg):
+    """A registry model built from a ModelConfig with an activation-
+    checkpoint policy, handed to the engine as ``adapter=``."""
+    from dataclasses import replace as dc_replace
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import modelspec
+    from repro_torch.core.algorithms import make_strategy
+    from repro_torch.core.topology import make_base_topology
+    model = dc_replace(get_smoke_config("smollm-360m"), remat="block")
+    cfg = dc_replace(cfg, model="dense:d=16")
+    train, tx, ty, shards, cluster = setup_experiment(cfg, device="cpu")
+    strategy = make_strategy(cfg, make_base_topology(
+        cfg.num_workers, cfg.base_topology, cfg.seed))
+    engine.run_dfl(train, tx, ty, shards, cluster, cfg, strategy, rounds=2,
+                   adapter=modelspec.RegistryAdapter(model, 16, 8, "remat"),
+                   device="cpu")
+
+
 @pytest.mark.parametrize("algo,fields", [
     ("dpsgd", dict(compress="leafmap:default=int8")),
     ("dpsgd", dict(gossip="sparse", compress="leafmap:default=int8")),
     ("dpsgd", dict(gossip="sparse", sharded=True)),
     ("dpsgd", dict(sharded=True)),
-    ("dpsgd", dict(gossip="sparse", model="dense:d=16")),
-    ("dpsgd", dict(robust="median", model="dense:d=16")),
-    ("dpsgd", dict(model="dense:d=16")),
+    ("dpsgd", dict(model="moe:d=16")),
+    ("dpsgd", dict(robust="median", model="hybrid:d=16")),
+    ("dpsgd", None),
     ("adpsgd", dict(robust="screen:3", compress="leafmap:default=int8"))],
     ids=["compress-leafmap", "gossip-sparse-compress-leafmap",
-         "gossip-sparse-sharded", "sharded-True", "gossip-sparse-model-dense",
-         "robust-median-model-dense", "model-dense:d=16",
+         "gossip-sparse-sharded", "sharded-True", "model-moe",
+         "robust-median-model-hybrid", "remat-block-adapter",
          "adpsgd-robust-screen-leafmap"])
 def test_unported_options_raise(algo, fields):
-    cfg = port_config(**fields)
+    """``fields`` None: remat="block" through an adapter."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_algorithm(algo, cfg, rounds=2, device="cpu")
+        if fields is None:
+            _remat_block_through_an_adapter(port_config())
+        else:
+            run_algorithm(algo, port_config(**fields), rounds=2,
+                          device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(seeds=[0, 1]), dict(mesh=object())],

@@ -277,3 +277,97 @@ def test_cuda_robust_gossip_bit_equal_to_plain_version(d_table, spec, w):
                                                     mode=mode)), (mode, b)
         assert torch.equal(y[3], x[3])
     assert ops.LAUNCHES["robust_gossip"] == before + 4
+
+
+def test_flash_attention_rejects_bad_calls():
+    """The wrapper's rejects, on the CPU as on the card: a head width
+    without a kernel instance, Hq not a multiple of Hkv, more queries
+    than keys, mismatched shapes."""
+    def qkv(b=1, s=8, hq=4, hkv=2, hd=64, sk=None):
+        sk = s if sk is None else sk
+        return (torch.zeros(b, s, hq, hd), torch.zeros(b, sk, hkv, hd),
+                torch.zeros(b, sk, hkv, hd))
+    for hd in (32, 96, 256):
+        with pytest.raises(ValueError, match="head dims"):
+            ops.flash_attention(*qkv(hd=hd))
+    for hq, hkv in ((5, 2), (3, 4)):
+        with pytest.raises(ValueError, match="multiple of Hkv"):
+            ops.flash_attention(*qkv(hq=hq, hkv=hkv))
+    with pytest.raises(ValueError, match="S <= Sk"):
+        ops.flash_attention(*qkv(s=9, sk=8))
+    q, k, v = qkv()
+    for args in ((q, k, v[:, :4]), (q[0], k, v), (q, k[..., :32], v)):
+        with pytest.raises(ValueError):
+            ops.flash_attention(*args)
+
+
+def test_consensus_dist_rejects_bad_shapes():
+    for x, u in ((torch.zeros(10), torch.zeros(3, 9)),
+                 (torch.zeros(2, 10), torch.zeros(3, 10)),
+                 (torch.zeros(10), torch.zeros(10))):
+        with pytest.raises(ValueError):
+            ops.consensus_dist(x, u)
+
+
+# (B, S, Hq, Hkv, hd, causal, window): the DFL path's local step and a
+# slice of its measurement stack (S = 15), a ragged multi-tile S, the
+# forced-causal rule (non-causal, Sk not a multiple of 128), a sliding
+# window, and each head width's instance
+FLASH_CUDA_CASES = [(256, 15, 15, 5, 64, True, 0),
+                    (2048, 15, 15, 5, 64, True, 0),
+                    (2, 300, 15, 5, 64, True, 0),
+                    (3, 100, 6, 2, 64, False, 0),
+                    (2, 256, 4, 4, 64, False, 0),
+                    (1, 700, 8, 4, 128, True, 128),
+                    (1, 333, 24, 2, 192, True, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hq,hkv,hd,causal,window", FLASH_CUDA_CASES)
+def test_cuda_flash_attention_matches_plain_version(b, s, hq, hkv, hd,
+                                                    causal, window):
+    """flash_attention against its plain version on the card, within the
+    reference's flash tolerance (2e-5 absolute and relative, unit-normal
+    inputs); its backward recomputes through the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(b * s + hd)
+    q = torch.randn(b, s, hq, hd, generator=gen, device="cuda")
+    k = torch.randn(b, s, hkv, hd, generator=gen, device="cuda")
+    v = torch.randn(b, s, hkv, hd, generator=gen, device="cuda")
+    before = ops.LAUNCHES["flash_attention"]
+    y = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    forced = causal or s % 128 != 0
+    want = ref.flash_attention_ref(q, k, v, causal=forced, window=window)
+    torch.testing.assert_close(y, want, atol=2e-5, rtol=2e-5)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ops.flash_attention(qg, kg, vg, causal=causal, window=window).sum() \
+        .backward()
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ref.flash_attention_ref(qr, kr, vr, causal=forced, window=window).sum() \
+        .backward()
+    for a, b_ in ((qg, qr), (kg, kr), (vg, vr)):
+        assert torch.equal(a.grad, b_.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,length", [(4, 2 ** 17), (7, 1_000_003),
+                                      (1, 5), (30, 6922)])
+def test_cuda_consensus_dist_matches_plain_version(k, length):
+    """consensus_dist against its plain version on the card (1e-6
+    relative), and the same bits on a second run (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(length)
+    x = torch.randn(length, generator=gen, device="cuda")
+    u = x + 0.1 * torch.randn(k, length, generator=gen, device="cuda")
+    before = ops.LAUNCHES["consensus_dist"]
+    d = ops.consensus_dist(x, u)
+    assert ops.LAUNCHES["consensus_dist"] == before + 1
+    torch.testing.assert_close(d, ref.consensus_dist_ref(x, u), rtol=1e-6,
+                               atol=0)
+    assert torch.equal(d, ops.consensus_dist(x, u))
+    assert torch.equal(ops.consensus_dist(x, x[None].expand(k, -1)
+                                          .contiguous()),
+                       torch.zeros(k, device="cuda"))
