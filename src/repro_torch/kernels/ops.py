@@ -38,9 +38,10 @@ LAUNCHES = {"gossip_mix": 0, "quantize_block": 0, "dequantize_block": 0,
             "sparsify_block": 0, "gossip_edges": 0, "robust_gossip": 0,
             "flash_attention": 0, "consensus_dist": 0}
 
-# gossip_mix stages one row of weights in static shared memory (48 KB);
-# the gossip and codec kernels put their rows (B, or the W workers) on
-# the grid's y axis
+# gossip_mix stages u and w in chunks of 64 neighbours, so K is not
+# bounded by shared memory; it keeps the limit of its first version, which
+# no fleet reaches. The gossip and codec kernels put their rows (B, or the
+# W workers, in groups for gossip_mix) on the grid's y axis
 _MAX_NEIGHBORS = 48 * 1024 // 4
 _MAX_ROWS = 65535
 # robust_gossip's template instances: one per power of two up to this
@@ -48,9 +49,12 @@ _MAX_ROWS = 65535
 ROBUST_MAX_DEGREE = 64
 # consensus_dist's first pass: columns per block (256 threads, 8 each)
 CONSENSUS_BLOCK_COLS = 2048
-# flash_attention's query tile: rows of the g = Hq / Hkv heads that share
-# a KV head, packed (head-major) into tiles of this many rows
-FLASH_TILE_ROWS = 64
+# flash_attention's two instances: the short-sequence kernel takes Sk up
+# to FLASH_SHORT_MAX_KEYS (the group's whole K and V in shared memory;
+# 16-byte aligned operands), the tile kernel longer Sk. Both give a block
+# this many query rows of the g = Hq / Hkv heads that share a KV head
+FLASH_SHORT_MAX_KEYS = 64
+FLASH_BLOCK_ROWS = 64
 # flash_attention's template instances: the registry models' head widths
 # (smollm 64; gemma3 and internlm2 128; nemotron 192)
 FLASH_HEAD_DIMS = (64, 128, 192)
@@ -129,7 +133,7 @@ def _library() -> ctypes.CDLL:
             [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
                                   ctypes.c_void_p]
         lib.flash_attention_f32.argtypes = [ctypes.c_void_p] * 4 + \
-            [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
         lib.consensus_dist_f32.argtypes = [ctypes.c_void_p] * 4 + \
             [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
         for fn in (lib.gossip_mix_f32, lib.quantize_block_f32,
@@ -354,15 +358,27 @@ def robust_gossip(x: torch.Tensor, t: torch.Tensor, nbr: torch.Tensor,
     return y
 
 
+def flash_instance(q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> str:
+    """The kernel instance a launch on these operands runs: ``"short"``
+    where the keys fit the short-sequence kernel (Sk <=
+    ``FLASH_SHORT_MAX_KEYS``) and q, k, v start on 16 bytes (its float4
+    loads; the output is a fresh allocation), else ``"tile"``."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    return "short" if k.shape[1] <= FLASH_SHORT_MAX_KEYS and aligned \
+        else "tile"
+
+
 def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool, window: int) -> torch.Tensor:
     _check_cuda("flash_attention", {"q": q, "k": k, "v": v})
     b, s, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
+    short = flash_instance(q, k, v) == "short"
     _launch("flash_attention", _library().flash_attention_f32, q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
-            sk, hq, hkv, hd, int(causal), window, hd ** -0.5)
+            sk, hq, hkv, hd, int(causal), window, int(short), hd ** -0.5)
     return o
 
 
@@ -404,7 +420,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Hkv and S <= Sk (every query then has a key in reach).
     Differentiable: the backward recomputes through the plain version.
     CPU tensors run the plain version (``ref.flash_attention_ref``);
-    CUDA tensors launch the kernel (f32 only) and count the launch."""
+    CUDA tensors launch the kernel instance ``flash_instance`` names (f32
+    only) and count the launch."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or \
             q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
         raise ValueError("flash_attention takes q [B, S, Hq, hd], k and v "
@@ -421,10 +438,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if s > sk:
         raise ValueError(f"flash_attention needs S <= Sk; got S={s}, "
                          f"Sk={sk}")
-    tiles = -(-(hq // hkv) * s // FLASH_TILE_ROWS)
-    if b * hkv * tiles >= 2 ** 31:
-        raise ValueError("flash_attention: B * Hkv * query tiles must fit "
-                         "the kernel grid's x axis (< 2**31)")
+    # either instance launches one block per (sequence, KV head, chunk of
+    # FLASH_BLOCK_ROWS query rows of the group)
+    chunks = -(-(hq // hkv) * s // FLASH_BLOCK_ROWS)
+    if b * hkv * chunks >= 2 ** 31:
+        raise ValueError("flash_attention: B * Hkv * query-row chunks must "
+                         "fit the kernel grid's x axis (< 2**31)")
     causal = bool(causal) or sk % 128 != 0
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), causal, int(window))

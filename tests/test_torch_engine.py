@@ -159,14 +159,15 @@ def test_default_device_needs_a_gpu(entry):
 
 _ROOT = Path(__file__).resolve().parents[1]
 _PORT_FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [_ROOT / "chip_smoke.py"]
+    [_ROOT / "chip_smoke.py", _ROOT / "tools" / "kernel_ab.py"]
 
 
 @pytest.mark.parametrize("path", _PORT_FILES,
                          ids=[str(p.relative_to(_ROOT)) for p in _PORT_FILES])
 def test_port_imports_no_jax_and_no_reference(path):
-    """No module of the port, and not chip_smoke.py, imports jax or the
-    reference package ``repro`` (statically, anywhere in the file)."""
+    """No module of the port, and neither chip_smoke.py nor
+    tools/kernel_ab.py, imports jax or the reference package ``repro``
+    (statically, anywhere in the file)."""
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = []
     for node in ast.walk(tree):

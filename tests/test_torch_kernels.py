@@ -129,26 +129,32 @@ def test_failed_build_raises(tmp_path, monkeypatch):
         ops.build()
 
 
+# (B, K, L): the MLP path's round, an aligned and a short row, AD-PSGD's
+# pair (one row, and both endpoints' rows), a ragged L of a million with
+# the registry path's eight rows, K past one staged chunk of 64
+# neighbours (u = x, and u apart from x with fewer rows than neighbours)
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,k,length", [(30, 30, 6922), (30, 30, 8192),
-                                        (30, 30, 1000), (1, 1, 6922)])
+                                        (30, 30, 1000), (1, 1, 6922),
+                                        (2, 2, 6922), (8, 8, 1_000_003),
+                                        (100, 100, 6922), (30, 100, 6922)])
 def test_cuda_kernel_bit_equal_to_plain_version(b, k, length):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     gen = torch.Generator(device="cuda").manual_seed(length)
     x = torch.randn(b, length, generator=gen, device="cuda")
     # the fused engine's call mixes the fleet with itself (u = x)
-    u = x if b == k > 1 else torch.randn(k, length, generator=gen,
+    u = x if b == k > 2 else torch.randn(k, length, generator=gen,
                                          device="cuda")
     w = torch.rand(b, k, generator=gen, device="cuda") / k
-    if b > 2:
+    if u is x:
         w[2] = 0.0
         w[2, 2] = 1.0                    # identity row
     before = ops.LAUNCHES["gossip_mix"]
     y = ops.gossip_mix(x, u, w)
     assert ops.LAUNCHES["gossip_mix"] == before + 1
     assert torch.equal(y, ref.gossip_mix_ref(x, u, w))
-    if b > 2:
+    if u is x:
         assert torch.equal(y[2], x[2])
 
 
@@ -299,6 +305,31 @@ def test_flash_attention_rejects_bad_calls():
     for args in ((q, k, v[:, :4]), (q[0], k, v), (q, k[..., :32], v)):
         with pytest.raises(ValueError):
             ops.flash_attention(*args)
+    # a grid past the x axis, for each instance: one block per (sequence,
+    # KV head, chunk of FLASH_BLOCK_ROWS query rows) — 1 chunk of the
+    # short kernel's 45 rows at S = 15, 10 of the tile kernel's 600 at
+    # S = 200 (expanded views: nothing is allocated)
+    for s in (15, 200):
+        chunks = -(-3 * s // ops.FLASH_BLOCK_ROWS)
+        b = 2 ** 31 // (5 * chunks) + 1
+        q = torch.zeros(1, s, 15, 64).expand(b, -1, -1, -1)
+        k = torch.zeros(1, s, 5, 64).expand(b, -1, -1, -1)
+        with pytest.raises(ValueError, match="grid"):
+            ops.flash_attention(q, k, k)
+
+
+@pytest.mark.parametrize("sk,offset,want", [
+    (15, 0, "short"), (ops.FLASH_SHORT_MAX_KEYS, 0, "short"),
+    (ops.FLASH_SHORT_MAX_KEYS + 1, 0, "tile"), (4096, 0, "tile"),
+    (15, 1, "tile")])
+def test_flash_instance(sk, offset, want):
+    """The instance a launch runs: the short-sequence kernel up to
+    FLASH_SHORT_MAX_KEYS keys on 16-byte aligned operands (its float4
+    loads), the tile kernel past it or on a view that starts off 16
+    bytes."""
+    q, k, v = (torch.zeros(2 * sk * 4 * 64 + offset)[offset:]
+               .view(2, sk, 4, 64) for _ in range(3))
+    assert ops.flash_instance(q, k, v) == want
 
 
 def test_consensus_dist_rejects_bad_shapes():
@@ -312,14 +343,25 @@ def test_consensus_dist_rejects_bad_shapes():
 # (B, S, Hq, Hkv, hd, causal, window): the DFL path's local step and a
 # slice of its measurement stack (S = 15), a ragged multi-tile S, the
 # forced-causal rule (non-causal, Sk not a multiple of 128), a sliding
-# window, and each head width's instance
+# window, each head width's instance, and for each head width the short
+# kernel's dispatch limit and one key past it (the tile kernel), a short
+# sliding window and a group of 60 rows across two blocks' chunks
+_LIMIT = ops.FLASH_SHORT_MAX_KEYS
 FLASH_CUDA_CASES = [(256, 15, 15, 5, 64, True, 0),
                     (2048, 15, 15, 5, 64, True, 0),
                     (2, 300, 15, 5, 64, True, 0),
                     (3, 100, 6, 2, 64, False, 0),
                     (2, 256, 4, 4, 64, False, 0),
                     (1, 700, 8, 4, 128, True, 128),
-                    (1, 333, 24, 2, 192, True, 0)]
+                    (1, 333, 24, 2, 192, True, 0),
+                    (64, _LIMIT, 15, 5, 64, True, 0),
+                    (64, _LIMIT + 1, 15, 5, 64, True, 0),
+                    (16, _LIMIT, 32, 16, 128, True, 0),
+                    (16, _LIMIT + 1, 32, 16, 128, True, 0),
+                    (8, _LIMIT, 24, 2, 192, True, 0),
+                    (8, _LIMIT + 1, 24, 2, 192, True, 0),
+                    (32, 48, 32, 16, 128, True, 16),
+                    (4, 5, 12, 1, 64, True, 2)]
 
 
 @pytest.mark.cuda
@@ -335,6 +377,8 @@ def test_cuda_flash_attention_matches_plain_version(b, s, hq, hkv, hd,
     q = torch.randn(b, s, hq, hd, generator=gen, device="cuda")
     k = torch.randn(b, s, hkv, hd, generator=gen, device="cuda")
     v = torch.randn(b, s, hkv, hd, generator=gen, device="cuda")
+    assert ops.flash_instance(q, k, v) == ("short" if s <= _LIMIT
+                                           else "tile")
     before = ops.LAUNCHES["flash_attention"]
     y = ops.flash_attention(q, k, v, causal=causal, window=window)
     assert ops.LAUNCHES["flash_attention"] == before + 1
@@ -349,6 +393,27 @@ def test_cuda_flash_attention_matches_plain_version(b, s, hq, hkv, hd,
         .backward()
     for a, b_ in ((qg, qr), (kg, kr), (vg, vr)):
         assert torch.equal(a.grad, b_.grad)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_unaligned_operands():
+    """Operands that start off 16 bytes run the tile kernel, and agree
+    with the plain version as the short kernel does on aligned ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    shape = (64, 15, 15, 64)
+    n = shape[0] * shape[1] * shape[2] * shape[3]
+    q = torch.randn(n + 1, generator=gen, device="cuda")[1:].view(shape)
+    k, v = (torch.randn(n // 3 + 1, generator=gen, device="cuda")[1:]
+            .view(64, 15, 5, 64) for _ in range(2))
+    assert ops.flash_instance(q, k, v) == "tile"
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=0)
+    y = ops.flash_attention(q, k, v, causal=True, window=0)
+    torch.testing.assert_close(y, want, atol=2e-5, rtol=2e-5)
+    y_short = ops.flash_attention(q.clone(), k.clone(), v.clone(),
+                                  causal=True, window=0)
+    torch.testing.assert_close(y_short, want, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.cuda
