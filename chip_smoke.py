@@ -21,13 +21,17 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    the edge-list ``gossip_edges`` (W = 30 full graph and ring, the
    W = 2,048 ring and a W = 2,048 ``ba:2`` graph, honest and over a
    lying wire), the Byzantine-robust ``robust_gossip`` (trimmed and
-   median, W = 30 full graph and the W = 2,048 ring), ``flash_attention``
+   median, W = 30 full graph and the W = 2,048 ring in the register
+   instances, full graphs of 66, 130 and 300 workers in the wide one;
+   each line names its instance and bound), ``flash_attention``
    (the registry path's local step and measurement stack, smollm-360m's
    train shape, a gemma3-27b local layer, a 192-wide head, the forced
    causal rule, the short-sequence kernel's dispatch limit and one key
    past it, a non-causal Sk = 128 and a short sliding window; each line
-   names the instance that ran; within 2e-5, with the operations and
-   bytes bound and ``scaled_dot_product_attention``'s time) and
+   names the instance that ran; within 2e-5, with the f32-FMA bound
+   (operations at 67 TFLOP/s or bytes), the tensor-core bound (3 x the
+   operations at 495 TFLOP/s, or bytes) and
+   ``scaled_dot_product_attention``'s time) and
    ``consensus_dist`` (the kernel benchmark's shape and the registry
    path's width; within 1e-6 relative);
 3. the main path: ``run_algorithm(algo, cfg, fused=True)`` at the
@@ -37,7 +41,9 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    edge-list gossip (FedHP, D-PSGD, under int8 and top-k, and the
    reference's W = 2,048 ring); 20% sign-flip attackers with the
    attacked baseline dense and sparse, trimmed:6 dense and sparse, the
-   median under a norm-blown attack and AD-PSGD screening; and the
+   median under a norm-blown attack and AD-PSGD screening; FedHP on
+   70 workers over a complete base with trimmed:2 (degree 69: the
+   robust kernel's wide instance, its launches asserted); and the
    registry path: a dense LM at smollm-360m's widths (d 960, 15 / 5
    heads of 64, d_ff 2,560; 4 layers, a vocabulary of 6,144) with
    ``use_flash_kernel=True``, FedHP and D-PSGD at W = 8 through
@@ -48,7 +54,9 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    uncompressed, under int8 and under top-k, AD-PSGD uncompressed and
    under int8, sparse FedHP uncompressed and under int8, trimmed:6
    sparse and dense, the median, AD-PSGD screening, and the registry
-   path's FedHP over an ``erdos:0.5`` base: host record fields (and screening's rejection counts)
+   path's FedHP over an ``erdos:0.5`` base, and the 70-worker trimmed
+   FedHP over ``erdos:0.95`` (degrees 65-69): host record fields (and
+   screening's rejection counts)
    equal, device metrics within the tests' tolerances (int8's wider,
    ``tests/test_torch_codec_engine.py``).
 
@@ -94,6 +102,10 @@ from repro_torch.simulation.cluster import SimCluster  # noqa: E402
 # over the first and its operations over the second
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# and TF32 on the tensor cores: flash's tile kernel does each f32
+# product as three TF32 products (3xTF32), so its tensor-core bound is
+# the larger of the bytes and 3 flops at this rate
+TF32_FLOPS = 495e12
 # the paper's MLP (32 -> 64 -> 64 -> 10): the width of a worker's row
 PAPER_MLP_P = 6922
 
@@ -113,6 +125,15 @@ BIG_CFG = FedHPConfig(num_workers=2048, rounds=3, tau_init=2, tau_max=4,
                       gossip="sparse")
 BIG_KW = dict(non_iid_p=0.1, num_samples=65536)
 BIG_ROUNDS = 3
+# the fleet past 64 neighbours: 70 workers on a complete base (degree 69,
+# the robust kernel's wide instance), two sign-flip attackers, trimmed:2
+# (the case the port refused before the wide instance, ROADMAP.md); phase
+# 4 runs it over erdos:0.95 (every worker still of degree 65-69): on a
+# complete base every honest worker trims the same multiset and the
+# engines' consensus metrics are f32 noise around zero
+WIDE_FIELDS = dict(num_workers=70, byzantine=(0, 1), robust="trimmed:2",
+                   base_topology="full")
+WIDE_ROUNDS = 10
 # the main path's runs: (algorithm, config fields over PAPER_CFG)
 MAIN_PATHS = (("fedhp", {}), ("dpsgd", {}), ("ldsgd", {}), ("pens", {}),
               ("fedhp", dict(compress="int8")),
@@ -146,7 +167,8 @@ PARITY_PATHS = (("fedhp", {}), ("fedhp", dict(compress="int8")),
                 ("fedhp", dict(BYZ, robust="trimmed:6",
                                base_topology="erdos:0.9")),
                 ("dpsgd", dict(BYZ, robust="median")),
-                ("adpsgd", dict(BYZ, robust="screen:8")))
+                ("adpsgd", dict(BYZ, robust="screen:8")),
+                ("fedhp", dict(WIDE_FIELDS, base_topology="erdos:0.95")))
 MAIN_ROUNDS = 20
 WARMUP_ROUNDS = 2
 PARITY_ROUNDS = 10
@@ -587,34 +609,58 @@ def _compare_exchanges(d_pad: int) -> int:
     return sum((n - (pas & 1)) // 2 for pas in range(n))
 
 
+def _bitonic_compare_exchanges(deg: int) -> int:
+    """The wide instance's bitonic network on a window of deg + 1 values
+    padded to N, a power of two: N log2 N (log2 N + 1) / 4."""
+    n = 1 << deg.bit_length()
+    k = n.bit_length() - 1
+    return n * k * (k + 1) // 4
+
+
+# (case, W, base, cut workers, workers whose degree is set to 0): the
+# main path's W = 30 full graph (D_PAD = 32) and the W = 2,048 ring
+# (D_PAD = 2), register instances; full graphs of 66, 130 and 300 (D =
+# 65, 129 and 299, the wide instance), worker 7's degree zeroed so the
+# table keeps its width
+ROBUST_CASES = (("full30", 30, "full", (1, 7), ()),
+                ("ring2048", 2048, "ring", (1, 7), ()),
+                ("full66", 66, "full", (), (7,)),
+                ("full130", 130, "full", (), (7,)),
+                ("full300", 300, "full", (), (7,)))
+
+
 def check_robust_gossip(cycles_per_ms: float) -> dict:
-    """robust_gossip at P = 6,922 on the W = 30 full graph (D = 29,
-    instance D_PAD = 32) with trimmed:6, trimmed:0.2 and the median, and
-    on the W = 2,048 ring (D_PAD = 2), each with two isolated workers
-    (degree 0) and every fifth row sign-flipped in t."""
+    """robust_gossip at P = 6,922 with trimmed:6, trimmed:0.2 and the
+    median on each of ROBUST_CASES, with every fifth row sign-flipped in
+    t and rows of degree 0."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     p = PAPER_MLP_P
     worst, main = 0.0, None
-    for case, w, spec in (("full30", 30, "full"), ("ring2048", 2048, "ring")):
-        adj, _ = _graph(w, spec, cut=(1, 7))
+    for case, w, spec, cut, zeroed in ROBUST_CASES:
+        adj, _ = _graph(w, spec, cut=cut)
         nbr_np, deg_np = robust.neighbor_table(adj)
-        d_pad = 1 << (nbr_np.shape[1] - 1).bit_length()
-        nbr_np = np.pad(nbr_np, ((0, 0), (0, d_pad - nbr_np.shape[1])))
+        deg_np[list(zeroed)] = 0
+        d_pad = ops.robust_instance(nbr_np.shape[1])
+        if d_pad:       # the register instance's power-of-two table
+            nbr_np = np.pad(nbr_np, ((0, 0), (0, d_pad - nbr_np.shape[1])))
+        d = nbr_np.shape[1]
+        instance = f"register D_PAD={d_pad}" if d_pad else f"wide D={d}"
         nbr, deg = (torch.from_numpy(a).to("cuda") for a in (nbr_np,
                                                             deg_np))
         x = torch.randn(w, p, generator=gen, device="cuda")
         t = _lying(x)
+        reps = 50 if d_pad else 10
         for mode, b in (("trimmed", 6.0), ("trimmed", 0.2), ("median", 0.0)):
             name = f"{case}-{mode}:{b:g}"
             y = ops.robust_gossip(x, t, nbr, deg, b=b, mode=mode)
             err = _require_equal("robust_gossip", name, [
                 (y, ref.robust_gossip_ref(x, t, nbr, deg, b=b, mode=mode))])
-            for i in (1, 7):
+            for i in (*cut, *zeroed):
                 if not torch.equal(y[i], x[i]):
                     raise AssertionError(f"robust_gossip[{name}]: degree-0 "
                                          f"row {i} changed")
             worst = max(worst, err)
-            mask = (torch.arange(d_pad, device="cuda")[None, :]
+            mask = (torch.arange(d, device="cuda")[None, :]
                     < deg[:, None].long())[:, :, None]
             cnt = deg.long() + 1
 
@@ -630,8 +676,7 @@ def check_robust_gossip(cycles_per_ms: float) -> dict:
                     y = 0.5 * (sv.gather(1, lo) + sv.gather(1, hi))[:, 0]
                 else:
                     bi = robust.resolve_trim(b, cnt)
-                    pos = torch.arange(d_pad + 1, device="cuda")[None, :,
-                                                                 None]
+                    pos = torch.arange(d + 1, device="cuda")[None, :, None]
                     inside = (pos >= bi[:, None, None]) & \
                         (pos < (cnt - bi)[:, None, None])
                     y = torch.where(inside, sv, 0.0).sum(dim=1) / \
@@ -641,28 +686,38 @@ def check_robust_gossip(cycles_per_ms: float) -> dict:
             kernel_ms = time_ms(
                 lambda mode=mode, b=b: ops.robust_gossip(x, t, nbr, deg, b=b,
                                                          mode=mode),
-                cycles_per_ms, batch=10)
+                cycles_per_ms, batch=10, reps=reps)
             plain_ms = time_ms(
                 lambda mode=mode, b=b: ref.robust_gossip_ref(
-                    x, t, nbr, deg, b=b, mode=mode), cycles_per_ms, batch=2)
-            comp_ms = time_ms(composition, cycles_per_ms, batch=2)
+                    x, t, nbr, deg, b=b, mode=mode), cycles_per_ms, batch=2,
+                reps=reps)
+            comp_ms = time_ms(composition, cycles_per_ms, batch=2, reps=reps)
             # x and t read once, the table and the degrees read once, y
             # written once; the sorting network's compare-exchanges (a min
-            # and a max each) on every window of a worker with neighbours
-            nbytes = (3 * w * p + w * d_pad + w) * 4
-            windows = int((deg > 0).sum()) * p
-            bound_ms, bound_by = _bound(
-                nbytes, 2 * _compare_exchanges(d_pad) * windows)
-            log("phase2", kernel="robust_gossip", case=name, W=w, P=p,
-                D_PAD=d_pad, bit_equal=True, max_abs_err=err,
-                composition_max_abs_diff=comp_err, ms=f"{kernel_ms:.6f}",
-                plain_ms=f"{plain_ms:.6f}",
+            # and a max each) on every window of a worker with neighbours:
+            # the register instance's odd-even network on D_PAD + 1, the
+            # wide instance's bitonic network on the window's power of two
+            nbytes = (3 * w * p + w * d + w) * 4
+            if d_pad:
+                exchanges = _compare_exchanges(d_pad) * int((deg > 0).sum())
+            else:
+                exchanges = sum(_bitonic_compare_exchanges(int(k))
+                                for k in deg_np if k > 0)
+            bound_ms, bound_by = _bound(nbytes, 2 * exchanges * p)
+            log("phase2", kernel="robust_gossip", case=name,
+                instance=repr(instance), W=w, P=p, D=d, bit_equal=True,
+                max_abs_err=err, composition_max_abs_diff=comp_err,
+                ms=f"{kernel_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
                 composition_ms=f"{comp_ms:.6f}", bound_ms=f"{bound_ms:.6f}",
-                bound_by=bound_by, bound_mb=f"{nbytes / 1e6:.6f}")
+                bound_by=bound_by, bound_mb=f"{nbytes / 1e6:.6f}",
+                compare_exchanges=exchanges * p,
+                share_of_bound=f"{bound_ms / kernel_ms:.4f}")
             if name == "full30-trimmed:6":
                 main = dict(ms=kernel_ms, plain_ms=plain_ms,
                             library_ms=None, bound_ms=bound_ms,
                             bound_by=bound_by)
+        del x, t, y
+        torch.cuda.empty_cache()
     return dict(name="robust_gossip", route="cuda",
                 source="src/repro_torch/kernels/csrc/robust_gossip.cu",
                 replaces="src/repro/kernels/robust_gossip.py:101",
@@ -682,9 +737,9 @@ def check_robust_gossip(cycles_per_ms: float) -> dict:
 # one launch (8 x 2,048); smollm-360m's train shape, a gemma3-27b local
 # layer, a nemotron-4 head width (192) and the forced causal rule
 # (non-causal, S not a multiple of 128); the short-sequence kernel's
-# dispatch limit (Sk = FLASH_SHORT_MAX_KEYS) and one key past it, a
-# non-causal Sk = 128 (a multiple of 128, so no mask is forced) and a
-# sliding window inside the short kernel's reach
+# dispatch limit at hd 64 (Sk = FLASH_SHORT_MAX_KEYS[64]) and one key
+# past it, a non-causal Sk = 128 (a multiple of 128, so no mask is
+# forced) and a sliding window inside the short kernel's reach
 FLASH_CASES = (("local-step", 256, 15, 15, 5, 64, True, 0, False),
                ("measurement-group", 4096, 15, 15, 5, 64, True, 0, True),
                ("measurement-stack", 16384, 15, 15, 5, 64, True, 0, False),
@@ -692,12 +747,13 @@ FLASH_CASES = (("local-step", 256, 15, 15, 5, 64, True, 0, False),
                ("gemma3-local", 1, 4096, 32, 16, 128, True, 1024, False),
                ("hd192", 1, 1000, 96, 8, 192, True, 0, False),
                ("forced-causal", 4, 100, 6, 2, 64, False, 0, False),
-               ("short-limit", 256, ops.FLASH_SHORT_MAX_KEYS, 15, 5, 64,
+               ("short-limit", 256, ops.FLASH_SHORT_MAX_KEYS[64], 15, 5, 64,
                 True, 0, False),
-               ("short-limit+1", 256, ops.FLASH_SHORT_MAX_KEYS + 1, 15, 5,
-                64, True, 0, False),
+               ("short-limit+1", 256, ops.FLASH_SHORT_MAX_KEYS[64] + 1, 15,
+                5, 64, True, 0, False),
                ("noncausal-128", 64, 128, 15, 5, 64, False, 0, False),
-               ("short-window", 64, 48, 32, 16, 128, True, 16, False))
+               ("short-window", 64, ops.FLASH_SHORT_MAX_KEYS[128], 32, 16,
+                128, True, 16, False))
 
 
 def check_flash_attention(cycles_per_ms: float) -> dict:
@@ -746,16 +802,19 @@ def check_flash_attention(cycles_per_ms: float) -> dict:
         nbytes = (2 * b * s * hq * hd + 2 * b * s * hkv * hd) * 4
         flops = 4 * b * hq * hd * pairs
         bound_ms, bound_by = _bound(nbytes, flops)
+        tc_ms = max(nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS) * 1e3
         log("phase2", kernel="flash_attention", case=case,
             instance=ops.flash_instance(q, k, v), B=b, S=s, Hq=hq,
             Hkv=hkv, hd=hd, causal=forced, window=window,
             max_abs_err=err, sdpa_max_abs_diff=lib_err,
             ms=f"{kernel_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
             sdpa_ms=f"{library_ms:.6f}", bound_ms=f"{bound_ms:.6f}",
-            bound_by=bound_by, bound_mb=f"{nbytes / 1e6:.6f}",
-            gflop=f"{flops / 1e9:.6f}",
+            bound_by=bound_by, tc_bound_ms=f"{tc_ms:.6f}",
+            bound_mb=f"{nbytes / 1e6:.6f}", gflop=f"{flops / 1e9:.6f}",
             tflops=f"{flops / kernel_ms / 1e9:.3f}",
-            share_of_bound=f"{bound_ms / kernel_ms:.4f}")
+            share_of="f32_fma_bound",
+            share_of_bound=f"{bound_ms / kernel_ms:.4f}",
+            share_of_tc_bound=f"{tc_ms / kernel_ms:.4f}")
         if is_main:
             main = dict(ms=kernel_ms, plain_ms=plain_ms,
                         library_ms=library_ms, bound_ms=bound_ms,
@@ -876,8 +935,9 @@ def _timed_run(algo: str, cfg: FedHPConfig, rounds: int, warmup: int,
     # the algorithm's (rounds/s below still include set-up)
     run_algorithm(algo, cfg, rounds=warmup, fused=True, **kw)
     torch.cuda.synchronize()
-    for k in ops.LAUNCHES:
-        ops.LAUNCHES[k] = 0
+    for counts in (ops.LAUNCHES, ops.INSTANCE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
     t0 = time.perf_counter()
     hist = run_algorithm(algo, cfg, rounds=rounds, fused=True, **kw)
     torch.cuda.synchronize()
@@ -891,6 +951,18 @@ def _check_run(name: str, algo: str, cfg: FedHPConfig, rounds: int, hist,
     if counts != expected:
         raise AssertionError(f"{name}: launched {counts}, the path must "
                              f"launch {expected}")
+    inst = ops.INSTANCE_LAUNCHES
+    if inst["robust_gossip:register"] + inst["robust_gossip:wide"] != \
+            counts["robust_gossip"]:
+        raise AssertionError(f"{name}: robust_gossip instances {inst} do "
+                             f"not add up to {counts['robust_gossip']}")
+    # a round whose plan has a worker of degree past 64 (round 0 of a
+    # complete base) takes the wide instance
+    if cfg.num_workers - 1 > ops.ROBUST_REGISTER_MAX_DEGREE and \
+            cfg.base_topology == "full" and cfg.robust not in ("none", "") \
+            and inst["robust_gossip:wide"] == 0:
+        raise AssertionError(f"{name}: the wide robust_gossip instance "
+                             "never launched")
     _check_history(name, cfg, rounds, hist)
 
 
@@ -919,6 +991,8 @@ def run_main_path() -> dict[str, int]:
              WARMUP_ROUNDS, PAPER_KW) for algo, fields in MAIN_PATHS]
     legs.append(("dpsgd", dict(num_workers=2048, **SPARSE), BIG_CFG,
                  BIG_ROUNDS, 1, BIG_KW))
+    legs.append(("fedhp", WIDE_FIELDS, replace(PAPER_CFG, **WIDE_FIELDS),
+                 WIDE_ROUNDS, 1, PAPER_KW))
     for algo, fields, cfg, rounds, warmup, kw in legs:
         name = _label(algo, fields)
         hist, elapsed, counts = _timed_run(algo, cfg, rounds, warmup, **kw)
@@ -928,6 +1002,10 @@ def run_main_path() -> dict[str, int]:
         arr = hist.as_arrays()
         extra = ({} if hist.screen_rejects is None
                  else dict(screen_rejects=hist.screen_rejects))
+        if counts["robust_gossip"]:
+            extra["robust_instances"] = {
+                k.split(":")[1]: v for k, v in ops.INSTANCE_LAUNCHES.items()
+                if k.startswith("robust_gossip")}
         log("phase3", path=name, rounds=rounds,
             comm_rounds=int((arr["num_links"] > 0).sum()),
             launches={k: v for k, v in counts.items() if v},

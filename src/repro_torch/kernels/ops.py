@@ -37,6 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"gossip_mix": 0, "quantize_block": 0, "dequantize_block": 0,
             "sparsify_block": 0, "gossip_edges": 0, "robust_gossip": 0,
             "flash_attention": 0, "consensus_dist": 0}
+# robust_gossip's launches by instance (each also counts in LAUNCHES)
+INSTANCE_LAUNCHES = {"robust_gossip:register": 0, "robust_gossip:wide": 0}
 
 # gossip_mix stages u and w in chunks of 64 neighbours, so K is not
 # bounded by shared memory; it keeps the limit of its first version, which
@@ -44,17 +46,27 @@ LAUNCHES = {"gossip_mix": 0, "quantize_block": 0, "dequantize_block": 0,
 # W workers, in groups for gossip_mix) on the grid's y axis
 _MAX_NEIGHBORS = 48 * 1024 // 4
 _MAX_ROWS = 65535
-# robust_gossip's template instances: one per power of two up to this
-# many neighbours (a window of D_PAD + 1 registers a thread)
-ROBUST_MAX_DEGREE = 64
+# robust_gossip's instances: a register window (D_PAD + 1 floats a
+# thread, one template per power of two) for tables up to
+# ROBUST_REGISTER_MAX_DEGREE neighbours wide, then the wide instance,
+# whose block sorts each column's window in shared memory: one column of
+# N = 32,768 floats (the next power of two above D) is 128 KB of a
+# block's 227, twice that is not
+ROBUST_REGISTER_MAX_DEGREE = 64
+ROBUST_SHARED_MAX_DEGREE = 32767
 # consensus_dist's first pass: columns per block (256 threads, 8 each)
 CONSENSUS_BLOCK_COLS = 2048
 # flash_attention's two instances: the short-sequence kernel takes Sk up
-# to FLASH_SHORT_MAX_KEYS (the group's whole K and V in shared memory;
-# 16-byte aligned operands), the tile kernel longer Sk. Both give a block
+# to FLASH_SHORT_MAX_KEYS[hd] (the group's whole K and V in shared
+# memory, room for 64 keys; 16-byte aligned operands), the tile kernel
+# longer Sk (four warps on the tensor cores, 32 query rows a warp at hd
+# 64 and 128, 16 at hd 192). The limits are where the two cross on an
+# H100 (tools/kernel_ab.py at Sk = 16, 32, 48, 64: the short kernel wins
+# up to 48 keys at hd 64 and 192, up to 32 at hd 128). A block takes
 # this many query rows of the g = Hq / Hkv heads that share a KV head
-FLASH_SHORT_MAX_KEYS = 64
-FLASH_BLOCK_ROWS = 64
+FLASH_SHORT_MAX_KEYS = {64: 48, 128: 32, 192: 48}
+FLASH_SHORT_ROWS = 64
+FLASH_TILE_ROWS = {64: 128, 128: 128, 192: 64}
 # flash_attention's template instances: the registry models' head widths
 # (smollm 64; gemma3 and internlm2 128; nemotron 192)
 FLASH_HEAD_DIMS = (64, 128, 192)
@@ -168,9 +180,11 @@ def _check_cuda(name: str, tensors: dict[str, torch.Tensor],
             raise ValueError(f"{name}: {k} must be contiguous")
 
 
-def _launch(name: str, fn, device: torch.device, *args) -> None:
+def _launch(name: str, fn, device: torch.device, *args,
+            instance: str | None = None) -> None:
     """Call the library's launcher ``fn`` on ``device``'s current stream,
-    raise on a refused launch, count a successful one."""
+    raise on a refused launch, count a successful one (and its
+    ``instance`` in INSTANCE_LAUNCHES)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
@@ -179,6 +193,8 @@ def _launch(name: str, fn, device: torch.device, *args) -> None:
                            f"{_library().cuda_error_string(err).decode()} "
                            f"({err})")
     LAUNCHES[name] += 1
+    if instance is not None:
+        INSTANCE_LAUNCHES[f"{name}:{instance}"] += 1
 
 
 def _check_rows(name: str, w: int, p: int) -> None:
@@ -326,11 +342,12 @@ def robust_gossip(x: torch.Tensor, t: torch.Tensor, nbr: torch.Tensor,
     ``b``: a fraction of the neighbourhood when < 1, else a count) or
     median (``mode="median"``); deg 0 keeps x[i].
 
-    x, t: [W, P] f32; nbr: [W, D] int32 padded table, D <=
-    ``ROBUST_MAX_DEGREE``; deg: [W] int32. CPU tensors run the plain
-    version (``ref.robust_gossip_ref``); CUDA tensors launch the kernel
-    instance for D rounded up to a power of two, and raise above the
-    largest instance."""
+    x, t: [W, P] f32; nbr: [W, D] int32 padded table; deg: [W] int32.
+    CPU tensors run the plain version (``ref.robust_gossip_ref``), at
+    any D. CUDA tensors launch the register instance for D rounded up to
+    a power of two up to ``ROBUST_REGISTER_MAX_DEGREE``, the wide
+    (shared-memory) instance past it, and raise for D above
+    ``ROBUST_SHARED_MAX_DEGREE``."""
     if mode not in ("trimmed", "median"):
         raise ValueError(f"unknown robust mode {mode!r}")
     if x.dim() != 2 or t.shape != x.shape or nbr.dim() != 2 or \
@@ -338,35 +355,56 @@ def robust_gossip(x: torch.Tensor, t: torch.Tensor, nbr: torch.Tensor,
         raise ValueError("robust_gossip takes x, t [W, P], nbr [W, D], "
                          f"deg [W]; got {tuple(x.shape)}, {tuple(t.shape)}, "
                          f"{tuple(nbr.shape)}, {tuple(deg.shape)}")
-    d = nbr.shape[1]
-    if d > ROBUST_MAX_DEGREE:
-        raise ValueError(f"robust_gossip supports neighbour tables of D <= "
-                         f"{ROBUST_MAX_DEGREE} (its largest kernel "
-                         f"instance); got D={d}")
     if _on_cpu(x, t, nbr, deg):
         return ref.robust_gossip_ref(x, t, nbr, deg, b=b, mode=mode)
     _check_cuda("robust_gossip", {"x": x, "t": t, "nbr": nbr, "deg": deg},
                 {"nbr": torch.int32, "deg": torch.int32})
     n, p = x.shape
     _check_rows("robust_gossip", n, p)
-    d_pad = 1 << max(d - 1, 0).bit_length()
+    d = nbr.shape[1]
+    if d > ROBUST_SHARED_MAX_DEGREE:
+        raise ValueError(f"robust_gossip supports neighbour tables of D <= "
+                         f"{ROBUST_SHARED_MAX_DEGREE} on the card (one "
+                         f"column's sorting window in a block's shared "
+                         f"memory); got D={d}")
+    d_pad = robust_instance(d)
     y = torch.empty_like(x)
     _launch("robust_gossip", _library().robust_gossip_f32, x.device,
             x.data_ptr(), t.data_ptr(), nbr.data_ptr(), deg.data_ptr(),
             y.data_ptr(), n, p, d, d_pad, int(mode == "median"), float(b),
-            int(b) if b >= 1.0 else -1)
+            int(b) if b >= 1.0 else -1,
+            instance="register" if d_pad else "wide")
     return y
+
+
+def robust_instance(d: int) -> int:
+    """The robust_gossip instance for a neighbour table of width ``d``:
+    its register window D_PAD (``d`` rounded up to a power of two) up to
+    ``ROBUST_REGISTER_MAX_DEGREE``, 0 for the wide instance past it."""
+    if d > ROBUST_REGISTER_MAX_DEGREE:
+        return 0
+    return 1 << max(d - 1, 0).bit_length()
 
 
 def flash_instance(q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor) -> str:
     """The kernel instance a launch on these operands runs: ``"short"``
     where the keys fit the short-sequence kernel (Sk <=
-    ``FLASH_SHORT_MAX_KEYS``) and q, k, v start on 16 bytes (its float4
+    ``FLASH_SHORT_MAX_KEYS[hd]``) and q, k, v start on 16 bytes (its float4
     loads; the output is a fresh allocation), else ``"tile"``."""
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
-    return "short" if k.shape[1] <= FLASH_SHORT_MAX_KEYS and aligned \
+    limit = FLASH_SHORT_MAX_KEYS.get(q.shape[3], 0)
+    return "short" if k.shape[1] <= limit and aligned \
         else "tile"
+
+
+def flash_block_rows(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> int:
+    """The query rows a block of the instance ``flash_instance`` names
+    takes."""
+    if flash_instance(q, k, v) == "short":
+        return FLASH_SHORT_ROWS
+    return FLASH_TILE_ROWS[q.shape[3]]
 
 
 def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -376,6 +414,11 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sk, hkv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     short = flash_instance(q, k, v) == "short"
+    if not short:
+        # the tile kernel stages K and V with 16-byte asynchronous copies:
+        # an operand that starts off 16 bytes goes in as a fresh copy
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     _launch("flash_attention", _library().flash_attention_f32, q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
             sk, hq, hkv, hd, int(causal), window, int(short), hd ** -0.5)
@@ -439,8 +482,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention needs S <= Sk; got S={s}, "
                          f"Sk={sk}")
     # either instance launches one block per (sequence, KV head, chunk of
-    # FLASH_BLOCK_ROWS query rows of the group)
-    chunks = -(-(hq // hkv) * s // FLASH_BLOCK_ROWS)
+    # its rows a block of the group's query rows)
+    chunks = -(-(hq // hkv) * s // flash_block_rows(q, k, v))
     if b * hkv * chunks >= 2 ** 31:
         raise ValueError("flash_attention: B * Hkv * query-row chunks must "
                          "fit the kernel grid's x axis (< 2**31)")

@@ -104,13 +104,21 @@ def test_gossip_edges_rejects_bad_shapes():
             ops.gossip_edges(*args)
 
 
-def test_robust_gossip_rejects_bad_calls():
+def test_robust_gossip_rejects_bad_calls(monkeypatch):
     x = torch.zeros(4, 10)
     deg = torch.ones(4, dtype=torch.int32)
-    with pytest.raises(ValueError, match=str(ops.ROBUST_MAX_DEGREE)):
-        ops.robust_gossip(x, x, torch.zeros(4, ops.ROBUST_MAX_DEGREE + 1,
-                                            dtype=torch.int32), deg, b=1.0,
-                          mode="trimmed")
+    wide = torch.zeros(4, ops.ROBUST_SHARED_MAX_DEGREE + 1,
+                       dtype=torch.int32)
+    # the plain version has no width limit: CPU tensors never raise for D
+    y = ops.robust_gossip(x, x, wide, deg, b=1.0, mode="trimmed")
+    assert torch.equal(y, x)
+    # a launch raises past the wide instance's limit, naming it, before
+    # anything is built (the device checks stubbed: no card here)
+    monkeypatch.setattr(ops, "_on_cpu", lambda *a: False)
+    monkeypatch.setattr(ops, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(ops, "_library", lambda: pytest.fail("built"))
+    with pytest.raises(ValueError, match=str(ops.ROBUST_SHARED_MAX_DEGREE)):
+        ops.robust_gossip(x, x, wide, deg, b=1.0, mode="trimmed")
     with pytest.raises(ValueError):
         ops.robust_gossip(x, x, torch.zeros(3, 2, dtype=torch.int32), deg,
                           b=1.0, mode="trimmed")
@@ -252,13 +260,19 @@ def test_cuda_gossip_edges_bit_equal_to_plain_version(w, spec):
                                             (2, "ring", 2048),
                                             (32, "full", 30),
                                             (64, "full", 30),
-                                            (64, "full", 60)])
+                                            (64, "full", 60),
+                                            (65, "full", 67),
+                                            (128, "full", 130),
+                                            (513, "full", 515),
+                                            (128, "full", 67),
+                                            (200, "ring", 30)])
 def test_cuda_robust_gossip_bit_equal_to_plain_version(d_table, spec, w):
     """robust_gossip against its plain version on the card: trimmed with
     an integer and a fractional b, and the median, at D_PAD 1, 2, 32 and
-    64, with degree-0 rows and sign-flipped rows in t. A table wider
-    than the neighbourhoods (padding slots past deg) picks a wider
-    instance and gives the same result."""
+    64 (register instances) and D 65, 128 and 513 (the wide instance),
+    with degree-0 rows and sign-flipped rows in t. A table wider than the
+    neighbourhoods (padding slots past deg) picks a wider instance and
+    gives the same result."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     from repro_torch.core import robust
@@ -273,7 +287,9 @@ def test_cuda_robust_gossip_bit_equal_to_plain_version(d_table, spec, w):
     nbr = np.pad(nbr, ((0, 0), (0, d_table - nbr.shape[1])))
     nbr, deg = torch.from_numpy(nbr).cuda(), torch.from_numpy(deg).cuda()
     gen = torch.Generator(device="cuda").manual_seed(d_table + w)
-    x = torch.randn(w, 6922, generator=gen, device="cuda")
+    # the plain version sorts a [W, D + 1, P] window: narrower rows at 513
+    x = torch.randn(w, 6922 if w < 500 else 2000, generator=gen,
+                    device="cuda")
     t = torch.where(torch.arange(w, device="cuda")[:, None] % 5 == 0, -x, x)
     before = ops.LAUNCHES["robust_gossip"]
     for mode, b in (("trimmed", 6.0), ("trimmed", 1.0), ("trimmed", 0.2),
@@ -306,25 +322,29 @@ def test_flash_attention_rejects_bad_calls():
         with pytest.raises(ValueError):
             ops.flash_attention(*args)
     # a grid past the x axis, for each instance: one block per (sequence,
-    # KV head, chunk of FLASH_BLOCK_ROWS query rows) — 1 chunk of the
-    # short kernel's 45 rows at S = 15, 10 of the tile kernel's 600 at
-    # S = 200 (expanded views: nothing is allocated)
-    for s in (15, 200):
-        chunks = -(-3 * s // ops.FLASH_BLOCK_ROWS)
+    # KV head, chunk of a block's query rows) — 1 chunk of the short
+    # kernel's 45 rows at S = 15, 5 of the tile kernel's 600 at S = 200
+    # (128 rows a block at hd 64), 10 at hd 192 (64 rows a block);
+    # expanded views: nothing is allocated
+    for s, hd, rows in ((15, 64, ops.FLASH_SHORT_ROWS),
+                        (200, 64, ops.FLASH_TILE_ROWS[64]),
+                        (200, 192, ops.FLASH_TILE_ROWS[192])):
+        chunks = -(-3 * s // rows)
         b = 2 ** 31 // (5 * chunks) + 1
-        q = torch.zeros(1, s, 15, 64).expand(b, -1, -1, -1)
-        k = torch.zeros(1, s, 5, 64).expand(b, -1, -1, -1)
+        q = torch.zeros(1, s, 15, hd).expand(b, -1, -1, -1)
+        k = torch.zeros(1, s, 5, hd).expand(b, -1, -1, -1)
+        assert ops.flash_block_rows(q, k, k) == rows
         with pytest.raises(ValueError, match="grid"):
             ops.flash_attention(q, k, k)
 
 
 @pytest.mark.parametrize("sk,offset,want", [
-    (15, 0, "short"), (ops.FLASH_SHORT_MAX_KEYS, 0, "short"),
-    (ops.FLASH_SHORT_MAX_KEYS + 1, 0, "tile"), (4096, 0, "tile"),
+    (15, 0, "short"), (ops.FLASH_SHORT_MAX_KEYS[64], 0, "short"),
+    (ops.FLASH_SHORT_MAX_KEYS[64] + 1, 0, "tile"), (4096, 0, "tile"),
     (15, 1, "tile")])
 def test_flash_instance(sk, offset, want):
     """The instance a launch runs: the short-sequence kernel up to
-    FLASH_SHORT_MAX_KEYS keys on 16-byte aligned operands (its float4
+    FLASH_SHORT_MAX_KEYS[hd] keys on 16-byte aligned operands (its float4
     loads), the tile kernel past it or on a view that starts off 16
     bytes."""
     q, k, v = (torch.zeros(2 * sk * 4 * 64 + offset)[offset:]
@@ -345,7 +365,12 @@ def test_consensus_dist_rejects_bad_shapes():
 # forced-causal rule (non-causal, Sk not a multiple of 128), a sliding
 # window, each head width's instance, and for each head width the short
 # kernel's dispatch limit and one key past it (the tile kernel), a short
-# sliding window and a group of 60 rows across two blocks' chunks
+# sliding window and a group of 60 rows across two blocks' chunks; then
+# the tile kernel's own: a long causal S at each head width, not a
+# multiple of its block's rows (128 at hd 64 and 128, 64 at hd 192); a
+# window narrower than one key tile (32 keys at hd 64, 16 at hd 128 and
+# 192); and groups whose blocks and warps straddle two heads (S = 72, 90
+# and 100)
 _LIMIT = ops.FLASH_SHORT_MAX_KEYS
 FLASH_CUDA_CASES = [(256, 15, 15, 5, 64, True, 0),
                     (2048, 15, 15, 5, 64, True, 0),
@@ -354,14 +379,23 @@ FLASH_CUDA_CASES = [(256, 15, 15, 5, 64, True, 0),
                     (2, 256, 4, 4, 64, False, 0),
                     (1, 700, 8, 4, 128, True, 128),
                     (1, 333, 24, 2, 192, True, 0),
-                    (64, _LIMIT, 15, 5, 64, True, 0),
-                    (64, _LIMIT + 1, 15, 5, 64, True, 0),
-                    (16, _LIMIT, 32, 16, 128, True, 0),
-                    (16, _LIMIT + 1, 32, 16, 128, True, 0),
-                    (8, _LIMIT, 24, 2, 192, True, 0),
-                    (8, _LIMIT + 1, 24, 2, 192, True, 0),
+                    (64, _LIMIT[64], 15, 5, 64, True, 0),
+                    (64, _LIMIT[64] + 1, 15, 5, 64, True, 0),
+                    (16, _LIMIT[128], 32, 16, 128, True, 0),
+                    (16, _LIMIT[128] + 1, 32, 16, 128, True, 0),
+                    (8, _LIMIT[192], 24, 2, 192, True, 0),
+                    (8, _LIMIT[192] + 1, 24, 2, 192, True, 0),
                     (32, 48, 32, 16, 128, True, 16),
-                    (4, 5, 12, 1, 64, True, 2)]
+                    (4, 5, 12, 1, 64, True, 2),
+                    (1, 1100, 6, 2, 64, True, 0),
+                    (1, 1030, 8, 4, 128, True, 0),
+                    (1, 1001, 12, 2, 192, True, 0),
+                    (2, 400, 6, 2, 64, True, 20),
+                    (1, 500, 8, 4, 128, True, 8),
+                    (1, 300, 6, 2, 192, True, 5),
+                    (2, 100, 12, 4, 64, True, 0),
+                    (1, 72, 4, 1, 128, True, 0),
+                    (1, 90, 6, 2, 192, True, 0)]
 
 
 @pytest.mark.cuda
@@ -377,7 +411,7 @@ def test_cuda_flash_attention_matches_plain_version(b, s, hq, hkv, hd,
     q = torch.randn(b, s, hq, hd, generator=gen, device="cuda")
     k = torch.randn(b, s, hkv, hd, generator=gen, device="cuda")
     v = torch.randn(b, s, hkv, hd, generator=gen, device="cuda")
-    assert ops.flash_instance(q, k, v) == ("short" if s <= _LIMIT
+    assert ops.flash_instance(q, k, v) == ("short" if s <= _LIMIT[hd]
                                            else "tile")
     before = ops.LAUNCHES["flash_attention"]
     y = ops.flash_attention(q, k, v, causal=causal, window=window)

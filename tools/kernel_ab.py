@@ -2,20 +2,24 @@
 """Time the port's ``gossip_mix`` and ``flash_attention`` kernels against
 another version of their CUDA sources, on one card, in turns.
 
-    python3 tools/kernel_ab.py --base DIR [--out FILE]
+    python3 tools/kernel_ab.py --base DIR [--out FILE] [--kernels flash]
 
 ``DIR`` holds the other version's ``gossip_mix.cu`` and
 ``flash_attention.cu`` (for example written there from a git revision
 with ``git show REV:src/repro_torch/kernels/csrc/gossip_mix.cu``). Both
 versions are built with the port's nvcc flags into libraries of their
 own and called on the same inputs, at every ``gossip_mix`` and
-``flash_attention`` case of ``chip_smoke.py``'s phase 2 and at the short
-flash kernel's dispatch limit and one key past it for each head width.
+``flash_attention`` case of ``chip_smoke.py``'s phase 2 and at Sk =
+16, 32, 48, 64 and 65 for each head width; a flash case whose keys fit
+the short kernel (64) is timed with each instance forced, so the
+dispatch limits (``ops.FLASH_SHORT_MAX_KEYS``) can be set where the two
+cross.
 Each version's output is held to the plain version (bit-equal for
 ``gossip_mix``, 2e-5 for ``flash_attention``), then each case is timed
 base, this checkout, this checkout, base (``chip_smoke.time_ms``: CUDA
 events around back-to-back launches). One line per case, and all of
 them as JSON in ``FILE`` (default ``build/kernel_ab.json``).
+``--kernels`` limits the run to ``mix`` or ``flash`` (default both).
 Needs a CUDA device and ``nvcc``.
 """
 from __future__ import annotations
@@ -36,14 +40,29 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 SOURCES = ("gossip_mix.cu", "flash_attention.cu")
-# the short kernel's dispatch limit and one key past it, per head width
+# the keys the short kernel has room for (kShortMaxKeys in
+# flash_attention.cu); the dispatch limits below it are ops'
+SHORT_CAPACITY = 64
+# Sk across the short kernel's room and one key past it, per head width
 # (B, Hq, Hkv: the registry models' group shapes at a modest batch)
 LIMIT_CASES = tuple(
-    (f"limit{d}-hd{hd}", b, ops.FLASH_SHORT_MAX_KEYS + d, hq, hkv, hd, True,
-     0, False)
+    (f"sk{sk}-hd{hd}", b, sk, hq, hkv, hd, True, 0, None)
     for hd, b, hq, hkv in ((64, 256, 15, 5), (128, 64, 32, 16),
                            (192, 32, 24, 2))
-    for d in (0, 1))
+    for sk in (16, 32, 48, SHORT_CAPACITY, SHORT_CAPACITY + 1))
+
+
+def _both_instances(cases):
+    """Each case as dispatched, or where the short kernel has room for its
+    keys, twice: with each instance forced (the last field), so the two
+    are timed on the same inputs and the dispatch limit can be set where
+    they cross."""
+    for c in cases:
+        if c[2] <= SHORT_CAPACITY:
+            for inst in ("short", "tile"):
+                yield (f"{c[0]}-{inst}", *c[1:-1], inst)
+        else:
+            yield (*c[:-1], None)
 
 
 def build(src_dir: Path, name: str) -> ctypes.CDLL:
@@ -93,12 +112,15 @@ def mix_call(lib, x, u, w):
     return call
 
 
-def flash_call(lib, q, k, v, causal: bool, window: int):
+def flash_call(lib, q, k, v, causal: bool, window: int,
+               instance: str | None = None):
+    """One launch of ``lib``'s flash kernel: the instance ``ops`` would
+    dispatch to, or ``instance``."""
     o = torch.empty_like(q)
     b, s, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    inst = ((int(ops.flash_instance(q, k, v) == "short"),)
-            if lib.flash_two_instances else ())
+    short = (instance or ops.flash_instance(q, k, v)) == "short"
+    inst = (int(short),) if lib.flash_two_instances else ()
 
     def call():
         _check(lib.flash_attention_f32(
@@ -160,15 +182,15 @@ def run_mix(libs: dict, cycles_per_ms: float) -> list[dict]:
 def run_flash(libs: dict, cycles_per_ms: float) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = []
-    for case, b, s, hq, hkv, hd, causal, window, _ in (*cs.FLASH_CASES,
-                                                       *LIMIT_CASES):
+    for case, b, s, hq, hkv, hd, causal, window, inst in _both_instances(
+            (*cs.FLASH_CASES, *LIMIT_CASES)):
         q = torch.randn(b, s, hq, hd, generator=gen, device="cuda")
         k = torch.randn(b, s, hkv, hd, generator=gen, device="cuda")
         v = torch.randn(b, s, hkv, hd, generator=gen, device="cuda")
         # the wrapper's mask rule: causal forced where Sk % 128 != 0
         forced = causal or s % 128 != 0
         want = ref.flash_attention_ref(q, k, v, causal=forced, window=window)
-        calls = {which: flash_call(lib, q, k, v, forced, window)
+        calls = {which: flash_call(lib, q, k, v, forced, window, inst)
                  for which, lib in libs.items()}
         for which, call in calls.items():
             got = call()
@@ -186,7 +208,7 @@ def run_flash(libs: dict, cycles_per_ms: float) -> list[dict]:
                                 * 4, 4 * b * hq * hd * int(mask.sum()))
         rows.append(_summary("flash_attention", case, times, bound_ms, B=b,
                              S=s, Hq=hq, Hkv=hkv, hd=hd,
-                             instance=ops.flash_instance(q, k, v)))
+                             instance=inst or ops.flash_instance(q, k, v)))
         del q, k, v, want, calls, mask
         torch.cuda.empty_cache()
     return rows
@@ -197,6 +219,8 @@ def main() -> int:
     parser.add_argument("--base", type=Path, required=True)
     parser.add_argument("--out", type=Path,
                         default=REPO / "build" / "kernel_ab.json")
+    parser.add_argument("--kernels", choices=("mix", "flash", "both"),
+                        default="both")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -206,7 +230,11 @@ def main() -> int:
     libs = {"base": build(args.base.resolve(), "base"),
             "new": build(ops.CSRC, "new")}
     cycles_per_ms = cs._sleep_cycles_per_ms()
-    rows = run_mix(libs, cycles_per_ms) + run_flash(libs, cycles_per_ms)
+    rows = []
+    if args.kernels in ("mix", "both"):
+        rows += run_mix(libs, cycles_per_ms)
+    if args.kernels in ("flash", "both"):
+        rows += run_flash(libs, cycles_per_ms)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps({"card": card, "cases": rows}, indent=1))
     return 0
