@@ -22,8 +22,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    W = 2,048 ring and a W = 2,048 ``ba:2`` graph, honest and over a
    lying wire), the Byzantine-robust ``robust_gossip`` (trimmed and
    median, W = 30 full graph and the W = 2,048 ring in the register
-   instances, full graphs of 66, 130 and 300 workers in the wide one;
-   each line names its instance and bound), ``flash_attention``
+   instances, full graphs of 66, 130 and 300 workers and a W = 1,000
+   ``ba:2`` graph of mostly small degrees in the wide one, a full graph
+   of 1,100 at P = 256 in the shared one; each line names its instance
+   and bound), ``flash_attention``
    (the registry path's local step and measurement stack, smollm-360m's
    train shape, a gemma3-27b local layer, a 192-wide head, the forced
    causal rule, the short-sequence kernel's dispatch limit and one key
@@ -72,6 +74,7 @@ the kernels that take the most device time, and the port's own kernels.
 """
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -400,13 +403,19 @@ def _require_equal(name: str, case: str, pairs) -> float:
     return worst
 
 
+# (case, W, P) of the codec kernels
+CODEC_CASES = (("main", 30, 6922), ("adpsgd", 2, 6922),
+               ("tiles", 30, 100000), ("short", 30, 1000),
+               ("odd", 30, 6921), ("single", 1, 6922))
+
+
 def check_codecs(cycles_per_ms: float) -> list[dict]:
     """quantize_block, dequantize_block and sparsify_block at the main
     path's [30, 6922] (one tile per worker), AD-PSGD's pair [2, 6922],
-    [30, 100000] (13 tiles, the last ragged) and [30, 1000]."""
+    [30, 100000] (13 tiles, the last ragged), [30, 1000], an odd P whose
+    rows start on 4 bytes only ([30, 6921]) and one worker ([1, 6922]).
+    Each quantize line names its cluster size."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = [("main", 30, 6922), ("adpsgd", 2, 6922),
-             ("tiles", 30, 100000), ("short", 30, 1000)]
     out = {name: dict(max_abs_err=0.0) for name in
            ("quantize_block", "dequantize_block", "sparsify_block")}
 
@@ -427,7 +436,7 @@ def check_codecs(cycles_per_ms: float) -> list[dict]:
         return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                     bound_ms=bound_ms, bound_by=bound_by)
 
-    for case, w, p in cases:
+    for case, w, p in CODEC_CASES:
         x = 0.3 * torch.randn(w, p, generator=gen, device="cuda")
         row_len, tile_len, n_tiles = ref.wire_tiles(p)
         shape = dict(W=w, P=p, tiles=n_tiles)
@@ -437,11 +446,13 @@ def check_codecs(cycles_per_ms: float) -> list[dict]:
                              zip((q, scales), ref.quantize_block_ref(x)))
         # x read once, q (the padded wire row) and the scales written
         # once; abs, max, divide, round and clamp per element
+        cluster = ops.quantize_cluster(w, n_tiles, tile_len,
+                                       ops.sm_count(x.device))
         main = record("quantize_block", case, err,
                       lambda: ops.quantize_block(x),
                       lambda: ref.quantize_block_ref(x), None,
                       4 * w * p + w * row_len + 4 * w * n_tiles,
-                      6 * w * p, **shape)
+                      6 * w * p, cluster=cluster, **shape)
         if case == "main":
             out["quantize_block"].update(main)
 
@@ -602,55 +613,92 @@ def check_gossip_edges(cycles_per_ms: float) -> dict:
                 max_abs_err=worst, **main)
 
 
-def _compare_exchanges(d_pad: int) -> int:
-    """The odd-even transposition network's compare-exchanges on a
-    window of d_pad + 1 values."""
-    n = d_pad + 1
-    return sum((n - (pas & 1)) // 2 for pas in range(n))
+@functools.lru_cache(maxsize=None)
+def _sort_compare_exchanges(cnt: int) -> int:
+    """The compare-exchanges that sorting a window of ``cnt`` values needs:
+    Batcher's odd-even merge sort for the next power of two, less every
+    compare-exchange that touches a slot at or past ``cnt`` (those slots
+    would hold +inf, which no compare-exchange moves). The count the
+    function needs, whatever network an instance runs (543 at 64 values,
+    against a bitonic network's 672)."""
+    n = 1 << max(cnt - 1, 0).bit_length()
+    count, p = 0, 1
+    while p < n:
+        k = p
+        while k >= 1:
+            for j in range(k % p, n - k, 2 * k):
+                for i in range(min(k, n - j - k)):
+                    if (i + j) // (2 * p) == (i + j + k) // (2 * p) and \
+                            i + j + k < cnt:
+                        count += 1
+            k //= 2
+        p *= 2
+    return count
 
 
-def _bitonic_compare_exchanges(deg: int) -> int:
-    """The wide instance's bitonic network on a window of deg + 1 values
-    padded to N, a power of two: N log2 N (log2 N + 1) / 4."""
-    n = 1 << deg.bit_length()
-    k = n.bit_length() - 1
-    return n * k * (k + 1) // 4
-
-
-# (case, W, base, cut workers, workers whose degree is set to 0): the
+# (case, W, base, cut workers, workers whose degree is set to 0, P): the
 # main path's W = 30 full graph (D_PAD = 32) and the W = 2,048 ring
 # (D_PAD = 2), register instances; full graphs of 66, 130 and 300 (D =
-# 65, 129 and 299, the wide instance), worker 7's degree zeroed so the
-# table keeps its width
-ROBUST_CASES = (("full30", 30, "full", (1, 7), ()),
-                ("ring2048", 2048, "ring", (1, 7), ()),
-                ("full66", 66, "full", (), (7,)),
-                ("full130", 130, "full", (), (7,)),
-                ("full300", 300, "full", (), (7,)))
+# 65, 129 and 299) and a W = 1,000 ``ba:2`` graph (a table 102 wide,
+# half its workers of degree 2: each block sorts its own worker's
+# window), the wide instance; a full graph of 1,100 (D = 1,099, N =
+# 2,048) at P = 256, the shared instance, narrow so that the plain
+# version's [W, D + 1, P] window stays near 1.2 GB. Worker 7's degree is
+# zeroed so the table keeps its width
+ROBUST_CASES = (("full30", 30, "full", (1, 7), (), PAPER_MLP_P),
+                ("ring2048", 2048, "ring", (1, 7), (), PAPER_MLP_P),
+                ("full66", 66, "full", (), (7,), PAPER_MLP_P),
+                ("full130", 130, "full", (), (7,), PAPER_MLP_P),
+                ("full300", 300, "full", (), (7,), PAPER_MLP_P),
+                ("ba1000", 1000, "ba:2", (), (7,), PAPER_MLP_P),
+                ("full1100", 1100, "full", (), (7,), 256))
+
+
+# the robust modes phase 2 runs on every table: trimmed by a count and
+# by a fraction, and the median
+ROBUST_MODES = (("trimmed", 6.0), ("trimmed", 0.2), ("median", 0.0))
+
+
+def robust_table(w: int, spec: str, cut, zeroed):
+    """A ROBUST_CASES table on the card -> (nbr, deg, the instance a
+    launch runs, the compare-exchanges that sorting one column's windows
+    needs, each window of its own deg + 1 values: degree-0 rows sort
+    nothing). The register instance's table is padded to D_PAD, as the
+    fused engine pads it."""
+    adj, _ = _graph(w, spec, cut=cut)
+    nbr_np, deg_np = robust.neighbor_table(adj)
+    deg_np[list(zeroed)] = 0
+    kind = ops.robust_instance(nbr_np.shape[1])
+    if kind == "register":
+        d = _pow2(nbr_np.shape[1])
+        nbr_np = np.pad(nbr_np, ((0, 0), (0, d - nbr_np.shape[1])))
+    exchanges = sum(_sort_compare_exchanges(int(k) + 1)
+                    for k in deg_np if k > 0)
+    nbr, deg = (torch.from_numpy(a).to("cuda") for a in (nbr_np, deg_np))
+    return nbr, deg, kind, exchanges
+
+
+def robust_bound(w: int, p: int, d: int, exchanges: int) -> tuple:
+    """(bound ms, what binds, bytes): x and t read once, the table and
+    the degrees read once, y written once; a min and a max per
+    compare-exchange of every column."""
+    nbytes = (3 * w * p + w * d + w) * 4
+    return (*_bound(nbytes, 2 * exchanges * p), nbytes)
 
 
 def check_robust_gossip(cycles_per_ms: float) -> dict:
-    """robust_gossip at P = 6,922 with trimmed:6, trimmed:0.2 and the
-    median on each of ROBUST_CASES, with every fifth row sign-flipped in
-    t and rows of degree 0."""
+    """robust_gossip with ROBUST_MODES on each of ROBUST_CASES, with every
+    fifth row sign-flipped in t and rows of degree 0."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    p = PAPER_MLP_P
     worst, main = 0.0, None
-    for case, w, spec, cut, zeroed in ROBUST_CASES:
-        adj, _ = _graph(w, spec, cut=cut)
-        nbr_np, deg_np = robust.neighbor_table(adj)
-        deg_np[list(zeroed)] = 0
-        d_pad = ops.robust_instance(nbr_np.shape[1])
-        if d_pad:       # the register instance's power-of-two table
-            nbr_np = np.pad(nbr_np, ((0, 0), (0, d_pad - nbr_np.shape[1])))
-        d = nbr_np.shape[1]
-        instance = f"register D_PAD={d_pad}" if d_pad else f"wide D={d}"
-        nbr, deg = (torch.from_numpy(a).to("cuda") for a in (nbr_np,
-                                                            deg_np))
+    for case, w, spec, cut, zeroed, p in ROBUST_CASES:
+        nbr, deg, kind, exchanges = robust_table(w, spec, cut, zeroed)
+        d = nbr.shape[1]
+        instance = f"{kind} D={d}"
         x = torch.randn(w, p, generator=gen, device="cuda")
         t = _lying(x)
-        reps = 50 if d_pad else 10
-        for mode, b in (("trimmed", 6.0), ("trimmed", 0.2), ("median", 0.0)):
+        reps = 50 if kind == "register" else 10
+        for mode, b in ROBUST_MODES:
             name = f"{case}-{mode}:{b:g}"
             y = ops.robust_gossip(x, t, nbr, deg, b=b, mode=mode)
             err = _require_equal("robust_gossip", name, [
@@ -692,18 +740,7 @@ def check_robust_gossip(cycles_per_ms: float) -> dict:
                     x, t, nbr, deg, b=b, mode=mode), cycles_per_ms, batch=2,
                 reps=reps)
             comp_ms = time_ms(composition, cycles_per_ms, batch=2, reps=reps)
-            # x and t read once, the table and the degrees read once, y
-            # written once; the sorting network's compare-exchanges (a min
-            # and a max each) on every window of a worker with neighbours:
-            # the register instance's odd-even network on D_PAD + 1, the
-            # wide instance's bitonic network on the window's power of two
-            nbytes = (3 * w * p + w * d + w) * 4
-            if d_pad:
-                exchanges = _compare_exchanges(d_pad) * int((deg > 0).sum())
-            else:
-                exchanges = sum(_bitonic_compare_exchanges(int(k))
-                                for k in deg_np if k > 0)
-            bound_ms, bound_by = _bound(nbytes, 2 * exchanges * p)
+            bound_ms, bound_by, nbytes = robust_bound(w, p, d, exchanges)
             log("phase2", kernel="robust_gossip", case=name,
                 instance=repr(instance), W=w, P=p, D=d, bit_equal=True,
                 max_abs_err=err, composition_max_abs_diff=comp_err,
@@ -952,12 +989,12 @@ def _check_run(name: str, algo: str, cfg: FedHPConfig, rounds: int, hist,
         raise AssertionError(f"{name}: launched {counts}, the path must "
                              f"launch {expected}")
     inst = ops.INSTANCE_LAUNCHES
-    if inst["robust_gossip:register"] + inst["robust_gossip:wide"] != \
-            counts["robust_gossip"]:
+    if sum(v for k, v in inst.items() if k.startswith("robust_gossip:")) \
+            != counts["robust_gossip"]:
         raise AssertionError(f"{name}: robust_gossip instances {inst} do "
                              f"not add up to {counts['robust_gossip']}")
     # a round whose plan has a worker of degree past 64 (round 0 of a
-    # complete base) takes the wide instance
+    # complete base of 70) takes the wide instance, registers and shuffles
     if cfg.num_workers - 1 > ops.ROBUST_REGISTER_MAX_DEGREE and \
             cfg.base_topology == "full" and cfg.robust not in ("none", "") \
             and inst["robust_gossip:wide"] == 0:

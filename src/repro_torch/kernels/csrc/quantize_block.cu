@@ -35,23 +35,41 @@
 // their few operations per element are far below the f32 peak. So bytes
 // bound both, and at this size the launch latency dominates.
 //
-// Design: quantize runs one block per (tile, worker): 256 threads hold up
-// to 32 elements each in registers (8192 / 256), so x is read once;
-// the block reduces amax with warp shuffles and shared memory, then each
-// thread writes its quantized elements and thread 0 the scale.
-// Neighbouring threads load neighbouring elements (coalesced). Scalar
-// loads: at P = 6922 a row is 27,688 bytes, so rows start 8 bytes off a
-// 16-byte boundary for odd w and float4 loads would need a prologue.
+// Design: quantize spreads a tile over a thread-block cluster of S
+// blocks (S = 1, 2, 4 or 8, chosen by the wrapper from the grid:
+// ops.quantize_cluster), so that a fleet of few tiles -- 30 at the main
+// path's [30, 6922], 2 at AD-PSGD's [2, 6922] -- still runs on many SMs;
+// one block a tile left each thread 28 IEEE divisions and byte stores on
+// one SM while the rest of the card idled. Block r of a cluster takes the
+// r-th of S equal spans of the tile (a multiple of 4 elements), 4
+// consecutive elements a thread in registers, so x is read once: by 16-
+// or 8-byte loads where the row's address allows (P = 6,922 rows start
+// on 8 bytes only), else by scalar loads, masked at P. The block reduces
+// its amax with warp shuffles and shared memory and leaves it in its
+// shared memory; after a cluster barrier every block reads the S partial
+// maxima through distributed shared memory, one lane of its first warp
+// each (a max is exact in any order, so the scale keeps its bits),
+// arrives at a second barrier and quantizes its span, writing q four
+// bytes at a time where the address allows (rows of P < 1,024 bytes
+// start anywhere) and bytewise elsewhere; it waits at that barrier
+// before it exits, so no block's shared memory goes while another can
+// still read it. Block 0 of the
+// cluster writes the scale. A cluster the card refuses is an error the
+// wrapper raises; there is no launch without clusters to fall back to.
 // Dequantize is elementwise, one thread per element.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxTile = 8 * 1024;
-constexpr int kPerThread = kMaxTile / kThreads;
+constexpr int kGroups = kMaxTile / (4 * kThreads);   // of 4 elements, S = 1
+constexpr int kMaxCluster = 8;
 
 __device__ float block_max(float v, float* red) {
   for (int o = 16; o > 0; o >>= 1) {
@@ -71,36 +89,106 @@ __device__ float block_max(float v, float* red) {
   return red[0];
 }
 
+// a relaxed arrival: it orders no memory access (the caller has its
+// remote reads' values in registers already), and a release arrival of
+// every thread costs about half a microsecond more here
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int8_t code(float v, float scale) {
+  const float r = rintf(__fdiv_rn(v, scale));
+  return (int8_t)fminf(fmaxf(r, -127.0f), 127.0f);
+}
+
+// grid (n_tiles * S, W), clusters of (S, 1, 1); span: the elements of a
+// tile a block takes, a multiple of 4
 __global__ void __launch_bounds__(kThreads)
 quantize_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
                 float* __restrict__ scales, int P, int row_len,
-                int tile_len, int n_tiles) {
+                int tile_len, int n_tiles, int S, int span) {
   __shared__ float red[kThreads / 32];
   const int w = blockIdx.y;
-  const int64_t start = (int64_t)blockIdx.x * tile_len;
-  const float* xr = x + (int64_t)w * P;
-  float v[kPerThread];
+  const int rank = blockIdx.x % S;     // the block's rank in its cluster
+  const int tile = blockIdx.x / S;
+  const int64_t start = (int64_t)tile * tile_len;
+  const int lo = rank * span, hi = min(lo + span, tile_len);
+  // the block's first element; every group starts 16 bytes of x (4 of
+  // q) further on, so one test of each pointer serves the block
+  const float* xs = x + (int64_t)w * P + start + lo;
+  int8_t* qs = q + (int64_t)w * row_len + start + lo;
+  const bool x16 = ((uintptr_t)xs & 15) == 0;
+  const bool x8 = ((uintptr_t)xs & 7) == 0;
+  const bool q4 = ((uintptr_t)qs & 3) == 0;
+  // elements of this block at or past P (of x) and row_len (of q)
+  const int64_t x_end = P - (start + lo), q_end = row_len - (start + lo);
+  float4 v[kGroups];
   float amax = 0.0f;
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int e = threadIdx.x + k * kThreads;
-    const int64_t idx = start + e;
-    v[k] = (e < tile_len && idx < P) ? xr[idx] : 0.0f;
-    amax = fmaxf(amax, fabsf(v[k]));
+  for (int g = 0; g < kGroups; ++g) {
+    const int e = 4 * (threadIdx.x + g * kThreads);   // from lo
+    v[g] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (lo + e < hi) {
+      if (e + 3 < x_end && x16) {
+        v[g] = *reinterpret_cast<const float4*>(xs + e);
+      } else if (e + 3 < x_end && x8) {
+        const float2 a = *reinterpret_cast<const float2*>(xs + e);
+        const float2 b = *reinterpret_cast<const float2*>(xs + e + 2);
+        v[g] = make_float4(a.x, a.y, b.x, b.y);
+      } else {
+        if (e < x_end) v[g].x = xs[e];
+        if (e + 1 < x_end) v[g].y = xs[e + 1];
+        if (e + 2 < x_end) v[g].z = xs[e + 2];
+        if (e + 3 < x_end) v[g].w = xs[e + 3];
+      }
+    }
+    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v[g].x), fabsf(v[g].y)),
+                             fmaxf(fabsf(v[g].z), fabsf(v[g].w))));
   }
   amax = block_max(amax, red);
+  if (S > 1) {                         // grid-uniform
+    __shared__ float cluster_amax;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();                    // every block's red[0] is written
+    if (threadIdx.x < 32) {            // lane r reads block r's amax
+      float m = threadIdx.x < S
+                    ? *cluster.map_shared_rank(red, threadIdx.x) : 0.0f;
+      for (int o = kMaxCluster / 2; o > 0; o >>= 1) {
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      }
+      if (threadIdx.x == 0) cluster_amax = m;
+    }
+    cluster_arrive_relaxed();          // done with the others' red
+    __syncthreads();
+    amax = cluster_amax;
+  }
   const float scale = fmaxf(__fdiv_rn(amax, 127.0f), 1e-30f);
-  int8_t* qr = q + (int64_t)w * row_len;
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int e = threadIdx.x + k * kThreads;
-    const int64_t idx = start + e;
-    if (e < tile_len && idx < row_len) {
-      const float r = rintf(__fdiv_rn(v[k], scale));
-      qr[idx] = (int8_t)fminf(fmaxf(r, -127.0f), 127.0f);
+  for (int g = 0; g < kGroups; ++g) {
+    const int e = 4 * (threadIdx.x + g * kThreads);
+    if (lo + e < hi && e < q_end) {
+      const int8_t c0 = code(v[g].x, scale), c1 = code(v[g].y, scale);
+      const int8_t c2 = code(v[g].z, scale), c3 = code(v[g].w, scale);
+      if (e + 3 < q_end && q4) {
+        *reinterpret_cast<uint32_t*>(qs + e) =
+            (uint32_t)(uint8_t)c0 | ((uint32_t)(uint8_t)c1 << 8) |
+            ((uint32_t)(uint8_t)c2 << 16) | ((uint32_t)(uint8_t)c3 << 24);
+      } else {
+        qs[e] = c0;
+        if (e + 1 < q_end) qs[e + 1] = c1;
+        if (e + 2 < q_end) qs[e + 2] = c2;
+        if (e + 3 < q_end) qs[e + 3] = c3;
+      }
     }
   }
-  if (threadIdx.x == 0) scales[(int64_t)w * n_tiles + blockIdx.x] = scale;
+  if (rank == 0 && threadIdx.x == 0) {
+    scales[(int64_t)w * n_tiles + tile] = scale;
+  }
+  if (S > 1) cluster_wait();           // the others are done with ours
 }
 
 __global__ void dequantize_kernel(const int8_t* __restrict__ q,
@@ -117,17 +205,38 @@ __global__ void dequantize_kernel(const int8_t* __restrict__ q,
 
 }  // namespace
 
-// Both launch on `stream`, allocate nothing and return cudaGetLastError()
-// as an int (0 == success). The caller checks shapes, dtypes and devices;
-// W <= 65535 (grid y), tile_len <= 8192.
+// quantize's argument list; the version before it took no cluster.
+extern "C" int quantize_block_abi() { return 2; }
+
+// Both launch on `stream`, allocate nothing and return the launch's
+// cudaError_t as an int (0 == success). The caller checks shapes, dtypes
+// and devices; W <= 65535 (grid y), tile_len <= 8192. quantize's
+// cluster: the blocks a tile spreads over, 1, 2, 4 or 8
+// (cudaErrorInvalidValue otherwise).
 extern "C" int quantize_block_f32(const float* x, int8_t* q, float* scales,
                                   int W, int P, int row_len, int tile_len,
-                                  int n_tiles, void* stream) {
+                                  int n_tiles, int cluster, void* stream) {
   if (W == 0 || P == 0) return 0;
-  const dim3 grid(n_tiles, W);
-  quantize_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x, q, scales, P, row_len, tile_len, n_tiles);
-  return (int)cudaGetLastError();
+  if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)))
+    return (int)cudaErrorInvalidValue;
+  // each block's span: whole groups of 4, the last block's clipped
+  const int span = ((tile_len + cluster - 1) / cluster + 3) & ~3;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(n_tiles * cluster, W);
+  config.blockDim = dim3(kThreads);
+  config.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, quantize_kernel, x, q, scales, P, row_len, tile_len, n_tiles,
+      cluster, span);
+  if (err != cudaSuccess) cudaGetLastError();   // not left for the next
+  return (int)err;
 }
 
 extern "C" int dequantize_block_f32(const int8_t* q, const float* scales,

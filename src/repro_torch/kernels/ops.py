@@ -38,7 +38,8 @@ LAUNCHES = {"gossip_mix": 0, "quantize_block": 0, "dequantize_block": 0,
             "sparsify_block": 0, "gossip_edges": 0, "robust_gossip": 0,
             "flash_attention": 0, "consensus_dist": 0}
 # robust_gossip's launches by instance (each also counts in LAUNCHES)
-INSTANCE_LAUNCHES = {"robust_gossip:register": 0, "robust_gossip:wide": 0}
+INSTANCE_LAUNCHES = {"robust_gossip:register": 0, "robust_gossip:wide": 0,
+                     "robust_gossip:shared": 0}
 
 # gossip_mix stages u and w in chunks of 64 neighbours, so K is not
 # bounded by shared memory; it keeps the limit of its first version, which
@@ -48,12 +49,19 @@ _MAX_NEIGHBORS = 48 * 1024 // 4
 _MAX_ROWS = 65535
 # robust_gossip's instances: a register window (D_PAD + 1 floats a
 # thread, one template per power of two) for tables up to
-# ROBUST_REGISTER_MAX_DEGREE neighbours wide, then the wide instance,
-# whose block sorts each column's window in shared memory: one column of
-# N = 32,768 floats (the next power of two above D) is 128 KB of a
+# ROBUST_REGISTER_MAX_DEGREE neighbours wide; then the wide instance,
+# whose warps sort each column's window of N <= 1,024 (the next power of
+# two above a worker's degree) in registers and shuffles, up to
+# ROBUST_WIDE_MAX_DEGREE; then the shared instance, whose block sorts it
+# in shared memory: one column of N = 32,768 floats is 128 KB of a
 # block's 227, twice that is not
 ROBUST_REGISTER_MAX_DEGREE = 64
+ROBUST_WIDE_MAX_DEGREE = 1023
 ROBUST_SHARED_MAX_DEGREE = 32767
+# quantize_block spreads a tile over a cluster of up to this many blocks
+# while the fleet's tiles leave the card's SMs idle (ops.quantize_cluster)
+QUANT_MAX_CLUSTER = 8
+QUANT_MIN_SPAN = 512
 # consensus_dist's first pass: columns per block (256 threads, 8 each)
 CONSENSUS_BLOCK_COLS = 2048
 # flash_attention's two instances: the short-sequence kernel takes Sk up
@@ -133,7 +141,7 @@ def _library() -> ctypes.CDLL:
         lib.gossip_mix_f32.argtypes = [ctypes.c_void_p] * 4 + \
             [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.quantize_block_f32.argtypes = [ctypes.c_void_p] * 3 + \
-            [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.dequantize_block_f32.argtypes = [ctypes.c_void_p] * 3 + \
             [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.sparsify_block_f32.argtypes = [
@@ -142,7 +150,7 @@ def _library() -> ctypes.CDLL:
         lib.gossip_edges_f32.argtypes = [ctypes.c_void_p] * 6 + \
             [ctypes.c_int] * 2 + [ctypes.c_void_p]
         lib.robust_gossip_f32.argtypes = [ctypes.c_void_p] * 5 + \
-            [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+            [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
                                   ctypes.c_void_p]
         lib.flash_attention_f32.argtypes = [ctypes.c_void_p] * 4 + \
             [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
@@ -244,10 +252,39 @@ def quantize_block(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     row_len, tile_len, n_tiles = ref.wire_tiles(p)
     q = torch.empty(w, row_len, dtype=torch.int8, device=x.device)
     scales = torch.empty(w, n_tiles, dtype=torch.float32, device=x.device)
+    cluster = quantize_cluster(w, n_tiles, tile_len, sm_count(x.device))
     _launch("quantize_block", _library().quantize_block_f32, x.device,
             x.data_ptr(), q.data_ptr(), scales.data_ptr(), w, p, row_len,
-            tile_len, n_tiles)
+            tile_len, n_tiles, cluster)
     return q, scales
+
+
+def quantize_cluster(w: int, n_tiles: int, tile_len: int, sms: int) -> int:
+    """The blocks (a thread-block cluster) ``quantize_block`` spreads each
+    of a fleet's W · n_tiles tiles over: doubled from 1 while the launch
+    stays within two blocks an SM of the card's ``sms`` and each block
+    keeps at least ``QUANT_MIN_SPAN`` elements, up to
+    ``QUANT_MAX_CLUSTER``. 8 at the main path's [30, 6922] and AD-PSGD's
+    [2, 6922]; 1 where the tiles already fill the card ([30, 100000]) or
+    one block's threads cover the tile ([30, 1000])."""
+    s = 1
+    while s < QUANT_MAX_CLUSTER and w * n_tiles * s <= sms and \
+            tile_len >= 2 * s * QUANT_MIN_SPAN:
+        s *= 2
+    return s
+
+
+_SM_COUNTS: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of the card ``device`` lies on."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _SM_COUNTS:
+        _SM_COUNTS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SM_COUNTS[index]
 
 
 def dequantize_block(q: torch.Tensor, scales: torch.Tensor,
@@ -344,9 +381,8 @@ def robust_gossip(x: torch.Tensor, t: torch.Tensor, nbr: torch.Tensor,
 
     x, t: [W, P] f32; nbr: [W, D] int32 padded table; deg: [W] int32.
     CPU tensors run the plain version (``ref.robust_gossip_ref``), at
-    any D. CUDA tensors launch the register instance for D rounded up to
-    a power of two up to ``ROBUST_REGISTER_MAX_DEGREE``, the wide
-    (shared-memory) instance past it, and raise for D above
+    any D. CUDA tensors launch the instance ``robust_instance`` names
+    (register, wide or shared), and raise for D above
     ``ROBUST_SHARED_MAX_DEGREE``."""
     if mode not in ("trimmed", "median"):
         raise ValueError(f"unknown robust mode {mode!r}")
@@ -367,23 +403,24 @@ def robust_gossip(x: torch.Tensor, t: torch.Tensor, nbr: torch.Tensor,
                          f"{ROBUST_SHARED_MAX_DEGREE} on the card (one "
                          f"column's sorting window in a block's shared "
                          f"memory); got D={d}")
-    d_pad = robust_instance(d)
     y = torch.empty_like(x)
     _launch("robust_gossip", _library().robust_gossip_f32, x.device,
             x.data_ptr(), t.data_ptr(), nbr.data_ptr(), deg.data_ptr(),
-            y.data_ptr(), n, p, d, d_pad, int(mode == "median"), float(b),
-            int(b) if b >= 1.0 else -1,
-            instance="register" if d_pad else "wide")
+            y.data_ptr(), n, p, d, int(mode == "median"), float(b),
+            int(b) if b >= 1.0 else -1, instance=robust_instance(d))
     return y
 
 
-def robust_instance(d: int) -> int:
-    """The robust_gossip instance for a neighbour table of width ``d``:
-    its register window D_PAD (``d`` rounded up to a power of two) up to
-    ``ROBUST_REGISTER_MAX_DEGREE``, 0 for the wide instance past it."""
-    if d > ROBUST_REGISTER_MAX_DEGREE:
-        return 0
-    return 1 << max(d - 1, 0).bit_length()
+def robust_instance(d: int) -> str:
+    """The robust_gossip instance a launch on a neighbour table of width
+    ``d`` runs, as the launcher picks it from ``d``: ``"register"`` up to
+    ``ROBUST_REGISTER_MAX_DEGREE`` (a window per thread), ``"wide"`` up
+    to ``ROBUST_WIDE_MAX_DEGREE`` (a warp's registers and shuffles per
+    column), ``"shared"`` past it (a block's shared memory per column).
+    Names the launch counter in ``INSTANCE_LAUNCHES``."""
+    if d <= ROBUST_REGISTER_MAX_DEGREE:
+        return "register"
+    return "wide" if d <= ROBUST_WIDE_MAX_DEGREE else "shared"
 
 
 def flash_instance(q: torch.Tensor, k: torch.Tensor,

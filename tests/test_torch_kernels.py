@@ -127,6 +127,42 @@ def test_robust_gossip_rejects_bad_calls(monkeypatch):
                           b=1.0, mode="mean")
 
 
+@pytest.mark.parametrize("d,want", [(1, "register"), (2, "register"),
+                                    (33, "register"), (64, "register"),
+                                    (65, "wide"), (127, "wide"),
+                                    (128, "wide"), (255, "wide"),
+                                    (511, "wide"), (1023, "wide"),
+                                    (1024, "shared"), (1100, "shared"),
+                                    (32767, "shared")])
+def test_robust_instance(d, want):
+    """A table of D neighbours launches the register instance up to 64
+    (its window D rounded up to a power of two), the wide one (a warp's
+    registers per column) while every window fits 1,024 slots, the
+    shared one past that; the launcher, which picks the instance from D,
+    holds the same two limits."""
+    assert ops.robust_instance(d) == want
+    source = (ops.CSRC / "robust_gossip.cu").read_text()
+    for name, limit in (("kRegisterMaxDegree",
+                         ops.ROBUST_REGISTER_MAX_DEGREE),
+                        ("kWideMaxDegree", ops.ROBUST_WIDE_MAX_DEGREE)):
+        assert f"constexpr int {name} = {limit};" in source
+    assert f"robust_gossip:{want}" in ops.INSTANCE_LAUNCHES
+
+
+@pytest.mark.parametrize("w,p,want", [(30, 6922, 8), (2, 6922, 8),
+                                      (1, 6922, 8), (66, 6922, 4),
+                                      (300, 6922, 1), (30, 100000, 1),
+                                      (30, 1000, 1), (1, 1, 1),
+                                      (1, 1024, 2), (1, 100000, 8)])
+def test_quantize_cluster(w, p, want):
+    """quantize_block's cluster on a card of 132 SMs: 8 blocks a tile
+    where the fleet's tiles are few (the main path's and AD-PSGD's
+    shapes), fewer as they fill the card, 1 where they do or where one
+    block covers the tile."""
+    _, tile_len, n_tiles = ref.wire_tiles(p)
+    assert ops.quantize_cluster(w, n_tiles, tile_len, 132) == want
+
+
 def test_failed_build_raises(tmp_path, monkeypatch):
     """No nvcc: the build raises — nothing falls back to the plain
     version."""
@@ -210,6 +246,42 @@ def test_cuda_codec_kernels_bit_equal_to_plain_versions(w, p):
     assert ops.LAUNCHES["sparsify_block"] == before["sparsify_block"] + 7
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 2])
+@pytest.mark.parametrize("p", [1, 999, 1023, 1024, 1025, 6921, 6922,
+                               100000])
+def test_cuda_quantize_block_edges(w, p):
+    """quantize_block against its plain version on the card at one and
+    two workers, across the tile layout's edges (P below, at and one past
+    a 1,024-column row; odd P, whose second row starts on 4 bytes; 13
+    tiles, the last ragged), on random rows, all-zero rows (scale 1e-30,
+    zero codes), rows with one nonzero value (its code -127), random rows
+    with an all-zero first tile and a one-value last tile, and random
+    rows that start 4 bytes into their storage (no 16- or 8-byte
+    loads)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(3 * p + w)
+    _, tile_len, n_tiles = ref.wire_tiles(p)
+    rand = torch.randn(w, p, generator=gen, device="cuda")
+    one = torch.zeros(w, p, device="cuda")
+    one[:, p // 2] = -2.5
+    mixed = rand.clone()
+    mixed[:, :tile_len] = 0.0
+    if n_tiles > 1:
+        mixed[:, (n_tiles - 1) * tile_len:] = 0.0
+        mixed[:, -1] = 4.0
+    shifted = torch.randn(w * p + 1, generator=gen, device="cuda")[1:]
+    before = ops.LAUNCHES["quantize_block"]
+    for x in (rand, torch.zeros(w, p, device="cuda"), one, mixed,
+              shifted.view(w, p)):
+        q, scales = ops.quantize_block(x)
+        q_ref, s_ref = ref.quantize_block_ref(x)
+        assert torch.equal(q, q_ref) and torch.equal(scales, s_ref)
+    assert bool((q_ref[:, p:] == 0).all())
+    assert ops.LAUNCHES["quantize_block"] == before + 5
+
+
 def _edge_case_graph(w: int, spec: str, seed: int):
     """A ``spec`` graph's directed edges in CSR form with uniform
     weights, one worker cut off (a row with no edges)."""
@@ -265,14 +337,22 @@ def test_cuda_gossip_edges_bit_equal_to_plain_version(w, spec):
                                             (128, "full", 130),
                                             (513, "full", 515),
                                             (128, "full", 67),
-                                            (200, "ring", 30)])
+                                            (200, "ring", 30),
+                                            (65, "full", 60),
+                                            (127, "full", 100),
+                                            (255, "full", 200),
+                                            (511, "full", 300),
+                                            (1023, "full", 700),
+                                            (1024, "full", 700),
+                                            (1100, "full", 1050)])
 def test_cuda_robust_gossip_bit_equal_to_plain_version(d_table, spec, w):
     """robust_gossip against its plain version on the card: trimmed with
     an integer and a fractional b, and the median, at D_PAD 1, 2, 32 and
-    64 (register instances) and D 65, 128 and 513 (the wide instance),
-    with degree-0 rows and sign-flipped rows in t. A table wider than the
-    neighbourhoods (padding slots past deg) picks a wider instance and
-    gives the same result."""
+    64 (register instances), D 65 to 1,023 (the wide instance: each
+    block's own window of 2 to 1,024 slots) and D 1,024 and 1,100 (the
+    shared instance), with degree-0 rows and sign-flipped rows in t. A
+    table wider than the neighbourhoods (padding slots past deg) picks a
+    wider instance and gives the same result."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     from repro_torch.core import robust
@@ -287,11 +367,14 @@ def test_cuda_robust_gossip_bit_equal_to_plain_version(d_table, spec, w):
     nbr = np.pad(nbr, ((0, 0), (0, d_table - nbr.shape[1])))
     nbr, deg = torch.from_numpy(nbr).cuda(), torch.from_numpy(deg).cuda()
     gen = torch.Generator(device="cuda").manual_seed(d_table + w)
-    # the plain version sorts a [W, D + 1, P] window: narrower rows at 513
-    x = torch.randn(w, 6922 if w < 500 else 2000, generator=gen,
-                    device="cuda")
+    # the plain version sorts a [W, D + 1, P] window: narrower rows for
+    # the larger fleets, narrowest past 600 neighbours
+    p = 6922 if w < 250 else 2000 if d_table <= 600 else 256
+    x = torch.randn(w, p, generator=gen, device="cuda")
     t = torch.where(torch.arange(w, device="cuda")[:, None] % 5 == 0, -x, x)
     before = ops.LAUNCHES["robust_gossip"]
+    instance = f"robust_gossip:{ops.robust_instance(d_table)}"
+    before_instance = ops.INSTANCE_LAUNCHES[instance]
     for mode, b in (("trimmed", 6.0), ("trimmed", 1.0), ("trimmed", 0.2),
                     ("median", 0.0)):
         y = ops.robust_gossip(x, t, nbr, deg, b=b, mode=mode)
@@ -299,6 +382,7 @@ def test_cuda_robust_gossip_bit_equal_to_plain_version(d_table, spec, w):
                                                     mode=mode)), (mode, b)
         assert torch.equal(y[3], x[3])
     assert ops.LAUNCHES["robust_gossip"] == before + 4
+    assert ops.INSTANCE_LAUNCHES[instance] == before_instance + 4
 
 
 def test_flash_attention_rejects_bad_calls():

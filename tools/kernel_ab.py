@@ -1,26 +1,34 @@
 #!/usr/bin/env python3
-"""Time the port's ``gossip_mix`` and ``flash_attention`` kernels against
-another version of their CUDA sources, on one card, in turns.
+"""Time the port's ``gossip_mix``, ``flash_attention``, ``robust_gossip``
+and ``quantize_block`` kernels against another version of their CUDA
+sources, on one card, in turns.
 
-    python3 tools/kernel_ab.py --base DIR [--out FILE] [--kernels flash]
+    python3 tools/kernel_ab.py --base DIR [--out FILE] \
+        [--kernels mix flash robust quant]
 
-``DIR`` holds the other version's ``gossip_mix.cu`` and
-``flash_attention.cu`` (for example written there from a git revision
-with ``git show REV:src/repro_torch/kernels/csrc/gossip_mix.cu``). Both
-versions are built with the port's nvcc flags into libraries of their
-own and called on the same inputs, at every ``gossip_mix`` and
-``flash_attention`` case of ``chip_smoke.py``'s phase 2 and at Sk =
-16, 32, 48, 64 and 65 for each head width; a flash case whose keys fit
-the short kernel (64) is timed with each instance forced, so the
-dispatch limits (``ops.FLASH_SHORT_MAX_KEYS``) can be set where the two
-cross.
+``DIR`` holds the other version's sources of the kernels named by
+``--kernels`` (``gossip_mix.cu``, ``flash_attention.cu``,
+``robust_gossip.cu``, ``quantize_block.cu``; for example written there
+from a git revision with ``git show
+REV:src/repro_torch/kernels/csrc/gossip_mix.cu``; 3c12770 or later: a
+launcher whose argument list changed since exports ``<launcher>_abi()``,
+and one without it is taken to have 3c12770's). Both versions are
+built with the port's nvcc flags into libraries of their own and called
+on the same inputs, at every case of ``chip_smoke.py``'s phase 2 for
+those kernels (``robust_gossip``: every table of ``ROBUST_CASES`` and
+mode of ``ROBUST_MODES``, each on the instance each version dispatches
+to; ``quantize_block``: ``CODEC_CASES``), and for ``flash_attention``
+also at Sk = 16, 32, 48, 64 and 65 for each head width; a flash case
+whose keys fit the short kernel (64) is timed with each instance
+forced, so the dispatch limits (``ops.FLASH_SHORT_MAX_KEYS``) can be
+set where the two cross.
 Each version's output is held to the plain version (bit-equal for
-``gossip_mix``, 2e-5 for ``flash_attention``), then each case is timed
-base, this checkout, this checkout, base (``chip_smoke.time_ms``: CUDA
-events around back-to-back launches). One line per case, and all of
-them as JSON in ``FILE`` (default ``build/kernel_ab.json``).
-``--kernels`` limits the run to ``mix`` or ``flash`` (default both).
-Needs a CUDA device and ``nvcc``.
+``gossip_mix``, ``robust_gossip`` and ``quantize_block``, 2e-5 for
+``flash_attention``), then each case is timed base, this checkout, this
+checkout, base (``chip_smoke.time_ms``: CUDA events around back-to-back
+launches). One line per case, and all of them as JSON in ``FILE``
+(default ``build/kernel_ab.json``). ``--kernels`` names the kernels to
+time (default all four). Needs a CUDA device and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -39,7 +47,9 @@ sys.path.insert(0, str(REPO / "src"))
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
-SOURCES = ("gossip_mix.cu", "flash_attention.cu")
+# --kernels name -> its source in csrc/
+SOURCES = {"mix": "gossip_mix.cu", "flash": "flash_attention.cu",
+           "robust": "robust_gossip.cu", "quant": "quantize_block.cu"}
 # the keys the short kernel has room for (kShortMaxKeys in
 # flash_attention.cu); the dispatch limits below it are ops'
 SHORT_CAPACITY = 64
@@ -65,30 +75,54 @@ def _both_instances(cases):
             yield (*c[:-1], None)
 
 
-def build(src_dir: Path, name: str) -> ctypes.CDLL:
-    """nvcc each of SOURCES in ``src_dir`` with the port's flags, link
-    them into ``build/kernel_ab/<name>.so`` and load it."""
+def build(src_dir: Path, name: str, kernels: list[str]) -> ctypes.CDLL:
+    """nvcc the sources of ``kernels`` in ``src_dir`` with the port's
+    flags, link them into ``build/kernel_ab/<name>.so`` and load it."""
     work = REPO / "build" / "kernel_ab" / name
     work.mkdir(parents=True, exist_ok=True)
     nvcc = ops._nvcc()
-    objs = [work / f"{Path(s).stem}.o" for s in SOURCES]
+    sources = [SOURCES[k] for k in kernels]
+    objs = [work / f"{Path(s).stem}.o" for s in sources]
     ops._run_all([[nvcc, *ops.NVCC_FLAGS, "-c", "-o", str(o),
-                   str(src_dir / s)] for s, o in zip(SOURCES, objs)])
+                   str(src_dir / s)] for s, o in zip(sources, objs)])
     lib_path = work / f"{name}.so"
     ops._run_all([[nvcc, "-shared", "-o", str(lib_path), *map(str, objs)]])
     lib = ctypes.CDLL(str(lib_path))
-    lib.gossip_mix_f32.argtypes = [ctypes.c_void_p] * 4 + \
-        [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    # the launcher takes the instance (short_path) where the source has
-    # two instances, and not before
-    two = "short_path" in (src_dir / "flash_attention.cu").read_text()
-    lib.flash_attention_f32.argtypes = [ctypes.c_void_p] * 4 + \
-        [ctypes.c_int] * (9 if two else 8) + [ctypes.c_float,
-                                              ctypes.c_void_p]
-    lib.flash_two_instances = two
-    for fn in (lib.gossip_mix_f32, lib.flash_attention_f32):
-        fn.restype = ctypes.c_int
+    if "mix" in kernels:
+        lib.gossip_mix_f32.argtypes = [ctypes.c_void_p] * 4 + \
+            [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.gossip_mix_f32.restype = ctypes.c_int
+    if "flash" in kernels:
+        lib.flash_attention_f32.argtypes = [ctypes.c_void_p] * 4 + \
+            [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+        lib.flash_attention_f32.restype = ctypes.c_int
+    if "robust" in kernels:
+        # version 1 takes the register window d_pad after the table's D
+        lib.robust_abi = _abi(lib, "robust_gossip")
+        lib.robust_gossip_f32.argtypes = [ctypes.c_void_p] * 5 + \
+            [ctypes.c_int] * (5 if lib.robust_abi == 1 else 4) + \
+            [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        lib.robust_gossip_f32.restype = ctypes.c_int
+    if "quant" in kernels:
+        # version 2 takes the cluster size after n_tiles
+        lib.quant_abi = _abi(lib, "quantize_block")
+        lib.quantize_block_f32.argtypes = [ctypes.c_void_p] * 3 + \
+            [ctypes.c_int] * (5 if lib.quant_abi == 1 else 6) + \
+            [ctypes.c_void_p]
+        lib.quantize_block_f32.restype = ctypes.c_int
     return lib
+
+
+def _abi(lib: ctypes.CDLL, launcher: str) -> int:
+    """The version of ``launcher``'s argument list: what the source's
+    ``<launcher>_abi()`` returns, 1 for a source without it (the
+    launchers of 3c12770)."""
+    try:
+        fn = getattr(lib, f"{launcher}_abi")
+    except AttributeError:
+        return 1
+    fn.restype = ctypes.c_int
+    return fn()
 
 
 def _stream() -> int:
@@ -120,14 +154,50 @@ def flash_call(lib, q, k, v, causal: bool, window: int,
     b, s, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     short = (instance or ops.flash_instance(q, k, v)) == "short"
-    inst = (int(short),) if lib.flash_two_instances else ()
 
     def call():
         _check(lib.flash_attention_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
-            sk, hq, hkv, hd, int(causal), window, *inst, hd ** -0.5,
+            sk, hq, hkv, hd, int(causal), window, int(short), hd ** -0.5,
             _stream()), "flash_attention")
         return o
+    return call
+
+
+def robust_call(lib, x, t, nbr, deg, b: float, mode: str):
+    """One launch of ``lib``'s robust_gossip on the instance ``lib``
+    dispatches a table of this width to."""
+    y = torch.empty_like(x)
+    d = nbr.shape[1]
+    # version 1: the register window, 0 for its one instance past 64
+    code = (((1 << max(d - 1, 0).bit_length())
+             if d <= ops.ROBUST_REGISTER_MAX_DEGREE else 0),) \
+        if lib.robust_abi == 1 else ()
+
+    def call():
+        _check(lib.robust_gossip_f32(
+            x.data_ptr(), t.data_ptr(), nbr.data_ptr(), deg.data_ptr(),
+            y.data_ptr(), x.shape[0], x.shape[1], d, *code,
+            int(mode == "median"), float(b), int(b) if b >= 1.0 else -1,
+            _stream()), "robust_gossip")
+        return y
+    return call
+
+
+def quant_call(lib, x):
+    w, p = x.shape
+    row_len, tile_len, n_tiles = ref.wire_tiles(p)
+    q = torch.empty(w, row_len, dtype=torch.int8, device=x.device)
+    scales = torch.empty(w, n_tiles, device=x.device)
+    cluster = ((ops.quantize_cluster(w, n_tiles, tile_len,
+                                     ops.sm_count(x.device)),)
+               if lib.quant_abi == 2 else ())
+
+    def call():
+        _check(lib.quantize_block_f32(
+            x.data_ptr(), q.data_ptr(), scales.data_ptr(), w, p, row_len,
+            tile_len, n_tiles, *cluster, _stream()), "quantize_block")
+        return q, scales
     return call
 
 
@@ -214,27 +284,80 @@ def run_flash(libs: dict, cycles_per_ms: float) -> list[dict]:
     return rows
 
 
+def run_robust(libs: dict, cycles_per_ms: float) -> list[dict]:
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for case, w, spec, cut, zeroed, p in cs.ROBUST_CASES:
+        nbr, deg, kind, exchanges = cs.robust_table(w, spec, cut, zeroed)
+        x = torch.randn(w, p, generator=gen, device="cuda")
+        t = cs._lying(x)
+        bound_ms, _, _ = cs.robust_bound(w, p, nbr.shape[1], exchanges)
+        for mode, b in cs.ROBUST_MODES:
+            name = f"{case}-{mode}:{b:g}"
+            want = ref.robust_gossip_ref(x, t, nbr, deg, b=b, mode=mode)
+            calls = {which: robust_call(lib, x, t, nbr, deg, b, mode)
+                     for which, lib in libs.items()}
+            for which, call in calls.items():
+                got = call()
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"robust_gossip[{name}] of {which} "
+                                         "differs from its plain version")
+            times = in_turns(calls, cycles_per_ms, batch=10,
+                             reps=50 if kind == "register" else 10)
+            rows.append(_summary("robust_gossip", name, times, bound_ms, W=w,
+                                 P=p, D=nbr.shape[1], instance=kind))
+            del want, calls
+        del x, t
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_quant(libs: dict, cycles_per_ms: float) -> list[dict]:
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for case, w, p in cs.CODEC_CASES:
+        x = 0.3 * torch.randn(w, p, generator=gen, device="cuda")
+        want = ref.quantize_block_ref(x)
+        calls = {which: quant_call(lib, x) for which, lib in libs.items()}
+        for which, call in calls.items():
+            got = call()
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, r) for g, r in zip(got, want)):
+                raise AssertionError(f"quantize_block[{case}] of {which} "
+                                     "differs from its plain version")
+        row_len, tile_len, n_tiles = ref.wire_tiles(p)
+        times = in_turns(calls, cycles_per_ms, batch=10)
+        bound_ms, _ = cs._bound(4 * w * p + w * row_len + 4 * w * n_tiles,
+                                6 * w * p)
+        rows.append(_summary(
+            "quantize_block", case, times, bound_ms, W=w, P=p,
+            cluster=ops.quantize_cluster(w, n_tiles, tile_len,
+                                         ops.sm_count(x.device))))
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--base", type=Path, required=True)
     parser.add_argument("--out", type=Path,
                         default=REPO / "build" / "kernel_ab.json")
-    parser.add_argument("--kernels", choices=("mix", "flash", "both"),
-                        default="both")
+    parser.add_argument("--kernels", nargs="+", choices=tuple(SOURCES),
+                        default=list(SOURCES))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     card = cs.card_line()
     cs.log("ab", card=repr(card))
-    libs = {"base": build(args.base.resolve(), "base"),
-            "new": build(ops.CSRC, "new")}
+    libs = {"base": build(args.base.resolve(), "base", args.kernels),
+            "new": build(ops.CSRC, "new", args.kernels)}
     cycles_per_ms = cs._sleep_cycles_per_ms()
+    runs = {"mix": run_mix, "flash": run_flash, "robust": run_robust,
+            "quant": run_quant}
     rows = []
-    if args.kernels in ("mix", "both"):
-        rows += run_mix(libs, cycles_per_ms)
-    if args.kernels in ("flash", "both"):
-        rows += run_flash(libs, cycles_per_ms)
+    for kernel in args.kernels:
+        rows += runs[kernel](libs, cycles_per_ms)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps({"card": card, "cases": rows}, indent=1))
     return 0
