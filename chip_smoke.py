@@ -21,7 +21,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    the edge-list ``gossip_edges`` (W = 30 full graph and ring, the
    W = 2,048 ring and a W = 2,048 ``ba:2`` graph, honest and over a
    lying wire), the Byzantine-robust ``robust_gossip`` (trimmed and
-   median, W = 30 full graph and the W = 2,048 ring in the register
+   median, W = 30 full graph, a W = 30 ``erdos:0.3`` graph of mixed
+   degrees in a table 32 wide and the W = 2,048 ring in the register
    instances, full graphs of 66, 130 and 300 workers and a W = 1,000
    ``ba:2`` graph of mostly small degrees in the wide one, a full graph
    of 1,100 at P = 256 in the shared one; each line names its instance
@@ -35,7 +36,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    operations at 495 TFLOP/s, or bytes) and
    ``scaled_dot_product_attention``'s time) and
    ``consensus_dist`` (the kernel benchmark's shape and the registry
-   path's width; within 1e-6 relative);
+   path's width; within 1e-6 relative); and ``launch_floor_us``, the
+   time of ``dequantize_block`` on one element, timed the same way;
 3. the main path: ``run_algorithm(algo, cfg, fused=True)`` at the
    paper's fleet (30 workers) and MLP (P = 6,922) — FedHP and the
    synchronous baselines uncompressed, FedHP and D-PSGD under int8,
@@ -520,6 +522,19 @@ def check_codecs(cycles_per_ms: float) -> list[dict]:
                  **out["sparsify_block"])]
 
 
+def launch_floor(cycles_per_ms: float) -> float:
+    """The device time (ms) of a launch that does next to nothing:
+    ``dequantize_block`` at [1, 1] (one block, one element), timed as
+    every kernel is. The share of a small kernel's time no redesign of
+    its body can remove."""
+    q, scales = ops.quantize_block(torch.ones(1, 1, device="cuda"))
+    floor_ms = time_ms(lambda: ops.dequantize_block(q, scales, 1),
+                       cycles_per_ms, batch=10)
+    log("phase2", launch_floor_us=f"{floor_ms * 1e3:.4f}",
+        kernel="dequantize_block", W=1, P=1)
+    return floor_ms
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the edge-list and robust gossip kernels
 # ---------------------------------------------------------------------------
@@ -636,22 +651,28 @@ def _sort_compare_exchanges(cnt: int) -> int:
     return count
 
 
-# (case, W, base, cut workers, workers whose degree is set to 0, P): the
-# main path's W = 30 full graph (D_PAD = 32) and the W = 2,048 ring
-# (D_PAD = 2), register instances; full graphs of 66, 130 and 300 (D =
-# 65, 129 and 299) and a W = 1,000 ``ba:2`` graph (a table 102 wide,
-# half its workers of degree 2: each block sorts its own worker's
-# window), the wide instance; a full graph of 1,100 (D = 1,099, N =
-# 2,048) at P = 256, the shared instance, narrow so that the plain
+# (case, W, base, cut workers, workers whose degree is set to 0, P, the
+# table's width or 0): the main path's W = 30 full graph (D_PAD = 32),
+# a W = 30 ``erdos:0.3`` graph (degrees 2 to 10 once workers 1 and 7
+# are cut: the sparser bases FedHP's controller builds) in a table
+# padded to D_PAD = 32, as the fused engine pads a segment's tables to
+# its widest (each block sorts its own worker's window), and the
+# W = 2,048 ring (D_PAD = 2), register instances; full graphs of 66,
+# 130 and 300 (D = 65, 129 and 299) and a W = 1,000 ``ba:2`` graph (a
+# table 102 wide, half its workers of degree 2: each block sorts its own
+# worker's window), the wide instance; a full graph of 1,100 (D = 1,099,
+# N = 2,048) at P = 256, the shared instance, narrow so that the plain
 # version's [W, D + 1, P] window stays near 1.2 GB. Worker 7's degree is
-# zeroed so the table keeps its width
-ROBUST_CASES = (("full30", 30, "full", (1, 7), (), PAPER_MLP_P),
-                ("ring2048", 2048, "ring", (1, 7), (), PAPER_MLP_P),
-                ("full66", 66, "full", (), (7,), PAPER_MLP_P),
-                ("full130", 130, "full", (), (7,), PAPER_MLP_P),
-                ("full300", 300, "full", (), (7,), PAPER_MLP_P),
-                ("ba1000", 1000, "ba:2", (), (7,), PAPER_MLP_P),
-                ("full1100", 1100, "full", (), (7,), 256))
+# zeroed so the table keeps its width. A width of 0 is D's, rounded up
+# to a power of two for the register instance
+ROBUST_CASES = (("full30", 30, "full", (1, 7), (), PAPER_MLP_P, 0),
+                ("mixed30", 30, "erdos:0.3", (1, 7), (), PAPER_MLP_P, 32),
+                ("ring2048", 2048, "ring", (1, 7), (), PAPER_MLP_P, 0),
+                ("full66", 66, "full", (), (7,), PAPER_MLP_P, 0),
+                ("full130", 130, "full", (), (7,), PAPER_MLP_P, 0),
+                ("full300", 300, "full", (), (7,), PAPER_MLP_P, 0),
+                ("ba1000", 1000, "ba:2", (), (7,), PAPER_MLP_P, 0),
+                ("full1100", 1100, "full", (), (7,), 256, 0))
 
 
 # the robust modes phase 2 runs on every table: trimmed by a count and
@@ -659,19 +680,19 @@ ROBUST_CASES = (("full30", 30, "full", (1, 7), (), PAPER_MLP_P),
 ROBUST_MODES = (("trimmed", 6.0), ("trimmed", 0.2), ("median", 0.0))
 
 
-def robust_table(w: int, spec: str, cut, zeroed):
+def robust_table(w: int, spec: str, cut, zeroed, width: int = 0):
     """A ROBUST_CASES table on the card -> (nbr, deg, the instance a
     launch runs, the compare-exchanges that sorting one column's windows
     needs, each window of its own deg + 1 values: degree-0 rows sort
-    nothing). The register instance's table is padded to D_PAD, as the
-    fused engine pads it."""
+    nothing). The table is padded to ``width``, or where that is 0 the
+    register instance's to D_PAD, as the fused engine pads it."""
     adj, _ = _graph(w, spec, cut=cut)
     nbr_np, deg_np = robust.neighbor_table(adj)
     deg_np[list(zeroed)] = 0
+    if not width and ops.robust_instance(nbr_np.shape[1]) == "register":
+        width = _pow2(nbr_np.shape[1])
+    nbr_np = np.pad(nbr_np, ((0, 0), (0, max(width - nbr_np.shape[1], 0))))
     kind = ops.robust_instance(nbr_np.shape[1])
-    if kind == "register":
-        d = _pow2(nbr_np.shape[1])
-        nbr_np = np.pad(nbr_np, ((0, 0), (0, d - nbr_np.shape[1])))
     exchanges = sum(_sort_compare_exchanges(int(k) + 1)
                     for k in deg_np if k > 0)
     nbr, deg = (torch.from_numpy(a).to("cuda") for a in (nbr_np, deg_np))
@@ -691,8 +712,8 @@ def check_robust_gossip(cycles_per_ms: float) -> dict:
     fifth row sign-flipped in t and rows of degree 0."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst, main = 0.0, None
-    for case, w, spec, cut, zeroed, p in ROBUST_CASES:
-        nbr, deg, kind, exchanges = robust_table(w, spec, cut, zeroed)
+    for case, w, spec, cut, zeroed, p, width in ROBUST_CASES:
+        nbr, deg, kind, exchanges = robust_table(w, spec, cut, zeroed, width)
         d = nbr.shape[1]
         instance = f"{kind} D={d}"
         x = torch.randn(w, p, generator=gen, device="cuda")
@@ -1324,6 +1345,7 @@ def main() -> int:
         library=lib.name, ptxas=ptxas)
 
     cycles_per_ms = _sleep_cycles_per_ms()
+    launch_floor(cycles_per_ms)
     kernels = [check_gossip_mix(cycles_per_ms), *check_codecs(cycles_per_ms),
                check_gossip_edges(cycles_per_ms),
                check_robust_gossip(cycles_per_ms),

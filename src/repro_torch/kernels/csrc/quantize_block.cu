@@ -56,7 +56,25 @@
 // still read it. Block 0 of the
 // cluster writes the scale. A cluster the card refuses is an error the
 // wrapper raises; there is no launch without clusters to fall back to.
-// Dequantize is elementwise, one thread per element.
+//
+// Dequantize is a vector pass: a thread takes V = 4 consecutive codes of
+// one worker's row (a block 128 threads, 512 codes: 14 blocks a row at P
+// = 6,922), reads them with one 4-byte load where the address allows
+// (every row where P >= 1,024, whose rows are whole multiples of 1,024
+// bytes, if q's base does), finds its tile once (V codes never straddle
+// two tiles; no division where a row is one tile) and stores the 4
+// products with one 16-byte store where y's row allows, two 8-byte ones
+// where it starts on 8 bytes (P = 6,922: every other row), four 4-byte
+// ones otherwise; a row of q off 4 bytes and the ragged end at P take a
+// loop of single codes, kept out of line. The codes become floats by
+// integer operations on the float's bits, not a conversion instruction.
+// The first version took one thread an element, a byte load and a
+// division by the tile length each. 8 and 16 codes a thread were slower
+// (their stores strided across a warp), 256 threads a block 4% faster at
+// [30, 6922] and 2% slower at [1, 6922]; issuing the codes' load first
+// and converting without the conversion unit took 2% off [2, 6922]
+// (tools/kernel_ab.py). At these sizes a launch is most of the time
+// (chip_smoke.py's launch_floor_us).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -70,6 +88,9 @@ constexpr int kThreads = 256;
 constexpr int kMaxTile = 8 * 1024;
 constexpr int kGroups = kMaxTile / (4 * kThreads);   // of 4 elements, S = 1
 constexpr int kMaxCluster = 8;
+// dequantize: codes a thread (one 4-byte load), threads a block
+constexpr int kDequantCodes = 4;
+constexpr int kDequantThreads = 128;
 
 __device__ float block_max(float v, float* red) {
   for (int o = 16; o > 0; o >>= 1) {
@@ -191,16 +212,60 @@ quantize_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
   if (S > 1) cluster_wait();           // the others are done with ours
 }
 
-__global__ void dequantize_kernel(const int8_t* __restrict__ q,
-                                  const float* __restrict__ scales,
-                                  float* __restrict__ y, int P, int row_len,
-                                  int tile_len, int n_tiles) {
+// int8 code -> f32, exactly: byte b of u, sign bit flipped, as the low
+// bits of 2^23's mantissa is 2^23 + b + 128, less 2^23 + 128. Two integer
+// operations and a subtraction, where a conversion instruction would wait
+// on the card's conversion unit.
+__device__ __forceinline__ float code_value(uint32_t u, int byte) {
+  const uint32_t bits = 0x4B000000u | (((u >> 8 * byte) & 0xffu) ^ 0x80u);
+  return __fsub_rn(__uint_as_float(bits), 8388736.0f);
+}
+
+// grid (ceil(P / (V kDequantThreads)), W): thread k of a row takes the
+// V codes from column V k on. A tile is a multiple of 1,024 columns where
+// P >= 1,024 and the whole row below, so the V never straddle two tiles:
+// the thread reads its scale once (a row of one tile, as at P = 6,922,
+// without the division). The load of the codes goes out before the
+// scale's: at [2, 6922] the kernel's time is the latency of one thread.
+__global__ void __launch_bounds__(kDequantThreads)
+dequantize_kernel(const int8_t* __restrict__ q,
+                  const float* __restrict__ scales, float* __restrict__ y,
+                  int P, int row_len, int tile_len, int n_tiles) {
+  constexpr int V = kDequantCodes;
+  static_assert(V == 4, "one 4-byte load of codes, 16 bytes of products");
   const int w = blockIdx.y;
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  const int col = (blockIdx.x * kDequantThreads + threadIdx.x) * V;
   if (col >= P) return;
-  const float s = scales[(int64_t)w * n_tiles + col / tile_len];
-  y[(int64_t)w * P + col] =
-      __fmul_rn((float)q[(int64_t)w * row_len + col], s);
+  const int8_t* qs = q + (int64_t)w * row_len + col;
+  float* ys = y + (int64_t)w * P + col;
+  // the 4 codes by one 4-byte load, unless the ragged end at P or a row
+  // of q that starts off 4 bytes leaves them to the loop below
+  const bool whole = col + V <= P && ((uintptr_t)qs & (V - 1)) == 0;
+  const uint32_t u = whole ? *reinterpret_cast<const uint32_t*>(qs) : 0u;
+  const float s = scales[(int64_t)w * n_tiles +
+                         (n_tiles == 1 ? 0 : col / tile_len)];
+  if (!whole) {
+    // a code at a time (a loop, so the common path's code stays short)
+#pragma unroll 1
+    for (int e = 0; e < V && col + e < P; ++e) {
+      ys[e] = __fmul_rn((float)qs[e], s);
+    }
+    return;
+  }
+  float o[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) o[e] = __fmul_rn(code_value(u, e), s);
+  // the products by a 16-byte store where y's row allows, two 8-byte ones
+  // where it starts on 8 bytes (P % 4 == 2), else 4-byte ones (odd P)
+  if (((uintptr_t)ys & 15) == 0) {
+    *reinterpret_cast<float4*>(ys) = make_float4(o[0], o[1], o[2], o[3]);
+  } else if (((uintptr_t)ys & 7) == 0) {
+    *reinterpret_cast<float2*>(ys) = make_float2(o[0], o[1]);
+    *reinterpret_cast<float2*>(ys + 2) = make_float2(o[2], o[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) ys[e] = o[e];
+  }
 }
 
 }  // namespace
@@ -244,8 +309,9 @@ extern "C" int dequantize_block_f32(const int8_t* q, const float* scales,
                                     int tile_len, int n_tiles,
                                     void* stream) {
   if (W == 0 || P == 0) return 0;
-  const dim3 grid((P + kThreads - 1) / kThreads, W);
-  dequantize_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  constexpr int cols = kDequantCodes * kDequantThreads;   // a block's
+  const dim3 grid((P + cols - 1) / cols, W);
+  dequantize_kernel<<<grid, kDequantThreads, 0, (cudaStream_t)stream>>>(
       q, scales, y, P, row_len, tile_len, n_tiles);
   return (int)cudaGetLastError();
 }

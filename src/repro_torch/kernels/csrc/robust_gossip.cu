@@ -18,30 +18,49 @@
 // walking the workers with a fori_loop, gathering a [D + 1, 256] window,
 // masking the padding slots to +inf and sorting it with an odd-even
 // transposition network of D + 1 passes. Here one thread owns one
-// (worker, column) window in registers: D_PAD + 1 floats, D_PAD a
-// template parameter (a power of two, 1..64; the fused engine pads each
-// segment's neighbour table to one such D), and sorts it with the same
-// network, fully unrolled -- compare-exchanges on registers with fminf /
-// fmaxf, no data-dependent branches, so the warp stays in step. Any
-// correct sort puts the same values in the same positions; the sum then
-// adds the window in ascending position order (__fadd_rn) and divides
-// with __fdiv_rn, the plain version's order (repro_torch/kernels/ref.py:
-// robust_gossip_ref), so the two agree bit for bit.
+// (worker, column) window in registers (a block of 128 threads takes 128
+// columns of one worker i = blockIdx.y), for tables of D_PAD neighbours
+// (a template parameter, a power of two, 1..64; the fused engine pads
+// each segment's neighbour table to one such D). A worker's degree is
+// the same for every thread of its block, so each block picks, by a
+// block-uniform switch on d = deg[i], a sort sized to its own window of
+// cnt = d + 1 values: the S = the next power of two >= cnt slots (slots
+// past cnt +inf) sorted by Batcher's odd-even merge sort; or, where d
+// is itself a power of two (cnt one past it), the d neighbour values
+// sorted by that network and the worker's own value inserted by one
+// pass of d compare-exchanges that carries the larger value upward, so
+// a window of 2^k + 1 does not pay for 2^(k+1) slots. A D_PAD kernel
+// holds the sorts up to D_PAD slots only. The networks are unrolled from
+// templates (every index a compile-time constant, so the window stays in
+// registers): compare-exchanges with fminf / fmaxf, no data-dependent
+// branch, so the warp stays in step. Compare-exchanges a window: 5 / 19
+// / 63 / 191 / 543 at S = 4 / 8 / 16 / 32 / 64, 223 at cnt = 33 (191 +
+// 32) and 607 at 65 -- against the transposition network's 528 on 33
+// slots and 2,080 on 65 that the first version ran whatever the degree.
+// Any correct sort puts the same values in the same positions; the sum
+// then adds the window in ascending position order (__fadd_rn) and
+// divides with __fdiv_rn, the plain version's order (repro_torch/
+// kernels/ref.py:robust_gossip_ref), so the two agree bit for bit. The
+// median reads its two positions by a tree of selects over the few a
+// size class allows, and the trimmed sum tests a position against b_i
+// and cnt - b_i only where the class leaves the test open: a select per
+// position (the first version's) cost as much as a tenth of the sort.
+// 128-thread blocks ran 6-9% faster than 256 at W = 30 (more, smaller
+// blocks even out the last wave; tools/kernel_ab.py).
 //
 // Bound: the function reads x, t and the table once and writes y once:
 // (3 W P + W D + W) * 4 bytes -- 2.49 MB at W = 30, P = 6922 (0.74 us at
 // 3.35 TB/s), 170.1 MB at the W = 2,048 ring (50.8 us). Its operations
 // are the compare-exchanges that sorting each window of its own cnt =
-// d + 1 values needs, counted as Batcher's odd-even merge sort (a min
-// and a max each), not as the odd-even transposition network this
-// instance runs on D_PAD + 1 (528 at D_PAD = 32): 162 for a window of
-// 28, 63 MFLOP at W = 30 (28 such windows), P = 6922: 0.94 us at 67
-// TFLOP/s. So at W = 30 operations bind it, barely; at the ring's
-// windows of 3 bytes do.
+// d + 1 values needs, counted as Batcher's odd-even merge sort on cnt (a
+// min and a max each): 162 for a window of 28, 63 MFLOP at W = 30 (28
+// such windows), P = 6922: 0.94 us at 67 TFLOP/s, against this
+// instance's 191 on 32 slots. So at W = 30 operations bind it, barely;
+// at the ring's windows of 3 bytes do.
 //
 // Each neighbour row of t is read once per worker that lists it (from L2
-// at these sizes). A later version could sort only as far as the window
-// needs (a partial network), or stage t's column tile in shared memory.
+// at these sizes). A later version could stage t's column tile in shared
+// memory.
 //
 // Past 64 neighbours (a fleet of more than 65 workers on a dense base, or
 // a hub of degree 65 or more) a register window per thread stops: 129
@@ -114,7 +133,163 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;     // the register instance's block
+
+// ---------------------------------------------------------------------------
+// the register instance: a thread's window sorted by a network of its
+// block's own size
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void compare_exchange(float& a, float& b) {
+  const float lo = fminf(a, b);
+  b = fmaxf(a, b);
+  a = lo;
+}
+
+// Batcher's odd-even merge of the sorted halves of positions LO..HI
+// (inclusive, a power of two of them), of the positions R apart: the
+// even and the odd ones merged alone, then each odd one compared with
+// the one R past it
+template <int LO, int HI, int R, int S>
+__device__ __forceinline__ void odd_even_merge(float (&v)[S]) {
+  if constexpr (2 * R < HI - LO) {
+    odd_even_merge<LO, HI, 2 * R>(v);
+    odd_even_merge<LO + R, HI, 2 * R>(v);
+#pragma unroll
+    for (int i = LO + R; i < HI - R; i += 2 * R) {
+      compare_exchange(v[i], v[i + R]);
+    }
+  } else {
+    compare_exchange(v[LO], v[LO + R]);
+  }
+}
+
+// Batcher's odd-even merge sort of positions LO..HI of v (inclusive, a
+// power of two of them), ascending
+template <int LO, int HI, int S>
+__device__ __forceinline__ void odd_even_sort(float (&v)[S]) {
+  if constexpr (HI > LO) {
+    constexpr int MID = LO + (HI - LO) / 2;
+    odd_even_sort<LO, MID>(v);
+    odd_even_sort<MID + 1, HI>(v);
+    odd_even_merge<LO, HI, 1>(v);
+  }
+}
+
+// v[k] for a block-uniform k in [LO, LO + N), by a tree of selects on
+// compile-time positions (a run-time index would send v to local memory)
+template <int LO, int N, int S>
+__device__ __forceinline__ float pick(const float (&v)[S], int k) {
+  if constexpr (N == 1) {
+    return v[LO];
+  } else {
+    constexpr int H = N / 2;
+    return k < LO + H ? pick<LO, H>(v, k) : pick<LO + H, N - H>(v, k);
+  }
+}
+
+// The trimmed mean (positions [b_i, cnt - b_i) added in ascending order)
+// or the median of a sorted window of cnt values, CMIN <= cnt <= S (the
+// window sizes its sort takes): positions are compile-time constants, so
+// v stays in registers, and the tests CMIN and S decide are left out
+template <int S, int CMIN, bool kMedian>
+__device__ __forceinline__ float window_value(const float (&v)[S], int cnt,
+                                              float b_frac, int b_abs) {
+  if (kMedian) {
+    constexpr int kLo = (CMIN - 1) / 2, kHi = CMIN / 2;
+    const float vlo = pick<kLo, (S - 1) / 2 - kLo + 1>(v, (cnt - 1) / 2);
+    const float vhi = pick<kHi, S / 2 - kHi + 1>(v, cnt / 2);
+    return __fmul_rn(0.5f, __fadd_rn(vlo, vhi));
+  }
+  int bi = b_abs >= 0 ? b_abs : (int)floorf(__fmul_rn(b_frac, (float)cnt));
+  bi = min(bi, (cnt - 1) / 2);
+  const int end = cnt - bi;
+  float acc = 0.f;
+#pragma unroll
+  for (int p = 0; p < S; ++p) {
+    // bi <= (S - 1) / 2 and end > CMIN / 2 whatever cnt is
+    if ((p > (S - 1) / 2 || p >= bi) && (p <= CMIN / 2 || p < end)) {
+      acc = __fadd_rn(acc, v[p]);
+    }
+  }
+  return __fdiv_rn(acc, (float)(cnt - 2 * bi));
+}
+
+// A window of d + 1 values, S / 2 + 1 < d + 1 <= S (S a power of two):
+// the worker's own value and its d neighbours' in S slots, the rest
+// +inf, sorted
+template <int S, bool kMedian>
+__device__ __forceinline__ float sort_window(float own,
+                                             const float* __restrict__ t,
+                                             const int* __restrict__ nrow,
+                                             int d, int P, int c,
+                                             float b_frac, int b_abs) {
+  constexpr int kMinDegree = S / 2 + 1;
+  float v[S];
+  v[0] = own;
+#pragma unroll
+  for (int k = 0; k + 1 < S; ++k) {
+    v[k + 1] = k < kMinDegree || k < d ? t[(int64_t)nrow[k] * P + c]
+                                       : INFINITY;
+  }
+  odd_even_sort<0, S - 1>(v);
+  return window_value<S, kMinDegree + 1, kMedian>(v, d + 1, b_frac, b_abs);
+}
+
+// A window of D + 1 values, D a power of two: the D neighbour values
+// sorted, then the worker's own value inserted from the top slot by one
+// pass of D compare-exchanges that carries the larger value upward
+template <int D, bool kMedian>
+__device__ __forceinline__ float insert_window(float own,
+                                               const float* __restrict__ t,
+                                               const int* __restrict__ nrow,
+                                               int P, int c, float b_frac,
+                                               int b_abs) {
+  float v[D + 1];
+#pragma unroll
+  for (int k = 0; k < D; ++k) v[k] = t[(int64_t)nrow[k] * P + c];
+  odd_even_sort<0, D - 1>(v);
+  v[D] = own;
+#pragma unroll
+  for (int p = 0; p < D; ++p) compare_exchange(v[p], v[D]);
+  return window_value<D + 1, D + 1, kMedian>(v, D + 1, b_frac, b_abs);
+}
+
+// One window of d >= 1 neighbours, by the sort for its size: S slots for
+// S / 2 + 1 < d + 1 <= S, a power of two; a sort of d and an insertion
+// where d is a power of two. Sizes past D_PAD are not instantiated.
+template <int D_PAD, bool kMedian>
+__device__ __forceinline__ float robust_window(float own,
+                                               const float* __restrict__ t,
+                                               const int* __restrict__ nrow,
+                                               int d, int P, int c,
+                                               float b_frac, int b_abs) {
+#define ROBUST_INSERT(D)                                                   \
+  if constexpr (D <= D_PAD) {                                             \
+    if (d == D)                                                           \
+      return insert_window<D, kMedian>(own, t, nrow, P, c, b_frac, b_abs); \
+  }
+#define ROBUST_SORT(S)                                                     \
+  if constexpr (S <= D_PAD) {                                             \
+    if (d < S)                                                            \
+      return sort_window<S, kMedian>(own, t, nrow, d, P, c, b_frac, b_abs); \
+  }
+  ROBUST_INSERT(1)
+  ROBUST_INSERT(2)
+  ROBUST_SORT(4)
+  ROBUST_INSERT(4)
+  ROBUST_SORT(8)
+  ROBUST_INSERT(8)
+  ROBUST_SORT(16)
+  ROBUST_INSERT(16)
+  ROBUST_SORT(32)
+  ROBUST_INSERT(32)
+  ROBUST_SORT(64)
+  ROBUST_INSERT(64)
+#undef ROBUST_INSERT
+#undef ROBUST_SORT
+  return own;                          // d > D_PAD: not reached
+}
 
 template <int D_PAD, bool kMedian>
 __global__ void robust_gossip_kernel(const float* __restrict__ x,
@@ -124,58 +299,16 @@ __global__ void robust_gossip_kernel(const float* __restrict__ x,
                                      float* __restrict__ y, int P,
                                      int nbr_stride, float b_frac,
                                      int b_abs) {
-  constexpr int N = D_PAD + 1;
   const int i = blockIdx.y;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= P) return;
   const int64_t at = (int64_t)i * P + c;
-  const int d = min(deg[i], nbr_stride);
+  const int d = min(deg[i], nbr_stride);   // block-uniform
   const float own = x[at];
-  if (d <= 0) {
-    y[at] = own;
-    return;
-  }
-  float v[N];
-  v[0] = own;
-#pragma unroll
-  for (int k = 0; k < D_PAD; ++k) {
-    v[k + 1] = k < d ? t[(int64_t)nbr[(int64_t)i * nbr_stride + k] * P + c]
-                     : INFINITY;
-  }
-  // odd-even transposition sort: N passes, pass p compare-exchanging the
-  // pairs (r, r + 1) with r = p mod 2, p mod 2 + 2, ...
-#pragma unroll
-  for (int p = 0; p < N; ++p) {
-#pragma unroll
-    for (int r = p & 1; r + 1 < N; r += 2) {
-      const float lo = fminf(v[r], v[r + 1]);
-      const float hi = fmaxf(v[r], v[r + 1]);
-      v[r] = lo;
-      v[r + 1] = hi;
-    }
-  }
-  const int cnt = d + 1;
-  float out;
-  if (kMedian) {
-    const int lo = (cnt - 1) / 2, hi = cnt / 2;
-    float vlo = 0.f, vhi = 0.f;
-#pragma unroll
-    for (int p = 0; p < N; ++p) {
-      if (p == lo) vlo = v[p];
-      if (p == hi) vhi = v[p];
-    }
-    out = __fmul_rn(0.5f, __fadd_rn(vlo, vhi));
-  } else {
-    int bi = b_abs >= 0 ? b_abs : (int)floorf(__fmul_rn(b_frac, (float)cnt));
-    bi = min(bi, (cnt - 1) / 2);
-    float acc = 0.f;
-#pragma unroll
-    for (int p = 0; p < N; ++p) {
-      if (p >= bi && p < cnt - bi) acc = __fadd_rn(acc, v[p]);
-    }
-    out = __fdiv_rn(acc, (float)(cnt - 2 * bi));
-  }
-  y[at] = out;
+  y[at] = d <= 0 ? own
+                 : robust_window<D_PAD, kMedian>(
+                       own, t, nbr + (int64_t)i * nbr_stride, d, P, c,
+                       b_frac, b_abs);
 }
 
 // ---------------------------------------------------------------------------

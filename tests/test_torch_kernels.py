@@ -251,13 +251,15 @@ def test_cuda_codec_kernels_bit_equal_to_plain_versions(w, p):
 @pytest.mark.parametrize("p", [1, 999, 1023, 1024, 1025, 6921, 6922,
                                100000])
 def test_cuda_quantize_block_edges(w, p):
-    """quantize_block against its plain version on the card at one and
-    two workers, across the tile layout's edges (P below, at and one past
-    a 1,024-column row; odd P, whose second row starts on 4 bytes; 13
-    tiles, the last ragged), on random rows, all-zero rows (scale 1e-30,
-    zero codes), rows with one nonzero value (its code -127), random rows
-    with an all-zero first tile and a one-value last tile, and random
-    rows that start 4 bytes into their storage (no 16- or 8-byte
+    """quantize_block and dequantize_block against their plain versions
+    on the card at one and two workers, across the tile layout's edges (P
+    below, at and one past a 1,024-column row; odd P, whose second row
+    of x and of y starts on 4 bytes; 13 tiles, the last ragged), on
+    random rows, all-zero rows (scale 1e-30, zero codes), rows with one
+    nonzero value (its code -127), random rows with an all-zero first
+    tile and a one-value last tile, and random rows that start 4 bytes
+    into their storage (no 16- or 8-byte loads); each q decoded as it
+    came and from a copy whose rows start at an odd byte (no vector
     loads)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
@@ -272,14 +274,22 @@ def test_cuda_quantize_block_edges(w, p):
         mixed[:, (n_tiles - 1) * tile_len:] = 0.0
         mixed[:, -1] = 4.0
     shifted = torch.randn(w * p + 1, generator=gen, device="cuda")[1:]
-    before = ops.LAUNCHES["quantize_block"]
+    before = dict(ops.LAUNCHES)
     for x in (rand, torch.zeros(w, p, device="cuda"), one, mixed,
               shifted.view(w, p)):
         q, scales = ops.quantize_block(x)
         q_ref, s_ref = ref.quantize_block_ref(x)
         assert torch.equal(q, q_ref) and torch.equal(scales, s_ref)
+        q_odd = torch.empty(q.numel() + 1, dtype=torch.int8,
+                            device="cuda")[1:].view(q.shape)
+        q_odd.copy_(q)
+        want = ref.dequantize_block_ref(q, scales, p)
+        for codes in (q, q_odd):
+            assert torch.equal(ops.dequantize_block(codes, scales, p), want)
     assert bool((q_ref[:, p:] == 0).all())
-    assert ops.LAUNCHES["quantize_block"] == before + 5
+    assert ops.LAUNCHES["quantize_block"] == before["quantize_block"] + 5
+    assert ops.LAUNCHES["dequantize_block"] == \
+        before["dequantize_block"] + 10
 
 
 def _edge_case_graph(w: int, spec: str, seed: int):
@@ -327,6 +337,22 @@ def test_cuda_gossip_edges_bit_equal_to_plain_version(w, spec):
     assert ops.LAUNCHES["gossip_edges"] == before + 5
 
 
+def _degree_table(w: int, d_table: int, spec: str, seed: int):
+    """A neighbour table [w, d_table] of distinct random neighbours by
+    degree: ``"steps"`` gives worker i degree i mod (d_table + 1), every
+    window size from 1 to d_table + 1 in one table; ``"deg3"`` gives
+    every worker degree 3. Worker 3 has degree 0."""
+    rng = np.random.default_rng(seed)
+    deg = (np.arange(w) % (d_table + 1) if spec == "steps"
+           else np.full(w, 3)).astype(np.int32)
+    deg[3] = 0
+    nbr = np.zeros((w, d_table), np.int32)
+    for i, d in enumerate(deg):
+        others = np.delete(np.arange(w, dtype=np.int32), i)
+        nbr[i, :d] = rng.choice(others, d, replace=False)
+    return nbr, deg
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d_table,spec,w", [(1, "ring", 30), (2, "ring", 30),
                                             (2, "ring", 2048),
@@ -344,7 +370,14 @@ def test_cuda_gossip_edges_bit_equal_to_plain_version(w, spec):
                                             (511, "full", 300),
                                             (1023, "full", 700),
                                             (1024, "full", 700),
-                                            (1100, "full", 1050)])
+                                            (1100, "full", 1050),
+                                            (2, "steps", 30),
+                                            (4, "steps", 30),
+                                            (8, "steps", 30),
+                                            (16, "steps", 30),
+                                            (32, "steps", 40),
+                                            (64, "steps", 70),
+                                            (64, "deg3", 70)])
 def test_cuda_robust_gossip_bit_equal_to_plain_version(d_table, spec, w):
     """robust_gossip against its plain version on the card: trimmed with
     an integer and a fractional b, and the median, at D_PAD 1, 2, 32 and
@@ -352,17 +385,24 @@ def test_cuda_robust_gossip_bit_equal_to_plain_version(d_table, spec, w):
     block's own window of 2 to 1,024 slots) and D 1,024 and 1,100 (the
     shared instance), with degree-0 rows and sign-flipped rows in t. A
     table wider than the neighbourhoods (padding slots past deg) picks a
-    wider instance and gives the same result."""
+    wider instance and gives the same result. The ``steps`` tables give
+    the register instances every window size up to D_PAD + 1 in one
+    launch (each side of every size class's edge: a window of 2, 3, 4,
+    5, 8, 9, 16, 17, 32, 33, 64 and 65 values), ``deg3`` narrow windows
+    in a table 64 wide."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     from repro_torch.core import robust
-    adj, *_ = _edge_case_graph(w, spec, seed=w)
-    if d_table == 1:                    # a matching: every degree <= 1
-        adj = np.zeros((w, w), np.int8)
-        for i in range(0, w - 1, 2):
-            adj[i, i + 1] = adj[i + 1, i] = 1
-        adj[3, :] = adj[:, 3] = 0
-    nbr, deg = robust.neighbor_table(adj)
+    if spec in ("steps", "deg3"):
+        nbr, deg = _degree_table(w, d_table, spec, seed=w)
+    else:
+        adj, *_ = _edge_case_graph(w, spec, seed=w)
+        if d_table == 1:                # a matching: every degree <= 1
+            adj = np.zeros((w, w), np.int8)
+            for i in range(0, w - 1, 2):
+                adj[i, i + 1] = adj[i + 1, i] = 1
+            adj[3, :] = adj[:, 3] = 0
+        nbr, deg = robust.neighbor_table(adj)
     assert nbr.shape[1] <= d_table
     nbr = np.pad(nbr, ((0, 0), (0, d_table - nbr.shape[1])))
     nbr, deg = torch.from_numpy(nbr).cuda(), torch.from_numpy(deg).cuda()

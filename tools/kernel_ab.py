@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
-"""Time the port's ``gossip_mix``, ``flash_attention``, ``robust_gossip``
-and ``quantize_block`` kernels against another version of their CUDA
-sources, on one card, in turns.
+"""Time the port's ``gossip_mix``, ``flash_attention``, ``robust_gossip``,
+``quantize_block`` and ``dequantize_block`` kernels against another
+version of their CUDA sources, on one card, in turns.
 
     python3 tools/kernel_ab.py --base DIR [--out FILE] \
-        [--kernels mix flash robust quant]
+        [--kernels mix flash robust quant dequant]
 
 ``DIR`` holds the other version's sources of the kernels named by
 ``--kernels`` (``gossip_mix.cu``, ``flash_attention.cu``,
-``robust_gossip.cu``, ``quantize_block.cu``; for example written there
-from a git revision with ``git show
+``robust_gossip.cu``, ``quantize_block.cu`` for both codec kernels;
+for example written there from a git revision with ``git show
 REV:src/repro_torch/kernels/csrc/gossip_mix.cu``; 3c12770 or later: a
 launcher whose argument list changed since exports ``<launcher>_abi()``,
 and one without it is taken to have 3c12770's). Both versions are
@@ -17,18 +17,19 @@ built with the port's nvcc flags into libraries of their own and called
 on the same inputs, at every case of ``chip_smoke.py``'s phase 2 for
 those kernels (``robust_gossip``: every table of ``ROBUST_CASES`` and
 mode of ``ROBUST_MODES``, each on the instance each version dispatches
-to; ``quantize_block``: ``CODEC_CASES``), and for ``flash_attention``
-also at Sk = 16, 32, 48, 64 and 65 for each head width; a flash case
-whose keys fit the short kernel (64) is timed with each instance
-forced, so the dispatch limits (``ops.FLASH_SHORT_MAX_KEYS``) can be
-set where the two cross.
+to; ``quantize_block`` and ``dequantize_block``: ``CODEC_CASES``, and
+``dequantize_block`` also on one element, the launch floor), and for
+``flash_attention`` also at Sk = 16, 32, 48, 64 and 65 for each head
+width; a flash case whose keys fit the short kernel (64) is timed with
+each instance forced, so the dispatch limits
+(``ops.FLASH_SHORT_MAX_KEYS``) can be set where the two cross.
 Each version's output is held to the plain version (bit-equal for
-``gossip_mix``, ``robust_gossip`` and ``quantize_block``, 2e-5 for
+``gossip_mix``, ``robust_gossip`` and the codec kernels, 2e-5 for
 ``flash_attention``), then each case is timed base, this checkout, this
 checkout, base (``chip_smoke.time_ms``: CUDA events around back-to-back
 launches). One line per case, and all of them as JSON in ``FILE``
 (default ``build/kernel_ab.json``). ``--kernels`` names the kernels to
-time (default all four). Needs a CUDA device and ``nvcc``.
+time (default all five). Needs a CUDA device and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 
 # --kernels name -> its source in csrc/
 SOURCES = {"mix": "gossip_mix.cu", "flash": "flash_attention.cu",
-           "robust": "robust_gossip.cu", "quant": "quantize_block.cu"}
+           "robust": "robust_gossip.cu", "quant": "quantize_block.cu",
+           "dequant": "quantize_block.cu"}
 # the keys the short kernel has room for (kShortMaxKeys in
 # flash_attention.cu); the dispatch limits below it are ops'
 SHORT_CAPACITY = 64
@@ -81,7 +83,7 @@ def build(src_dir: Path, name: str, kernels: list[str]) -> ctypes.CDLL:
     work = REPO / "build" / "kernel_ab" / name
     work.mkdir(parents=True, exist_ok=True)
     nvcc = ops._nvcc()
-    sources = [SOURCES[k] for k in kernels]
+    sources = sorted({SOURCES[k] for k in kernels})
     objs = [work / f"{Path(s).stem}.o" for s in sources]
     ops._run_all([[nvcc, *ops.NVCC_FLAGS, "-c", "-o", str(o),
                    str(src_dir / s)] for s, o in zip(sources, objs)])
@@ -110,6 +112,10 @@ def build(src_dir: Path, name: str, kernels: list[str]) -> ctypes.CDLL:
             [ctypes.c_int] * (5 if lib.quant_abi == 1 else 6) + \
             [ctypes.c_void_p]
         lib.quantize_block_f32.restype = ctypes.c_int
+    if "dequant" in kernels:
+        lib.dequantize_block_f32.argtypes = [ctypes.c_void_p] * 3 + \
+            [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.dequantize_block_f32.restype = ctypes.c_int
     return lib
 
 
@@ -201,6 +207,21 @@ def quant_call(lib, x):
     return call
 
 
+def dequant_call(lib, q, scales, p: int, y):
+    """One launch of ``lib``'s dequantize into ``y`` (both versions write
+    the same tensor: at these sizes where a buffer lies moves a launch by
+    as much as the versions differ)."""
+    w, row_len = q.shape
+    _, tile_len, n_tiles = ref.wire_tiles(p)
+
+    def call():
+        _check(lib.dequantize_block_f32(
+            q.data_ptr(), scales.data_ptr(), y.data_ptr(), w, p, row_len,
+            tile_len, n_tiles, _stream()), "dequantize_block")
+        return y
+    return call
+
+
 def in_turns(calls: dict, cycles_per_ms: float, **kw) -> dict:
     """base, new, new, base: each version's two times."""
     times = {"base": [], "new": []}
@@ -287,8 +308,9 @@ def run_flash(libs: dict, cycles_per_ms: float) -> list[dict]:
 def run_robust(libs: dict, cycles_per_ms: float) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
-    for case, w, spec, cut, zeroed, p in cs.ROBUST_CASES:
-        nbr, deg, kind, exchanges = cs.robust_table(w, spec, cut, zeroed)
+    for case, w, spec, cut, zeroed, p, width in cs.ROBUST_CASES:
+        nbr, deg, kind, exchanges = cs.robust_table(w, spec, cut, zeroed,
+                                                    width)
         x = torch.randn(w, p, generator=gen, device="cuda")
         t = cs._lying(x)
         bound_ms, _, _ = cs.robust_bound(w, p, nbr.shape[1], exchanges)
@@ -337,6 +359,30 @@ def run_quant(libs: dict, cycles_per_ms: float) -> list[dict]:
     return rows
 
 
+def run_dequant(libs: dict, cycles_per_ms: float) -> list[dict]:
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for case, w, p in (*cs.CODEC_CASES, ("floor", 1, 1)):
+        x = 0.3 * torch.randn(w, p, generator=gen, device="cuda")
+        q, scales = ref.quantize_block_ref(x)
+        want = ref.dequantize_block_ref(q, scales, p)
+        y = torch.empty_like(want)
+        calls = {which: dequant_call(lib, q, scales, p, y)
+                 for which, lib in libs.items()}
+        for which, call in calls.items():
+            got = call()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"dequantize_block[{case}] of {which} "
+                                     "differs from its plain version")
+        times = in_turns(calls, cycles_per_ms, batch=10)
+        n_tiles = scales.shape[1]
+        bound_ms, _ = cs._bound(w * p + 4 * w * n_tiles + 4 * w * p, w * p)
+        rows.append(_summary("dequantize_block", case, times, bound_ms, W=w,
+                             P=p))
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--base", type=Path, required=True)
@@ -354,7 +400,7 @@ def main() -> int:
             "new": build(ops.CSRC, "new", args.kernels)}
     cycles_per_ms = cs._sleep_cycles_per_ms()
     runs = {"mix": run_mix, "flash": run_flash, "robust": run_robust,
-            "quant": run_quant}
+            "quant": run_quant, "dequant": run_dequant}
     rows = []
     for kernel in args.kernels:
         rows += runs[kernel](libs, cycles_per_ms)
