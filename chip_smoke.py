@@ -17,10 +17,12 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    (the MLP path's round, a fleet of 100 whose K spans two staged
    chunks, AD-PSGD's pair and the registry path's 8 x 45,228,480
    round), the wire codecs' ``quantize_block``, ``dequantize_block`` and
-   ``sparsify_block`` (a top-k gate per row, and rand-k's shared row),
-   the edge-list ``gossip_edges`` (W = 30 full graph and ring, the
+   ``sparsify_block`` (a top-k gate per row, and rand-k's shared row;
+   each line names its cluster size), the edge-list ``gossip_edges``
+   (``EDGES_CASES``: W = 30 full graph and ring, odd P, offset views,
+   both sides of the staged instance's limit, a W = 300 star, the
    W = 2,048 ring and a W = 2,048 ``ba:2`` graph, honest and over a
-   lying wire), the Byzantine-robust ``robust_gossip`` (trimmed and
+   lying wire; each line names its instance), the Byzantine-robust ``robust_gossip`` (trimmed and
    median, W = 30 full graph, a W = 30 ``erdos:0.3`` graph of mixed
    degrees in a table 32 wide and the W = 2,048 ring in the register
    instances, full graphs of 66, 130 and 300 workers and a W = 1,000
@@ -47,7 +49,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    attacked baseline dense and sparse, trimmed:6 dense and sparse, the
    median under a norm-blown attack and AD-PSGD screening; FedHP on
    70 workers over a complete base with trimmed:2 (degree 69: the
-   robust kernel's wide instance, its launches asserted); and the
+   robust kernel's wide instance, its launches asserted; gossip_edges'
+   staged instance asserted at W = 30, its gather one at W = 2,048); and the
    registry path: a dense LM at smollm-360m's widths (d 960, 15 / 5
    heads of 64, d_ff 2,560; 4 layers, a vocabulary of 6,144) with
    ``use_flash_kernel=True``, FedHP and D-PSGD at W = 8 through
@@ -411,12 +414,20 @@ CODEC_CASES = (("main", 30, 6922), ("adpsgd", 2, 6922),
                ("odd", 30, 6921), ("single", 1, 6922))
 
 
+def sparsify_bytes(w: int, p: int, gate_rows: int) -> int:
+    """sparsify_block's traffic: x, the gate (a row per worker, or one
+    shared row) and the thresholds read once, y and the counts written
+    once."""
+    n_tiles = ref.wire_tiles(p)[2]
+    return 8 * w * p + 4 * gate_rows * p + 4 * w + 4 * w * n_tiles
+
+
 def check_codecs(cycles_per_ms: float) -> list[dict]:
     """quantize_block, dequantize_block and sparsify_block at the main
     path's [30, 6922] (one tile per worker), AD-PSGD's pair [2, 6922],
     [30, 100000] (13 tiles, the last ragged), [30, 1000], an odd P whose
     rows start on 4 bytes only ([30, 6921]) and one worker ([1, 6922]).
-    Each quantize line names its cluster size."""
+    Each quantize and sparsify line names its cluster size."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {name: dict(max_abs_err=0.0) for name in
            ("quantize_block", "dequantize_block", "sparsify_block")}
@@ -494,17 +505,17 @@ def check_codecs(cycles_per_ms: float) -> list[dict]:
             def library(gate=gate, thresh=thresh):
                 # the select alone, without the per-tile counts
                 return torch.where(gate >= thresh[:, None], x, 0.0)
-            # x, the gate (a row per worker, or one shared row) and the
-            # thresholds read once, y and the counts written once; a
-            # compare and a count per element
+            # a compare and a count per element
             main = record("sparsify_block", f"{case}-{gate_name}", err,
                           lambda gate=gate, thresh=thresh:
                           ops.sparsify_block(x, gate, thresh),
                           lambda gate=gate, thresh=thresh:
                           ref.sparsify_block_ref(x, gate, thresh),
-                          library,
-                          8 * w * p + 4 * gate.numel() + 4 * w
-                          + 4 * w * n_tiles, 2 * w * p, k=k, **shape)
+                          library, sparsify_bytes(w, p, gate.shape[0]),
+                          2 * w * p, k=k,
+                          cluster=ops.sparsify_cluster(
+                              w, n_tiles, tile_len, ops.sm_count(x.device)),
+                          **shape)
             if case == "main" and gate_name == "topk":
                 out["sparsify_block"].update(main)
     src = "src/repro_torch/kernels/csrc/"
@@ -540,11 +551,16 @@ def launch_floor(cycles_per_ms: float) -> float:
 # ---------------------------------------------------------------------------
 
 def _graph(w: int, spec: str, cut=(), pad: int = 0):
-    """A ``spec`` graph on ``w`` workers with the workers in ``cut``
+    """A ``spec`` graph on ``w`` workers (a base-topology spec, or
+    ``star``: worker 0 joined to every other) with the workers in ``cut``
     isolated, its CSR edge list on the card (uniform weights; ``pad``
     zero-weight self-loops at vertex 0 appended first, as the reference
     pads) and its adjacency."""
-    adj = topo.make_base_topology(w, spec, 5)
+    if spec == "star":
+        adj = np.zeros((w, w), np.int8)
+        adj[0, 1:] = adj[1:, 0] = 1
+    else:
+        adj = topo.make_base_topology(w, spec, 5)
     for i in cut:
         adj[i, :] = adj[:, i] = 0
     e = topo.edges_from_adj(adj)
@@ -563,28 +579,66 @@ def _lying(x: torch.Tensor) -> torch.Tensor:
     return torch.where(rows % 5 == 0, -x, x)
 
 
+# (case, W, base, cut workers, padding edges, P, offset): the W = 30
+# full graph (870 directed edges) and a ring with padding edges and an
+# isolated worker, the staged instance's limit (ops.EDGES_STAGED_MAX_ROWS
+# workers) and one worker past it on a ``ba:2`` graph, an odd P (rows
+# start on 4 bytes), x whose storage starts 4 bytes before its rows
+# (offset 1; the lying wire's t 8 bytes), a W = 300 star (in-degree 299
+# at the hub), the W = 2,048 ring (4,096 edges) and a W = 2,048 ``ba:2``
+# graph (hubs of in-degree up to 149)
+EDGES_CASES = (("full30", 30, "full", (), 0, PAPER_MLP_P, 0),
+               ("ring30-pad", 30, "ring", (3,), 8, PAPER_MLP_P, 0),
+               ("staged-limit", ops.EDGES_STAGED_MAX_ROWS, "ba:2", (), 0,
+                PAPER_MLP_P, 0),
+               ("staged-limit+1", ops.EDGES_STAGED_MAX_ROWS + 1, "ba:2", (),
+                0, PAPER_MLP_P, 0),
+               ("odd30", 30, "full", (), 0, PAPER_MLP_P - 1, 0),
+               ("offset30", 30, "full", (), 0, PAPER_MLP_P, 1),
+               ("star300", 300, "star", (), 0, PAPER_MLP_P, 0),
+               ("ring2048", 2048, "ring", (), 0, PAPER_MLP_P, 0),
+               ("ba2048", 2048, "ba:2", (), 0, PAPER_MLP_P, 0))
+
+
+def edges_inputs(gen, w: int, spec: str, cut, pad: int, p: int,
+                 offset: int):
+    """An EDGES_CASES case on the card -> (csr, x, the lying wire's t):
+    x [W, P] random, t with every fifth row sign-flipped; with an offset,
+    x starts ``offset`` floats into its storage and t twice as far, so
+    the two differ in alignment."""
+    _, csr = _graph(w, spec, cut, pad)
+    if not offset:
+        x = torch.randn(w, p, generator=gen, device="cuda")
+        return csr, x, _lying(x)
+    x = torch.randn(w * p + offset, generator=gen,
+                    device="cuda")[offset:].view(w, p)
+    t = torch.empty(w * p + 2 * offset, device="cuda")[2 * offset:]
+    return csr, x, t.view(w, p).copy_(_lying(x))
+
+
+def edges_bound(w: int, p: int, n_edges: int, t_is_x: bool) -> tuple:
+    """(bound ms, what binds, bytes): x read once (t too when it is not
+    x), the CSR arrays read once, y written once; a subtract, multiply
+    and add per edge and column."""
+    nbytes = ((2 * w + (0 if t_is_x else w)) * p + (w + 1)
+              + 2 * n_edges) * 4
+    return (*_bound(nbytes, 3 * n_edges * p), nbytes)
+
+
 def check_gossip_edges(cycles_per_ms: float) -> dict:
-    """gossip_edges at P = 6,922: the W = 30 full graph (870 directed
-    edges), a W = 30 ring with padding edges and an isolated worker, the
-    W = 2,048 ring (4,096 edges) and a W = 2,048 ``ba:2`` graph (hubs of
-    high in-degree), each honest (t = x) and over a lying wire."""
+    """gossip_edges on each of EDGES_CASES, honest (t = x) and over a
+    lying wire; each line names the instance that ran."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    p = PAPER_MLP_P
-    cases = [("full30", 30, "full", (), 0), ("ring30-pad", 30, "ring", (3,),
-                                             8),
-             ("ring2048", 2048, "ring", (), 0),
-             ("ba2048", 2048, "ba:2", (), 0)]
     worst, main = 0.0, None
-    for case, w, spec, cut, pad in cases:
-        _, csr = _graph(w, spec, cut, pad)
+    for case, w, spec, cut, pad, p, offset in EDGES_CASES:
+        csr, x, lying = edges_inputs(gen, w, spec, cut, pad, p, offset)
         row_ptr, col, wts = csr
         n_edges = int(row_ptr[-1])
         max_in = int((row_ptr[1:] - row_ptr[:-1]).max())
-        x = torch.randn(w, p, generator=gen, device="cuda")
         lib_a = torch.sparse_csr_tensor(row_ptr.long(), col[:n_edges].long(),
                                         wts[:n_edges], size=(w, w))
         ones = torch.ones(w, 1, device="cuda")
-        for wire, t in (("honest", x), ("lying", _lying(x))):
+        for wire, t in (("honest", x), ("lying", lying)):
             name = f"{case}-{wire}"
             y = ops.gossip_edges(x, t, *csr)
             err = _require_equal("gossip_edges", name,
@@ -604,24 +658,24 @@ def check_gossip_edges(cycles_per_ms: float) -> dict:
             kernel_ms = time_ms(lambda t=t: ops.gossip_edges(x, t, *csr),
                                 cycles_per_ms, batch=10)
             plain_ms = time_ms(lambda t=t: ref.gossip_edges_ref(x, t, *csr),
-                               cycles_per_ms, batch=2)
+                               cycles_per_ms, batch=2,
+                               reps=10 if max_in > 100 else 50)
             library_ms = time_ms(library, cycles_per_ms, batch=10)
-            # x read once (t too when it is not x), the CSR arrays read
-            # once, y written once; a subtract, multiply and add per edge
-            # and column
-            t_rows = 0 if t is x else w
-            nbytes = ((2 * w + t_rows) * p + (w + 1) + 2 * n_edges) * 4
-            bound_ms, bound_by = _bound(nbytes, 3 * n_edges * p)
-            log("phase2", kernel="gossip_edges", case=name, W=w, P=p,
-                E=n_edges, max_in_degree=max_in, bit_equal=True,
+            bound_ms, bound_by, nbytes = edges_bound(w, p, n_edges, t is x)
+            log("phase2", kernel="gossip_edges", case=name,
+                instance=ops.edges_instance(w), W=w, P=p, E=n_edges,
+                max_in_degree=max_in, offset=offset, bit_equal=True,
                 max_abs_err=err, sparse_mm_max_abs_diff=lib_err,
                 ms=f"{kernel_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
                 sparse_mm_ms=f"{library_ms:.6f}", bound_ms=f"{bound_ms:.6f}",
-                bound_by=bound_by, bound_mb=f"{nbytes / 1e6:.6f}")
+                bound_by=bound_by, bound_mb=f"{nbytes / 1e6:.6f}",
+                share_of_bound=f"{bound_ms / kernel_ms:.4f}")
             if name == "full30-honest":
                 main = dict(ms=kernel_ms, plain_ms=plain_ms,
                             library_ms=library_ms, bound_ms=bound_ms,
                             bound_by=bound_by)
+        del x, lying, t, y, lib_a
+        torch.cuda.empty_cache()
     return dict(name="gossip_edges", route="cuda",
                 source="src/repro_torch/kernels/csrc/gossip_edges.cu",
                 replaces="src/repro/kernels/gossip_edges.py:66",
@@ -1010,10 +1064,17 @@ def _check_run(name: str, algo: str, cfg: FedHPConfig, rounds: int, hist,
         raise AssertionError(f"{name}: launched {counts}, the path must "
                              f"launch {expected}")
     inst = ops.INSTANCE_LAUNCHES
-    if sum(v for k, v in inst.items() if k.startswith("robust_gossip:")) \
-            != counts["robust_gossip"]:
-        raise AssertionError(f"{name}: robust_gossip instances {inst} do "
-                             f"not add up to {counts['robust_gossip']}")
+    for kernel in ("robust_gossip", "gossip_edges"):
+        if sum(v for k, v in inst.items() if k.startswith(f"{kernel}:")) \
+                != counts[kernel]:
+            raise AssertionError(f"{name}: {kernel} instances {inst} do "
+                                 f"not add up to {counts[kernel]}")
+    # every sparse round of a fleet runs one gossip_edges instance: the
+    # staged one at W = 30, the gather one on the W = 2,048 ring
+    want = f"gossip_edges:{ops.edges_instance(cfg.num_workers)}"
+    if inst[want] != counts["gossip_edges"]:
+        raise AssertionError(f"{name}: gossip_edges launched {inst}, all "
+                             f"{counts['gossip_edges']} must be {want}")
     # a round whose plan has a worker of degree past 64 (round 0 of a
     # complete base of 70) takes the wide instance, registers and shuffles
     if cfg.num_workers - 1 > ops.ROBUST_REGISTER_MAX_DEGREE and \
@@ -1060,10 +1121,12 @@ def run_main_path() -> dict[str, int]:
         arr = hist.as_arrays()
         extra = ({} if hist.screen_rejects is None
                  else dict(screen_rejects=hist.screen_rejects))
-        if counts["robust_gossip"]:
-            extra["robust_instances"] = {
-                k.split(":")[1]: v for k, v in ops.INSTANCE_LAUNCHES.items()
-                if k.startswith("robust_gossip")}
+        for kernel, key in (("robust_gossip", "robust_instances"),
+                            ("gossip_edges", "edges_instances")):
+            if counts[kernel]:
+                extra[key] = {k.split(":")[1]: v
+                              for k, v in ops.INSTANCE_LAUNCHES.items()
+                              if k.startswith(f"{kernel}:")}
         log("phase3", path=name, rounds=rounds,
             comm_rounds=int((arr["num_links"] > 0).sum()),
             launches={k: v for k, v in counts.items() if v},

@@ -37,9 +37,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"gossip_mix": 0, "quantize_block": 0, "dequantize_block": 0,
             "sparsify_block": 0, "gossip_edges": 0, "robust_gossip": 0,
             "flash_attention": 0, "consensus_dist": 0}
-# robust_gossip's launches by instance (each also counts in LAUNCHES)
+# robust_gossip's and gossip_edges' launches by instance (each also
+# counts in LAUNCHES)
 INSTANCE_LAUNCHES = {"robust_gossip:register": 0, "robust_gossip:wide": 0,
-                     "robust_gossip:shared": 0}
+                     "robust_gossip:shared": 0, "gossip_edges:staged": 0,
+                     "gossip_edges:gather": 0}
 
 # gossip_mix stages u and w in chunks of 64 neighbours, so K is not
 # bounded by shared memory; it keeps the limit of its first version, which
@@ -62,6 +64,14 @@ ROBUST_SHARED_MAX_DEGREE = 32767
 # while the fleet's tiles leave the card's SMs idle (ops.quantize_cluster)
 QUANT_MAX_CLUSTER = 8
 QUANT_MIN_SPAN = 512
+# gossip_edges' two instances: the staged one (each block holds a column
+# tile of all W rows in shared memory) for fleets up to this many
+# workers, the gather one past it; set where the two crossed on sparse
+# graphs on an H100 at 700 W (tools/kernel_ab.py's EDGES_SWEEP against
+# the first design, three rounds in one call: ba:2 staged 1.04-1.06x,
+# gather 0.97-0.99x at W = 32; 1.00-1.02x and 1.05-1.06x at 48, ring
+# 0.98-1.00x and 1.12x at 48)
+EDGES_STAGED_MAX_ROWS = 32
 # consensus_dist's first pass: columns per block (256 threads, 8 each)
 CONSENSUS_BLOCK_COLS = 2048
 # flash_attention's two instances: the short-sequence kernel takes Sk up
@@ -146,9 +156,9 @@ def _library() -> ctypes.CDLL:
             [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.sparsify_block_f32.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64] + \
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.gossip_edges_f32.argtypes = [ctypes.c_void_p] * 6 + \
-            [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.robust_gossip_f32.argtypes = [ctypes.c_void_p] * 5 + \
             [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
                                   ctypes.c_void_p]
@@ -318,7 +328,8 @@ def sparsify_block(x: torch.Tensor, gate: torch.Tensor,
     shared row [1, P], thresh [W], all f32 -> (y [W, P] keeping x where
     gate >= thresh of its row, nnz int32 [W, n_tiles] survivors per
     tile). CPU tensors run ``ref.sparsify_block_ref``; CUDA tensors
-    launch the kernel."""
+    launch the kernel, each tile over a cluster of ``sparsify_cluster``
+    blocks."""
     if x.dim() != 2 or gate.dim() != 2 or \
             gate.shape[0] not in (1, x.shape[0]) or \
             gate.shape[1] != x.shape[1] or \
@@ -335,10 +346,22 @@ def sparsify_block(x: torch.Tensor, gate: torch.Tensor,
     y = torch.empty_like(x)
     nnz = torch.empty(w, n_tiles, dtype=torch.int32, device=x.device)
     gate_stride = p if gate.shape[0] > 1 else 0
+    cluster = sparsify_cluster(w, n_tiles, tile_len, sm_count(x.device))
     _launch("sparsify_block", _library().sparsify_block_f32, x.device,
             x.data_ptr(), gate.data_ptr(), gate_stride, thresh.data_ptr(),
-            y.data_ptr(), nnz.data_ptr(), w, p, tile_len, n_tiles)
+            y.data_ptr(), nnz.data_ptr(), w, p, tile_len, n_tiles, cluster)
     return y, nnz
+
+
+def sparsify_cluster(w: int, n_tiles: int, tile_len: int, sms: int) -> int:
+    """The blocks (a thread-block cluster) ``sparsify_block`` spreads
+    each of a fleet's W · n_tiles tiles over: ``quantize_cluster``'s
+    rule at half its blocks an SM (a block of a cluster has 1,024
+    threads, so the launch stays within one block an SM). 4 at the main
+    path's [30, 6922], 8 at AD-PSGD's [2, 6922]; 1 where the tiles
+    already fill the card ([30, 100000]) or one block covers the tile
+    ([30, 1000])."""
+    return quantize_cluster(w, n_tiles, tile_len, sms // 2)
 
 
 def gossip_edges(x: torch.Tensor, t: torch.Tensor, row_ptr: torch.Tensor,
@@ -349,7 +372,8 @@ def gossip_edges(x: torch.Tensor, t: torch.Tensor, row_ptr: torch.Tensor,
     x, t: [W, P] f32 (t = x for honest gossip, the transmitted copy for
     a lying wire); row_ptr [W + 1], col [E] int32; w [E] f32
     (``core/topology.edges_to_csr``). CPU tensors run the plain version
-    (``ref.gossip_edges_ref``); CUDA tensors launch the kernel."""
+    (``ref.gossip_edges_ref``); CUDA tensors launch the instance
+    ``edges_instance`` names."""
     if x.dim() != 2 or t.shape != x.shape or row_ptr.dim() != 1 or \
             row_ptr.shape[0] != x.shape[0] + 1 or col.dim() != 1 or \
             w.shape != col.shape:
@@ -365,10 +389,22 @@ def gossip_edges(x: torch.Tensor, t: torch.Tensor, row_ptr: torch.Tensor,
     n, p = x.shape
     _check_rows("gossip_edges", n, p)
     y = torch.empty_like(x)
+    instance = edges_instance(n)
     _launch("gossip_edges", _library().gossip_edges_f32, x.device,
             x.data_ptr(), t.data_ptr(), row_ptr.data_ptr(), col.data_ptr(),
-            w.data_ptr(), y.data_ptr(), n, p)
+            w.data_ptr(), y.data_ptr(), n, p, int(instance == "staged"),
+            instance=instance)
     return y
+
+
+def edges_instance(w: int) -> str:
+    """The gossip_edges instance a launch on a fleet of ``w`` workers
+    runs: ``"staged"`` up to ``EDGES_STAGED_MAX_ROWS`` (a block holds a
+    column tile of all W rows in shared memory; every W = 30 path),
+    ``"gather"`` past it (a block gathers its row's sources from device
+    memory; the W = 2,048 ring). P does not enter: the limit was swept at
+    the main path's P. Names the launch counter in ``INSTANCE_LAUNCHES``."""
+    return "staged" if w <= EDGES_STAGED_MAX_ROWS else "gather"
 
 
 def robust_gossip(x: torch.Tensor, t: torch.Tensor, nbr: torch.Tensor,

@@ -163,6 +163,107 @@ def test_quantize_cluster(w, p, want):
     assert ops.quantize_cluster(w, n_tiles, tile_len, 132) == want
 
 
+@pytest.mark.parametrize("w,p,want", [(30, 6922, 4), (2, 6922, 8),
+                                      (1, 6922, 8), (66, 6922, 2),
+                                      (67, 6922, 1), (100, 6922, 1),
+                                      (300, 6922, 1), (30, 100000, 1),
+                                      (30, 1000, 1), (30, 6921, 4),
+                                      (1, 1, 1), (1, 1024, 2),
+                                      (1, 100000, 8)])
+def test_sparsify_cluster(w, p, want):
+    """sparsify_block's cluster on a card of 132 SMs: 4 blocks a tile at
+    the main path's [30, 6922], 8 at AD-PSGD's pair, fewer as the fleet's
+    tiles fill the card at one block an SM, 1 where they do or where one
+    block covers the tile; the launcher takes 1, 2, 4 or 8."""
+    _, tile_len, n_tiles = ref.wire_tiles(p)
+    s = ops.sparsify_cluster(w, n_tiles, tile_len, 132)
+    assert s == want
+    assert w * n_tiles * s <= 132 or s == 1
+    source = (ops.CSRC / "sparsify_block.cu").read_text()
+    assert f"constexpr int kMaxCluster = {ops.QUANT_MAX_CLUSTER};" in source
+
+
+def _staged_source_smem(w: int) -> int:
+    """The staged gossip_edges instance's shared memory at W rows in a
+    group of the most rows a block takes, from the source's constants
+    (staged_smem in the .cu: the t tile, the group's x rows, each row's
+    CSR offsets and weights)."""
+    source = (ops.CSRC / "gossip_edges.cu").read_text()
+
+    def const(name):
+        return int(source.split(f"constexpr int {name} = ")[1].split(";")[0])
+    rows = const("kStagedMaxRows")
+    return (w + rows) * const("kStagedCols") * 4 + \
+        rows * const("kWarpEdges") * 8
+
+
+@pytest.mark.parametrize("w,want", [(1, "staged"), (2, "staged"),
+                                    (30, "staged"),
+                                    (ops.EDGES_STAGED_MAX_ROWS, "staged"),
+                                    (ops.EDGES_STAGED_MAX_ROWS + 1, "gather"),
+                                    (300, "gather"), (2048, "gather"),
+                                    (65535, "gather")])
+def test_edges_instance(w, want):
+    """gossip_edges runs the staged instance on every W = 30 path and up
+    to EDGES_STAGED_MAX_ROWS workers, the gather one past it (the W =
+    2,048 ring); the limit's column tile of all W rows fits a block's
+    227 KB of shared memory."""
+    assert ops.edges_instance(w) == want
+    assert f"gossip_edges:{want}" in ops.INSTANCE_LAUNCHES
+    assert _staged_source_smem(ops.EDGES_STAGED_MAX_ROWS) <= 232448
+
+
+def test_gossip_edges_rejects_too_many_rows(monkeypatch):
+    """Past 65,535 rows a launch raises before anything is built (the
+    device checks stubbed: no card here); the plain version takes it."""
+    x = torch.zeros(65536, 2)
+    row_ptr = torch.zeros(65537, dtype=torch.int32)
+    col, w = torch.zeros(0, dtype=torch.int32), torch.zeros(0)
+    assert torch.equal(ops.gossip_edges(x, x, row_ptr, col, w), x)
+    monkeypatch.setattr(ops, "_on_cpu", lambda *a: False)
+    monkeypatch.setattr(ops, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(ops, "_library", lambda: pytest.fail("built"))
+    with pytest.raises(ValueError, match="65535"):
+        ops.gossip_edges(x, x, row_ptr, col, w)
+
+
+@pytest.mark.parametrize("w,spec,p,offset", [(30, "full", 6922, 0),
+                                             (30, "ring", 6921, 1),
+                                             (70, "ba:2", 1000, 2),
+                                             (300, "star", 100, 1)])
+def test_cpu_gossip_edges_and_sparsify_run_plain_versions(w, spec, p,
+                                                          offset):
+    """On CPU tensors the two wrappers return their plain versions' bits
+    (no kernel, no launch counted), on views that start ``offset`` floats
+    into their storage as on contiguous rows, the gate per row and
+    shared."""
+    rng = np.random.default_rng(w + p)
+    if spec == "star":
+        adj = np.zeros((w, w), np.int8)
+        adj[0, 1:] = adj[1:, 0] = 1
+    else:
+        adj = topo.make_base_topology(w, spec, 5)
+    e = topo.edges_from_adj(adj)
+    src, dst, wts = topo.directed_edges(e, topo.edge_mixing_weights(e, w))
+    csr = [torch.from_numpy(a) for a in topo.edges_to_csr(src, dst, wts, w)]
+    flat = rng.normal(size=w * p + offset).astype(np.float32)
+    x = torch.from_numpy(flat)[offset:].view(w, p)
+    t = torch.where(torch.arange(w)[:, None] % 5 == 0, -x, x)
+    before = dict(ops.LAUNCHES)
+    for src_rows in (x, t):
+        assert torch.equal(ops.gossip_edges(x, src_rows, *csr),
+                           ref.gossip_edges_ref(x, src_rows, *csr))
+    k = max(p // 10, 1)
+    for gate in (x.abs(), torch.from_numpy(rng.random((1, p),
+                                                      np.float32))):
+        thresh = torch.topk(gate, k, dim=1).values[:, -1].expand(w) \
+            .contiguous()
+        for got, want in zip(ops.sparsify_block(x, gate, thresh),
+                             ref.sparsify_block_ref(x, gate, thresh)):
+            assert torch.equal(got, want)
+    assert ops.LAUNCHES == before
+
+
 def test_failed_build_raises(tmp_path, monkeypatch):
     """No nvcc: the build raises — nothing falls back to the plain
     version."""
@@ -335,6 +436,122 @@ def test_cuda_gossip_edges_bit_equal_to_plain_version(w, spec):
                          torch.cat([wt, tail.float()]))
     assert torch.equal(y, ref.gossip_edges_ref(x, x, *csr))
     assert ops.LAUNCHES["gossip_edges"] == before + 5
+
+
+def _csr_on_card(w: int, spec: str, seed: int):
+    """A ``spec`` graph's CSR edge list on the card (``star``: worker 0
+    joined to every other), one worker cut off where W > 3."""
+    if spec == "star":
+        adj = np.zeros((w, w), np.int8)
+        adj[0, 1:] = adj[1:, 0] = 1
+    else:
+        adj = topo.make_base_topology(w, spec, seed)
+    if w > 3:
+        adj[3, :] = adj[:, 3] = 0
+    e = topo.edges_from_adj(adj)
+    src, dst, wts = topo.directed_edges(e, topo.edge_mixing_weights(e, w))
+    return [torch.from_numpy(a).cuda()
+            for a in topo.edges_to_csr(src, dst, wts, w)]
+
+
+# (W, base, P, x's offset into its storage in floats): each instance at
+# its limit and one past it (the staged one at EDGES_STAGED_MAX_ROWS on a
+# dense and a sparse graph, the gather one at 65,535 rows), both gather
+# widths (2 columns a thread below 512 rows, 4 from 512 on), odd P, views
+# off 4 and 8 bytes, a star (in-degree 299 at the hub: the gather's
+# shuffled CSR entries in ten passes of 32), a full graph of 300 at P =
+# 1,000, one of 64 past the staged limit, P = 1 and P = 3
+EDGES_CUDA_CASES = [(ops.EDGES_STAGED_MAX_ROWS, "full", 6922, 0),
+                    (ops.EDGES_STAGED_MAX_ROWS + 1, "full", 6922, 0),
+                    (ops.EDGES_STAGED_MAX_ROWS, "ba:2", 6922, 0),
+                    (ops.EDGES_STAGED_MAX_ROWS + 1, "ba:2", 6922, 0),
+                    (65535, "ring", 8, 0), (30, "full", 6921, 0),
+                    (30, "full", 6922, 1), (30, "full", 6921, 2),
+                    (2048, "ring", 6922, 1), (511, "ring", 6921, 1),
+                    (512, "ba:2", 6921, 2), (300, "star", 6922, 0),
+                    (300, "full", 1000, 0), (64, "full", 6922, 0),
+                    (30, "ring", 1, 0), (2, "full", 3, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,spec,p,offset", EDGES_CUDA_CASES)
+def test_cuda_gossip_edges_instances(w, spec, p, offset):
+    """gossip_edges against its plain version on the card, on the
+    instance ``edges_instance`` names: t = x, and t != x in storage whose
+    alignment differs from x's (one float further in), rows without edges
+    kept, entries past row_ptr[W] never read; the launches counted under
+    the instance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    csr = _csr_on_card(w, spec, seed=w)
+    gen = torch.Generator(device="cuda").manual_seed(w + p + offset)
+    x = torch.randn(w * p + offset, generator=gen,
+                    device="cuda")[offset:].view(w, p)
+    t = torch.empty(w * p + offset + 1, device="cuda")[offset + 1:] \
+        .view(w, p)
+    t.copy_(torch.where(torch.arange(w, device="cuda")[:, None] % 5 == 0,
+                        -x, x))
+    instance = f"gossip_edges:{ops.edges_instance(w)}"
+    before = ops.LAUNCHES["gossip_edges"], ops.INSTANCE_LAUNCHES[instance]
+    for src_rows in (x, t):
+        y = ops.gossip_edges(x, src_rows, *csr)
+        assert torch.equal(y, ref.gossip_edges_ref(x, src_rows, *csr))
+        if w > 3:
+            assert torch.equal(y[3], x[3])
+    row_ptr, col, wt = csr
+    tail = torch.full((5,), 1, dtype=torch.int32, device="cuda")
+    y = ops.gossip_edges(x, x, row_ptr, torch.cat([col, tail]),
+                         torch.cat([wt, tail.float()]))
+    assert torch.equal(y, ref.gossip_edges_ref(x, x, *csr))
+    assert (ops.LAUNCHES["gossip_edges"], ops.INSTANCE_LAUNCHES[instance]) \
+        == (before[0] + 3, before[1] + 3)
+
+
+# (W, P): the cluster sizes 8, 4, 2 and 1 at P = 6,922 on a card of 132
+# SMs (sparsify_cluster), AD-PSGD's pair, odd P, 13 tiles, P below one
+# wire row, P = 1
+SPARSIFY_CUDA_CASES = [(30, 6922), (66, 6922), (100, 6922), (300, 6922),
+                       (2, 6922), (30, 6921), (30, 100000), (30, 1000),
+                       (1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,p", SPARSIFY_CUDA_CASES)
+def test_cuda_sparsify_block_clusters(w, p):
+    """sparsify_block against its plain version on the card, y and nnz,
+    over the cluster size the wrapper picks: a gate per row and one
+    shared row, the k-th largest gate as the threshold and thresholds of
+    -inf (everything kept, whole tiles counted) and +inf (nothing), on
+    contiguous rows and on x and a gate whose storage starts 4 and 8
+    bytes before them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(w * p)
+    _, tile_len, n_tiles = ref.wire_tiles(p)
+    tile_sizes = torch.tensor([min(tile_len, p - t * tile_len)
+                               for t in range(n_tiles)], dtype=torch.int32,
+                              device="cuda").expand(w, -1)
+    k = max(p // 10, 1)
+    before = ops.LAUNCHES["sparsify_block"]
+    for offset in (0, 1):
+        x = torch.randn(w * p + offset, generator=gen,
+                        device="cuda")[offset:].view(w, p)
+        gates = (torch.empty(w * p + 2 * offset, device="cuda")[2 * offset:]
+                 .view(w, p).copy_(x.abs()),
+                 torch.rand(p + offset, generator=gen,
+                            device="cuda")[offset:].view(1, p))
+        for gate in gates:
+            kth = torch.topk(gate, k, dim=1).values[:, -1].expand(w)
+            for th in (kth.contiguous(),
+                       torch.full((w,), -float("inf"), device="cuda"),
+                       torch.full((w,), float("inf"), device="cuda")):
+                y, nnz = ops.sparsify_block(x, gate, th)
+                y_r, nnz_r = ref.sparsify_block_ref(x, gate, th)
+                assert torch.equal(y, y_r) and torch.equal(nnz, nnz_r)
+            assert not y.any() and not nnz.any()
+            y, nnz = ops.sparsify_block(x, gate, th.neg())
+            assert torch.equal(y, x) and torch.equal(nnz, tile_sizes)
+    assert ops.LAUNCHES["sparsify_block"] == before + 16
 
 
 def _degree_table(w: int, d_table: int, spec: str, seed: int):

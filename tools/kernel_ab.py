@@ -1,41 +1,57 @@
 #!/usr/bin/env python3
 """Time the port's ``gossip_mix``, ``flash_attention``, ``robust_gossip``,
-``quantize_block`` and ``dequantize_block`` kernels against another
-version of their CUDA sources, on one card, in turns.
+``quantize_block``, ``dequantize_block``, ``gossip_edges`` and
+``sparsify_block`` kernels against another version of their CUDA
+sources, on one card, in turns.
 
     python3 tools/kernel_ab.py --base DIR [--out FILE] \
-        [--kernels mix flash robust quant dequant]
+        [--kernels mix flash robust quant dequant edges sparsify] \
+        [--set NAME=VALUE ...] [--repeat N]
 
 ``DIR`` holds the other version's sources of the kernels named by
 ``--kernels`` (``gossip_mix.cu``, ``flash_attention.cu``,
-``robust_gossip.cu``, ``quantize_block.cu`` for both codec kernels;
-for example written there from a git revision with ``git show
+``robust_gossip.cu``, ``quantize_block.cu`` for both int8 codec
+kernels, ``gossip_edges.cu``, ``sparsify_block.cu``; for example
+written there from a git revision with ``git show
 REV:src/repro_torch/kernels/csrc/gossip_mix.cu``; 3c12770 or later: a
 launcher whose argument list changed since exports ``<launcher>_abi()``,
-and one without it is taken to have 3c12770's). Both versions are
+and one without it is taken to have 3c12770's, which b9bc4a0's
+``gossip_edges`` and ``sparsify_block`` still had). Both versions are
 built with the port's nvcc flags into libraries of their own and called
 on the same inputs, at every case of ``chip_smoke.py``'s phase 2 for
 those kernels (``robust_gossip``: every table of ``ROBUST_CASES`` and
 mode of ``ROBUST_MODES``, each on the instance each version dispatches
-to; ``quantize_block`` and ``dequantize_block``: ``CODEC_CASES``, and
-``dequantize_block`` also on one element, the launch floor), and for
-``flash_attention`` also at Sk = 16, 32, 48, 64 and 65 for each head
-width; a flash case whose keys fit the short kernel (64) is timed with
-each instance forced, so the dispatch limits
-(``ops.FLASH_SHORT_MAX_KEYS``) can be set where the two cross.
+to; ``quantize_block``, ``dequantize_block`` and ``sparsify_block``:
+``CODEC_CASES``, ``dequantize_block`` also on one element, the launch
+floor, ``sparsify_block`` with the top-k and the rand-k gate;
+``gossip_edges``: ``EDGES_CASES``, honest and over a lying wire), and
+for ``flash_attention`` also at Sk = 16, 32, 48, 64 and 65 for each
+head width; a flash case whose keys fit the short kernel (64) is timed
+with each instance forced, so the dispatch limits
+(``ops.FLASH_SHORT_MAX_KEYS``) can be set where the two cross. In the
+same way ``gossip_edges`` is timed on ``EDGES_SWEEP``'s fleets with each
+of this checkout's instances forced (``ops.EDGES_STAGED_MAX_ROWS``), and
+``sparsify_block`` at the main shape's two gates with each cluster size
+forced (``ops.sparsify_cluster``).
 Each version's output is held to the plain version (bit-equal for
-``gossip_mix``, ``robust_gossip`` and the codec kernels, 2e-5 for
-``flash_attention``), then each case is timed base, this checkout, this
-checkout, base (``chip_smoke.time_ms``: CUDA events around back-to-back
-launches). One line per case, and all of them as JSON in ``FILE``
-(default ``build/kernel_ab.json``). ``--kernels`` names the kernels to
-time (default all five). Needs a CUDA device and ``nvcc``.
+``gossip_mix``, ``robust_gossip``, ``gossip_edges`` and the codec
+kernels, 2e-5 for ``flash_attention``), then each case is timed base,
+this checkout, this checkout, base (``chip_smoke.time_ms``: CUDA events
+around back-to-back launches). One line per case, and all of them as
+JSON in ``FILE`` (default ``build/kernel_ab.json``). ``--kernels`` names
+the kernels to time (default all seven). ``--set NAME=VALUE`` (any
+number of times) builds this checkout's side with the ``constexpr``
+constant ``NAME`` of those sources set to ``VALUE``, so that a build-time
+variant is timed against the base; ``--repeat N`` times every case N
+times in the call (each row gives its ``round``). Needs a CUDA device
+and ``nvcc``.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -46,12 +62,14 @@ sys.path.insert(0, str(REPO))
 sys.path.insert(0, str(REPO / "src"))
 
 import chip_smoke as cs  # noqa: E402
+from repro_torch.core import compression  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 # --kernels name -> its source in csrc/
 SOURCES = {"mix": "gossip_mix.cu", "flash": "flash_attention.cu",
            "robust": "robust_gossip.cu", "quant": "quantize_block.cu",
-           "dequant": "quantize_block.cu"}
+           "dequant": "quantize_block.cu", "edges": "gossip_edges.cu",
+           "sparsify": "sparsify_block.cu"}
 # the keys the short kernel has room for (kShortMaxKeys in
 # flash_attention.cu); the dispatch limits below it are ops'
 SHORT_CAPACITY = 64
@@ -62,6 +80,20 @@ LIMIT_CASES = tuple(
     for hd, b, hq, hkv in ((64, 256, 15, 5), (128, 64, 32, 16),
                            (192, 32, 24, 2))
     for sk in (16, 32, 48, SHORT_CAPACITY, SHORT_CAPACITY + 1))
+
+
+# gossip_edges on fleets around the staged instance's limit, honest
+# gossip timed with each instance forced (EDGES_CASES' fields): sparse
+# (ring, ba:2) and dense (full) graphs, within the staged instance's
+# shared memory
+EDGES_SWEEP = tuple(
+    (f"{spec.split(':')[0]}{w}", w, spec, (), 0, cs.PAPER_MLP_P, 0)
+    for spec, ws in (("ring", (32, 48, 64, 128)),
+                     ("ba:2", (32, 48, 64, 128)),
+                     ("full", (32, 48, 64, 128)))
+    for w in ws)
+# sparsify_block's cluster sizes, each forced at the main shape
+SPARSIFY_CLUSTERS = (1, 2, 4, 8)
 
 
 def _both_instances(cases):
@@ -116,7 +148,47 @@ def build(src_dir: Path, name: str, kernels: list[str]) -> ctypes.CDLL:
         lib.dequantize_block_f32.argtypes = [ctypes.c_void_p] * 3 + \
             [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.dequantize_block_f32.restype = ctypes.c_int
+    if "edges" in kernels:
+        # version 2 takes the instance (1: staged) after P
+        lib.edges_abi = _abi(lib, "gossip_edges")
+        lib.gossip_edges_f32.argtypes = [ctypes.c_void_p] * 6 + \
+            [ctypes.c_int] * (2 if lib.edges_abi == 1 else 3) + \
+            [ctypes.c_void_p]
+        lib.gossip_edges_f32.restype = ctypes.c_int
+    if "sparsify" in kernels:
+        # version 2 takes the cluster size after n_tiles
+        lib.sparsify_abi = _abi(lib, "sparsify_block")
+        lib.sparsify_block_f32.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64] + \
+            [ctypes.c_void_p] * 3 + \
+            [ctypes.c_int] * (4 if lib.sparsify_abi == 1 else 5) + \
+            [ctypes.c_void_p]
+        lib.sparsify_block_f32.restype = ctypes.c_int
     return lib
+
+
+def variant_sources(settings: list[str], kernels: list[str]) -> Path:
+    """This checkout's sources of ``kernels``, each ``NAME=VALUE`` of
+    ``settings`` replacing the value of the ``constexpr`` constant
+    ``NAME``, written to ``build/kernel_ab/new_src``; raises where no
+    source has such a constant."""
+    out = REPO / "build" / "kernel_ab" / "new_src"
+    out.mkdir(parents=True, exist_ok=True)
+    texts = {src: (ops.CSRC / src).read_text()
+             for src in {SOURCES[k] for k in kernels}}
+    for setting in settings:
+        name, value = setting.split("=", 1)
+        hits = 0
+        for src, text in texts.items():
+            texts[src], n = re.subn(rf"(constexpr \w+ {name} = )[^;]*;",
+                                    rf"\g<1>{value};", text)
+            hits += n
+        if hits == 0:
+            raise ValueError(f"--set {setting}: no constexpr {name} in "
+                             f"{sorted(texts)}")
+    for src, text in texts.items():
+        (out / src).write_text(text)
+    return out
 
 
 def _abi(lib: ctypes.CDLL, launcher: str) -> int:
@@ -219,6 +291,44 @@ def dequant_call(lib, q, scales, p: int, y):
             q.data_ptr(), scales.data_ptr(), y.data_ptr(), w, p, row_len,
             tile_len, n_tiles, _stream()), "dequantize_block")
         return y
+    return call
+
+
+def edges_call(lib, x, t, csr, instance: str | None = None):
+    """One launch of ``lib``'s gossip_edges: of version 2, the instance
+    ``ops`` would pick, or ``instance``."""
+    y = torch.empty_like(x)
+    n, p = x.shape
+    inst = instance or ops.edges_instance(n)
+    staged = (int(inst == "staged"),) if lib.edges_abi == 2 else ()
+    row_ptr, col, w = csr
+
+    def call():
+        _check(lib.gossip_edges_f32(
+            x.data_ptr(), t.data_ptr(), row_ptr.data_ptr(), col.data_ptr(),
+            w.data_ptr(), y.data_ptr(), n, p, *staged, _stream()),
+            "gossip_edges")
+        return y
+    return call
+
+
+def sparsify_call(lib, x, gate, thresh, cluster: int | None = None):
+    """One launch of ``lib``'s sparsify_block: of version 2, over the
+    cluster ``ops`` would pick, or ``cluster`` blocks."""
+    w, p = x.shape
+    _, tile_len, n_tiles = ref.wire_tiles(p)
+    y = torch.empty_like(x)
+    nnz = torch.empty(w, n_tiles, dtype=torch.int32, device=x.device)
+    s = cluster or ops.sparsify_cluster(w, n_tiles, tile_len,
+                                        ops.sm_count(x.device))
+    size = (s,) if lib.sparsify_abi == 2 else ()
+
+    def call():
+        _check(lib.sparsify_block_f32(
+            x.data_ptr(), gate.data_ptr(), p if gate.shape[0] > 1 else 0,
+            thresh.data_ptr(), y.data_ptr(), nnz.data_ptr(), w, p, tile_len,
+            n_tiles, *size, _stream()), "sparsify_block")
+        return y, nnz
     return call
 
 
@@ -383,6 +493,75 @@ def run_dequant(libs: dict, cycles_per_ms: float) -> list[dict]:
     return rows
 
 
+def run_edges(libs: dict, cycles_per_ms: float) -> list[dict]:
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    cases = [(c, ("honest", "lying"), None) for c in cs.EDGES_CASES]
+    cases += [(c, ("honest",), inst) for c in EDGES_SWEEP
+              for inst in ("staged", "gather")]
+    for (case, w, spec, cut, pad, p, offset), wires, inst in cases:
+        csr, x, lying = cs.edges_inputs(gen, w, spec, cut, pad, p, offset)
+        n_edges = int(csr[0][-1])
+        max_in = int((csr[0][1:] - csr[0][:-1]).max())
+        for wire in wires:
+            t = x if wire == "honest" else lying
+            name = f"{case}-{wire}" + (f"-{inst}" if inst else "")
+            want = ref.gossip_edges_ref(x, t, *csr)
+            calls = {which: edges_call(lib, x, t, csr, inst)
+                     for which, lib in libs.items()}
+            for which, call in calls.items():
+                got = call()
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"gossip_edges[{name}] of {which} "
+                                         "differs from its plain version")
+            times = in_turns(calls, cycles_per_ms, batch=10,
+                             reps=10 if n_edges * p > 1e9 else 50)
+            bound_ms, _, _ = cs.edges_bound(w, p, n_edges, t is x)
+            rows.append(_summary("gossip_edges", name, times, bound_ms, W=w,
+                                 P=p, E=n_edges, max_in_degree=max_in,
+                                 instance=inst or ops.edges_instance(w)))
+            del want, calls
+        del x, lying, csr
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_sparsify(libs: dict, cycles_per_ms: float) -> list[dict]:
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for case, w, p in cs.CODEC_CASES:
+        x = 0.3 * torch.randn(w, p, generator=gen, device="cuda")
+        _, tile_len, n_tiles = ref.wire_tiles(p)
+        k = max(round(0.1 * p), 1)
+        scores = torch.from_numpy(compression.randk_scores(
+            compression.sparsify_base_key(5), 3, p)).to("cuda")
+        rule = ops.sparsify_cluster(w, n_tiles, tile_len,
+                                    ops.sm_count(x.device))
+        for gate_name, gate in (("topk", x.abs()), ("randk", scores[None])):
+            thresh = torch.topk(gate, k, dim=1).values[:, -1] \
+                .expand(w).contiguous()
+            want = ref.sparsify_block_ref(x, gate, thresh)
+            sizes = SPARSIFY_CLUSTERS if case == "main" else (None,)
+            for size in sizes:
+                name = f"{case}-{gate_name}" + (f"-S{size}" if size else "")
+                calls = {which: sparsify_call(lib, x, gate, thresh, size)
+                         for which, lib in libs.items()}
+                for which, call in calls.items():
+                    got = call()
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(g, r) for g, r in zip(got, want)):
+                        raise AssertionError(f"sparsify_block[{name}] of "
+                                             f"{which} differs from its "
+                                             "plain version")
+                times = in_turns(calls, cycles_per_ms, batch=10)
+                bound_ms, _ = cs._bound(
+                    cs.sparsify_bytes(w, p, gate.shape[0]), 2 * w * p)
+                rows.append(_summary("sparsify_block", name, times, bound_ms,
+                                     W=w, P=p, cluster=size or rule))
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--base", type=Path, required=True)
@@ -390,22 +569,31 @@ def main() -> int:
                         default=REPO / "build" / "kernel_ab.json")
     parser.add_argument("--kernels", nargs="+", choices=tuple(SOURCES),
                         default=list(SOURCES))
+    parser.add_argument("--set", action="append", default=[],
+                        metavar="NAME=VALUE")
+    parser.add_argument("--repeat", type=int, default=1)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     card = cs.card_line()
-    cs.log("ab", card=repr(card))
+    cs.log("ab", card=repr(card), set=args.set)
+    new_src = variant_sources(args.set, args.kernels) if args.set \
+        else ops.CSRC
     libs = {"base": build(args.base.resolve(), "base", args.kernels),
-            "new": build(ops.CSRC, "new", args.kernels)}
+            "new": build(new_src, "new", args.kernels)}
     cycles_per_ms = cs._sleep_cycles_per_ms()
     runs = {"mix": run_mix, "flash": run_flash, "robust": run_robust,
-            "quant": run_quant, "dequant": run_dequant}
+            "quant": run_quant, "dequant": run_dequant, "edges": run_edges,
+            "sparsify": run_sparsify}
     rows = []
-    for kernel in args.kernels:
-        rows += runs[kernel](libs, cycles_per_ms)
+    for round_ in range(args.repeat):
+        for kernel in args.kernels:
+            rows += [dict(row, round=round_)
+                     for row in runs[kernel](libs, cycles_per_ms)]
     args.out.parent.mkdir(parents=True, exist_ok=True)
-    args.out.write_text(json.dumps({"card": card, "cases": rows}, indent=1))
+    args.out.write_text(json.dumps({"card": card, "set": args.set,
+                                    "cases": rows}, indent=1))
     return 0
 
 
