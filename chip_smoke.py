@@ -38,8 +38,13 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    operations at 495 TFLOP/s, or bytes) and
    ``scaled_dot_product_attention``'s time) and
    ``consensus_dist`` (the kernel benchmark's shape and the registry
-   path's width; within 1e-6 relative); and ``launch_floor_us``, the
-   time of ``dequantize_block`` on one element, timed the same way;
+   path's width; within 1e-6 relative); ``gossip_mix``'s lane-strided
+   form (the batched seeds axis: 4 lanes of the MLP path's round, of
+   AD-PSGD's pair and of both endpoints' rows), bit-equal to its plain
+   version and to one single-form launch a lane, timed beside those 4
+   launches; the codec kernels also at leaf-segment widths (P = 1, 138
+   and 4,736); and ``launch_floor_us``, the time of ``dequantize_block``
+   on one element, timed the same way;
 3. the main path: ``run_algorithm(algo, cfg, fused=True)`` at the
    paper's fleet (30 workers) and MLP (P = 6,922) — FedHP and the
    synchronous baselines uncompressed, FedHP and D-PSGD under int8,
@@ -54,18 +59,27 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    registry path: a dense LM at smollm-360m's widths (d 960, 15 / 5
    heads of 64, d_ff 2,560; 4 layers, a vocabulary of 6,144) with
    ``use_flash_kernel=True``, FedHP and D-PSGD at W = 8 through
-   ``run_dfl_fused(adapter=...)`` — each after a short warm-up run, with
-   the launch counters zeroed before each timed run and read after it,
-   and held to what the path must launch;
+   ``run_dfl_fused(adapter=...)``, and FedHP there under the per-leaf
+   codec map ``leafmap:embed=randk:0.05,ln=none,default=int8`` (its
+   seconds a round, peak memory and wire ratio beside uniform int8's);
+   FedHP and D-PSGD on the MLP under ``leafmap:w1=topk:0.1,b=none,
+   default=int8``, dense and sparse; D-PSGD, LD-SGD and AD-PSGD with
+   ``seeds`` of 4 lanes — each after a short warm-up run, with the
+   launch counters zeroed before each timed run and read after it, and
+   held to what the path must launch;
 4. the reference engine against the fused engine on the card — FedHP
    uncompressed, under int8 and under top-k, AD-PSGD uncompressed and
    under int8, sparse FedHP uncompressed and under int8, trimmed:6
    sparse and dense, the median, AD-PSGD screening, and the registry
    path's FedHP over an ``erdos:0.5`` base, and the 70-worker trimmed
-   FedHP over ``erdos:0.95`` (degrees 65-69): host record fields (and
-   screening's rejection counts)
-   equal, device metrics within the tests' tolerances (int8's wider,
-   ``tests/test_torch_codec_engine.py``).
+   FedHP over ``erdos:0.95`` (degrees 65-69), FedHP under the MLP's
+   leafmap and the registry path's FedHP under its leafmap: host record
+   fields (and screening's rejection counts) equal, device metrics within
+   the tests' tolerances (int8's wider wherever a codec quantizes to
+   int8, ``tests/test_torch_codec_engine.py``); and each batched lane of
+   D-PSGD, LD-SGD and AD-PSGD against its single-lane run (host fields
+   equal, device metrics within 1e-5; the cfg.seed lane also against the
+   unbatched run).
 
 Then a JSON line describing every kernel, the card line, and the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -142,6 +156,16 @@ BIG_ROUNDS = 3
 WIDE_FIELDS = dict(num_workers=70, byzantine=(0, 1), robust="trimmed:2",
                    base_topology="full")
 WIDE_ROUNDS = 10
+# the per-leaf codec maps: on the MLP the first layer's weights top-k,
+# the biases raw, the rest int8; on the registry LM the reference's
+# pytree leg's map (benchmarks/run.py:733-800)
+LEAFMAP_MLP = "leafmap:w1=topk:0.1,b=none,default=int8"
+LEAFMAP_LM = "leafmap:embed=randk:0.05,ln=none,default=int8"
+# the batched seeds axis: 4 lanes, the first PAPER_CFG's own seed, for
+# the static-plan strategies (an adaptive plan is one lane's feedback)
+LANES = (5, 6, 7, 8)
+LANE_PATHS = ("dpsgd", "ldsgd", "adpsgd")
+LANE_TOL = 1e-5
 # the main path's runs: (algorithm, config fields over PAPER_CFG)
 MAIN_PATHS = (("fedhp", {}), ("dpsgd", {}), ("ldsgd", {}), ("pens", {}),
               ("fedhp", dict(compress="int8")),
@@ -161,7 +185,11 @@ MAIN_PATHS = (("fedhp", {}), ("dpsgd", {}), ("ldsgd", {}), ("pens", {}),
               ("fedhp", dict(BYZ, robust="trimmed:6")),
               ("dpsgd", dict(BYZ, **SPARSE, robust="median",
                              byzantine_attack="largenorm")),
-              ("adpsgd", dict(BYZ, robust="screen:8")))
+              ("adpsgd", dict(BYZ, robust="screen:8")),
+              ("fedhp", dict(compress=LEAFMAP_MLP)),
+              ("dpsgd", dict(compress=LEAFMAP_MLP)),
+              ("fedhp", dict(SPARSE, compress=LEAFMAP_MLP)),
+              ("dpsgd", dict(SPARSE, compress=LEAFMAP_MLP)))
 PARITY_PATHS = (("fedhp", {}), ("fedhp", dict(compress="int8")),
                 ("fedhp", dict(compress="topk:0.1")), ("adpsgd", {}),
                 ("adpsgd", dict(compress="int8")),
@@ -176,7 +204,8 @@ PARITY_PATHS = (("fedhp", {}), ("fedhp", dict(compress="int8")),
                                base_topology="erdos:0.9")),
                 ("dpsgd", dict(BYZ, robust="median")),
                 ("adpsgd", dict(BYZ, robust="screen:8")),
-                ("fedhp", dict(WIDE_FIELDS, base_topology="erdos:0.95")))
+                ("fedhp", dict(WIDE_FIELDS, base_topology="erdos:0.95")),
+                ("fedhp", dict(compress=LEAFMAP_MLP)))
 MAIN_ROUNDS = 20
 WARMUP_ROUNDS = 2
 PARITY_ROUNDS = 10
@@ -392,6 +421,83 @@ def check_gossip_mix(cycles_per_ms: float) -> dict:
                 max_abs_err=worst, **main)
 
 
+# (case, S, B, K, L): the batched MLP round (4 lanes of the W = 30
+# fleet, u = x, one mixing matrix shared by the lanes: the kernel line's
+# shape), AD-PSGD's pairwise average (one row a lane) and both endpoints'
+# rows (two)
+MIX_LANE_CASES = (("lanes", len(LANES), 30, 30, PAPER_MLP_P),
+                  ("adpsgd-lanes", len(LANES), 1, 1, PAPER_MLP_P),
+                  ("pair-lanes", len(LANES), 2, 2, PAPER_MLP_P))
+
+
+def check_gossip_mix_lanes(cycles_per_ms: float) -> dict:
+    """gossip_mix's lane-strided form against its plain version and
+    against one single-form launch a lane (both bit for bit), timed
+    beside those S launches."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = 0.0
+    main = None
+    for name, lanes, b, k, length in MIX_LANE_CASES:
+        if b == k > 2:
+            x1, _, w, _ = _mix_inputs(gen, b, k, length, True)
+            x = torch.stack([x1] + [torch.randn_like(x1)
+                                    for _ in range(lanes - 1)])
+            u = x
+        else:
+            x = torch.randn(lanes, b, length, generator=gen, device="cuda")
+            u = torch.randn(lanes, k, length, generator=gen, device="cuda")
+            w = torch.diag(torch.full((b,), 0.5, device="cuda")) \
+                if b == k else torch.full((b, k), 0.5, device="cuda")
+        wl = w.expand(lanes, b, k)
+        y = ops.gossip_mix_lanes(x, u, wl)
+        singles = torch.stack([ops.gossip_mix(x[s], u[s], w)
+                               for s in range(lanes)])
+        y_ref = ref.gossip_mix_lanes_ref(x, u, wl)
+        torch.cuda.synchronize()
+        err = float((y - y_ref).abs().max())
+        if not (torch.equal(y, y_ref) and torch.equal(y, singles)):
+            raise AssertionError(
+                f"gossip_mix_lanes[{name}] differs from its plain version "
+                f"or from {lanes} single launches: max |diff| = {err}, "
+                f"{float((y - singles).abs().max())}")
+        worst = max(worst, err)
+
+        def separate():
+            for s in range(lanes):
+                ops.gossip_mix(x[s], u[s], w)
+
+        def library():
+            # the whole function in library calls: each lane's
+            # x * (1 - rowsum(w)) term, then one baddbmm over the lanes
+            return torch.baddbmm(x * (1.0 - wl.sum(dim=2))[:, :, None],
+                                 wl, u)
+
+        kernel_ms = time_ms(lambda: ops.gossip_mix_lanes(x, u, wl),
+                            cycles_per_ms, batch=10)
+        separate_ms = time_ms(separate, cycles_per_ms, batch=10)
+        plain_ms = time_ms(lambda: ref.gossip_mix_lanes_ref(x, u, wl),
+                           cycles_per_ms, batch=2)
+        library_ms = time_ms(library, cycles_per_ms, batch=10)
+        u_bytes = 0 if u.data_ptr() == x.data_ptr() else lanes * k * length
+        nbytes = (2 * lanes * b * length + u_bytes + b * k) * 4
+        bound_ms, bound_by = _bound(nbytes, 3 * lanes * b * k * length)
+        log("phase2", kernel="gossip_mix_lanes", case=name, S=lanes, B=b,
+            K=k, L=length, bit_equal=True, equal_to_single_launches=True,
+            max_abs_err=err, ms=f"{kernel_ms:.6f}",
+            single_launches_ms=f"{separate_ms:.6f}",
+            plain_ms=f"{plain_ms:.6f}", baddbmm_ms=f"{library_ms:.6f}",
+            bound_ms=f"{bound_ms:.6f}", bound_mb=f"{nbytes / 1e6:.6f}",
+            share_of_bound=f"{bound_ms / kernel_ms:.4f}")
+        if name == "lanes":
+            main = dict(ms=kernel_ms, plain_ms=plain_ms,
+                        library_ms=library_ms, bound_ms=bound_ms,
+                        bound_by=bound_by)
+    return dict(name="gossip_mix_lanes", route="cuda",
+                source="src/repro_torch/kernels/csrc/gossip_mix.cu",
+                replaces="src/repro/kernels/gossip_mix.py:45",
+                max_abs_err=worst, **main)
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the wire codecs' kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -409,9 +515,14 @@ def _require_equal(name: str, case: str, pairs) -> float:
 
 
 # (case, W, P) of the codec kernels
+# and the leaf segments a leafmap sends through them: one coordinate, the
+# MLP's merged biases (138 < 1,024 columns) and its merged int8 leaves
+# (4,736: 5 rows of 1,024, not a multiple of 8)
 CODEC_CASES = (("main", 30, 6922), ("adpsgd", 2, 6922),
                ("tiles", 30, 100000), ("short", 30, 1000),
-               ("odd", 30, 6921), ("single", 1, 6922))
+               ("odd", 30, 6921), ("single", 1, 6922),
+               ("seg-p1", 30, 1), ("seg-narrow", 30, 138),
+               ("seg-rows5", 30, 4736))
 
 
 def sparsify_bytes(w: int, p: int, gate_rows: int) -> int:
@@ -993,37 +1104,59 @@ def check_consensus_dist(cycles_per_ms: float) -> dict:
 # phases 3-4: the main path
 # ---------------------------------------------------------------------------
 
-def _expected_launches(algo: str, cfg: FedHPConfig,
-                       hist) -> dict[str, int]:
+def _codec_launches(cfg: FedHPConfig, adapter) -> dict[str, int]:
+    """The codec kernels one exchange launches: per int8 segment one
+    quantize and one dequantize, per top-k or rand-k segment one
+    sparsify (a uniform codec is one segment; a leafmap's segments come
+    from its map compiled against the adapter's leaf layout)."""
+    codec = engine.run_codec(cfg, adapter)
+    kinds = ([seg.codec.kind for seg in codec.segments]
+             if codec.kind == "leafmap" else [codec.kind])
+    out = {k: 0 for k in ops.LAUNCHES}
+    for kind in kinds:
+        if kind == "int8":
+            out["quantize_block"] += 1
+            out["dequantize_block"] += 1
+        elif kind in ("topk", "randk"):
+            out["sparsify_block"] += 1
+    return out
+
+
+def _expected_launches(algo: str, cfg: FedHPConfig, hist,
+                       lanes: int = 1) -> dict[str, int]:
     """What a fused run must launch, per communicating round (per event
     for AD-PSGD, where every round holds W events) and nothing else:
 
     - trimmed/median (dense or sparse gossip): one robust_gossip;
     - attackers without a robust mode: one gossip_mix (dense) or one
       gossip_edges (sparse) over the lying wire;
-    - a codec: one quantize and one dequantize under int8, one sparsify
-      under top-k and rand-k, and under sparse gossip one gossip_edges
-      for the mixing delta;
+    - a codec: one quantize and one dequantize per int8 segment, one
+      sparsify per top-k and rand-k segment (a uniform codec is one
+      segment, a leafmap has several), and under sparse gossip one
+      gossip_edges for the mixing delta;
     - honest and uncompressed: one gossip_mix (dense) or gossip_edges
       (sparse);
     - AD-PSGD: one gossip_mix per event uncompressed, over a lying wire
       or screened (both endpoints' rows in one launch), the codec's
-      kernels under a codec."""
+      kernels under a codec.
+
+    With ``lanes`` > 1 every one of these launches once for all lanes,
+    gossip_mix in its lane-strided form (``gossip_mix_lanes``)."""
     arr = hist.as_arrays()
     n = (len(hist.records) * cfg.num_workers if algo == "adpsgd"
          else int((arr["num_links"] > 0).sum()))
     sparse = cfg.gossip == "sparse" and algo != "adpsgd"
-    mix = ("gossip_edges",) if sparse else ("gossip_mix",)
-    kind = cfg.compress.partition(":")[0]
-    if cfg.robust in ("none", "") or cfg.robust.startswith("screen"):
-        names = {"none": ("gossip_mix",) if algo == "adpsgd" else mix,
-                 "int8": ("quantize_block", "dequantize_block")}.get(
-                     kind, ("sparsify_block",))
-        if kind != "none" and sparse:
-            names += ("gossip_edges",)
+    mix = "gossip_mix" if lanes == 1 else "gossip_mix_lanes"
+    per = {k: 0 for k in ops.LAUNCHES}
+    if cfg.robust.partition(":")[0] in ("trimmed", "median"):
+        per["robust_gossip"] = 1
+    elif cfg.compress == "none":
+        per["gossip_edges" if sparse else mix] = 1
     else:
-        names = ("robust_gossip",)
-    return {k: n if k in names else 0 for k in ops.LAUNCHES}
+        per = _codec_launches(cfg, modelspec.adapter_for(cfg))
+        if sparse:
+            per["gossip_edges"] = 1
+    return {k: n * v for k, v in per.items()}
 
 
 def _label(algo: str, fields: dict) -> str:
@@ -1042,7 +1175,8 @@ def _label(algo: str, fields: dict) -> str:
 def _timed_run(algo: str, cfg: FedHPConfig, rounds: int, warmup: int,
                **kw):
     """A warm-up run, then the timed run with the launch counters zeroed
-    just before it and read just after -> (history, seconds, counts)."""
+    just before it and read just after -> (histories, seconds, counts):
+    one History, or one per lane under ``seeds``."""
     # warm-up: the first use of cuBLAS and autograd on the card is not
     # the algorithm's (rounds/s below still include set-up)
     run_algorithm(algo, cfg, rounds=warmup, fused=True, **kw)
@@ -1057,9 +1191,10 @@ def _timed_run(algo: str, cfg: FedHPConfig, rounds: int, warmup: int,
     return hist, elapsed, dict(ops.LAUNCHES)
 
 
-def _check_run(name: str, algo: str, cfg: FedHPConfig, rounds: int, hist,
+def _check_run(name: str, algo: str, cfg: FedHPConfig, rounds: int, hists,
                counts: dict) -> None:
-    expected = _expected_launches(algo, cfg, hist)
+    lanes = len(hists)
+    expected = _expected_launches(algo, cfg, hists[0], lanes)
     if counts != expected:
         raise AssertionError(f"{name}: launched {counts}, the path must "
                              f"launch {expected}")
@@ -1070,8 +1205,9 @@ def _check_run(name: str, algo: str, cfg: FedHPConfig, rounds: int, hist,
             raise AssertionError(f"{name}: {kernel} instances {inst} do "
                                  f"not add up to {counts[kernel]}")
     # every sparse round of a fleet runs one gossip_edges instance: the
-    # staged one at W = 30, the gather one on the W = 2,048 ring
-    want = f"gossip_edges:{ops.edges_instance(cfg.num_workers)}"
+    # staged one at W = 30, the gather one on the W = 2,048 ring (lanes
+    # run as one block-diagonal fleet of lanes x W rows)
+    want = f"gossip_edges:{ops.edges_instance(cfg.num_workers * lanes)}"
     if inst[want] != counts["gossip_edges"]:
         raise AssertionError(f"{name}: gossip_edges launched {inst}, all "
                              f"{counts['gossip_edges']} must be {want}")
@@ -1082,7 +1218,16 @@ def _check_run(name: str, algo: str, cfg: FedHPConfig, rounds: int, hist,
             and inst["robust_gossip:wide"] == 0:
         raise AssertionError(f"{name}: the wide robust_gossip instance "
                              "never launched")
-    _check_history(name, cfg, rounds, hist)
+    for hist in hists:
+        _check_history(name, cfg, rounds, hist)
+    # the lanes share the host control plane and differ on the device
+    for hist in hists[1:]:
+        a, b = hists[0].as_arrays(), hist.as_arrays()
+        if not all(np.array_equal(a[k], b[k]) for k in EXACT):
+            raise AssertionError(f"{name}: lanes differ in host fields")
+        if np.array_equal(a["loss"], b["loss"]):
+            raise AssertionError(f"{name}: two lanes ran the same "
+                                 "experiment")
 
 
 def _check_history(name: str, cfg: FedHPConfig, rounds: int, hist) -> None:
@@ -1112,12 +1257,17 @@ def run_main_path() -> dict[str, int]:
                  BIG_ROUNDS, 1, BIG_KW))
     legs.append(("fedhp", WIDE_FIELDS, replace(PAPER_CFG, **WIDE_FIELDS),
                  WIDE_ROUNDS, 1, PAPER_KW))
+    legs += [(algo, dict(seeds=len(LANES)), PAPER_CFG, MAIN_ROUNDS,
+              WARMUP_ROUNDS, dict(PAPER_KW, seeds=LANES))
+             for algo in LANE_PATHS]
     for algo, fields, cfg, rounds, warmup, kw in legs:
         name = _label(algo, fields)
-        hist, elapsed, counts = _timed_run(algo, cfg, rounds, warmup, **kw)
-        _check_run(name, algo, cfg, rounds, hist, counts)
+        out, elapsed, counts = _timed_run(algo, cfg, rounds, warmup, **kw)
+        hists = out if isinstance(out, list) else [out]
+        _check_run(name, algo, cfg, rounds, hists, counts)
         for k in total:
             total[k] += counts[k]
+        hist = hists[0]
         arr = hist.as_arrays()
         extra = ({} if hist.screen_rejects is None
                  else dict(screen_rejects=hist.screen_rejects))
@@ -1127,6 +1277,14 @@ def run_main_path() -> dict[str, int]:
                 extra[key] = {k.split(":")[1]: v
                               for k, v in ops.INSTANCE_LAUNCHES.items()
                               if k.startswith(f"{kernel}:")}
+        if len(hists) > 1:
+            extra["lane_final_accuracy"] = [
+                f"{h.final_accuracy:.6f}" for h in hists]
+        if cfg.compress.startswith("leafmap:"):
+            codec = engine.run_codec(cfg, modelspec.adapter_for(cfg))
+            extra["segments"] = [f"{seg.codec.mode}:{seg.size}"
+                                 for seg in codec.segments]
+            extra["wire_ratio"] = f"{codec.wire_ratio():.6f}"
         log("phase3", path=name, rounds=rounds,
             comm_rounds=int((arr["num_links"] > 0).sum()),
             launches={k: v for k, v in counts.items() if v},
@@ -1225,35 +1383,60 @@ def lm_adapter():
 
 def run_lm_path(adapter, data) -> dict[str, int]:
     """Phase 3's registry path: FedHP and D-PSGD through the fused
-    engine, a warm-up run and then the timed run, each held to exactly
-    the flash_attention launches (layers x forward passes) and gossip_mix
-    launches (communicating rounds) the path must make."""
+    engine, and FedHP under the reference's per-leaf codec map, a warm-up
+    run and then the timed run, each held to exactly the flash_attention
+    launches (layers x forward passes) and the gossip launches
+    (communicating rounds: one gossip_mix uncompressed, the map's codec
+    kernels per segment under the leafmap) the path must make."""
     total = {k: 0 for k in ops.LAUNCHES}
-    for algo in ("fedhp", "dpsgd"):
-        _lm_run(adapter, data, algo, LM_WARMUP_ROUNDS, fused_engine=True)
+    uniform_int8 = compression.parse_mode("int8").wire_ratio(LM_PARAMS)
+    for algo, fields in (("fedhp", {}), ("dpsgd", {}),
+                         ("fedhp", dict(compress=LEAFMAP_LM))):
+        _lm_run(adapter, data, algo, LM_WARMUP_ROUNDS, fused_engine=True,
+                **fields)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for k in ops.LAUNCHES:
             ops.LAUNCHES[k] = 0
         t0 = time.perf_counter()
         hist, taus = _lm_run(adapter, data, algo, LM_ROUNDS,
-                             fused_engine=True)
+                             fused_engine=True, **fields)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         counts = dict(ops.LAUNCHES)
         arr = hist.as_arrays()
         adaptive = algo == "fedhp"
         forwards = _lm_forwards(adapter, LM_CFG, taus, adaptive)
-        expected = {k: 0 for k in ops.LAUNCHES}
+        comm = int((arr["num_links"] > 0).sum())
+        cfg = replace(LM_CFG, **fields)
+        if fields:
+            expected = {k: comm * v for k, v in
+                        _codec_launches(cfg, adapter).items()}
+        else:
+            expected = {k: 0 for k in ops.LAUNCHES}
+            expected["gossip_mix"] = comm
         expected["flash_attention"] = LM_MODEL.num_layers * forwards
-        expected["gossip_mix"] = int((arr["num_links"] > 0).sum())
-        name = f"{algo}/smollm-360m-4l"
+        name = f"{algo}/smollm-360m-4l" + ("/leafmap" if fields else "")
         if counts != expected:
             raise AssertionError(f"{name}: launched {counts}, the path must "
                                  f"launch {expected}")
         _check_history(name, LM_CFG, LM_ROUNDS, hist)
         for k in total:
             total[k] += counts[k]
+        extra = {}
+        if fields:
+            codec = engine.run_codec(cfg, adapter)
+            # the host's share of a round: the rand-k segment's mask draw
+            # (a numpy threefry over its 5.9 M coordinates)
+            t0 = time.perf_counter()
+            compression.leafmap_scores(
+                codec, compression.sparsify_base_key(cfg.seed), 0)
+            extra = dict(map=LEAFMAP_LM,
+                         segments=[f"{seg.codec.mode}:{seg.size}"
+                                   for seg in codec.segments],
+                         randk_draw_s=f"{time.perf_counter() - t0:.4f}",
+                         wire_ratio=f"{codec.wire_ratio():.6f}",
+                         uniform_int8_wire_ratio=f"{uniform_int8:.6f}")
         log("phase3", path=name, rounds=LM_ROUNDS, P=adapter.param_count,
             launches={k: v for k, v in counts.items() if v},
             forward_passes=forwards,
@@ -1265,22 +1448,62 @@ def run_lm_path(adapter, data) -> dict[str, int]:
             last_loss=f"{arr['loss'][-1]:.7f}",
             mean_tau=arr["mean_tau"].tolist(),
             num_links=arr["num_links"].tolist(),
-            peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+            peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+            **extra)
     return total
 
 
 def check_lm_engines_agree(adapter, data) -> None:
-    """Phase 4 on the registry path: FedHP through both engines."""
-    hists, secs = {}, {}
-    for fused_engine in (False, True):
+    """Phase 4 on the registry path: FedHP through both engines,
+    uncompressed and under the reference's per-leaf codec map."""
+    for fields in ({}, dict(compress=LEAFMAP_LM)):
+        hists, secs = {}, {}
+        for fused_engine in (False, True):
+            t0 = time.perf_counter()
+            hists[fused_engine], _ = _lm_run(adapter, data, "fedhp",
+                                             LM_ROUNDS,
+                                             fused_engine=fused_engine,
+                                             **LM_PARITY_FIELDS, **fields)
+            torch.cuda.synchronize()
+            secs[fused_engine] = time.perf_counter() - t0
+        _compare_engines("fedhp/smollm-360m-4l/erdos:0.5"
+                         + ("/leafmap" if fields else ""), hists, secs,
+                         int8=bool(fields), rounds=LM_ROUNDS)
+
+
+def check_lanes_agree() -> None:
+    """Phase 4 for the batched seeds axis: each lane of a D-PSGD, LD-SGD
+    and AD-PSGD run of ``LANES`` against its single-lane run (host fields
+    equal, device metrics within ``LANE_TOL``), and the cfg.seed lane
+    against the unbatched run."""
+    for algo in LANE_PATHS:
         t0 = time.perf_counter()
-        hists[fused_engine], _ = _lm_run(adapter, data, "fedhp", LM_ROUNDS,
-                                         fused_engine=fused_engine,
-                                         **LM_PARITY_FIELDS)
+        lanes = run_algorithm(algo, PAPER_CFG, rounds=PARITY_ROUNDS,
+                              fused=True, seeds=LANES, **PAPER_KW)
         torch.cuda.synchronize()
-        secs[fused_engine] = time.perf_counter() - t0
-    _compare_engines("fedhp/smollm-360m-4l/erdos:0.5", hists, secs,
-                     int8=False, rounds=LM_ROUNDS)
+        batched_s = time.perf_counter() - t0
+        pairs = [(f"seed {s}", hv, run_algorithm(
+            algo, PAPER_CFG, rounds=PARITY_ROUNDS, fused=True, seeds=[s],
+            **PAPER_KW)[0]) for s, hv in zip(LANES, lanes)]
+        pairs.append(("unbatched", lanes[0], run_algorithm(
+            algo, PAPER_CFG, rounds=PARITY_ROUNDS, fused=True, **PAPER_KW)))
+        worst = 0.0
+        for what, hv, hi in pairs:
+            a, b = hv.as_arrays(), hi.as_arrays()
+            for k in EXACT:
+                if not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"{algo} lanes, {what}: host field "
+                                         f"{k} differs")
+            diff = max(float(np.abs(a[k] - b[k]).max())
+                       for k in ("accuracy", "loss", "consensus"))
+            if diff > LANE_TOL:
+                raise AssertionError(f"{algo} lanes, {what}: device metrics "
+                                     f"differ by {diff}")
+            worst = max(worst, diff)
+        log("phase4", path=f"{algo}/seeds={len(LANES)}",
+            rounds=PARITY_ROUNDS, host_fields_equal=True,
+            lanes_vs_single_max_abs_diff=worst,
+            batched_s=f"{batched_s:.3f}")
 
 
 def check_engines_agree() -> None:
@@ -1295,7 +1518,7 @@ def check_engines_agree() -> None:
                 **PAPER_KW)
             secs[fused_engine] = time.perf_counter() - t0
         _compare_engines(_label(algo, fields), hists, secs,
-                         int8=cfg.compress == "int8", rounds=PARITY_ROUNDS)
+                         int8="int8" in cfg.compress, rounds=PARITY_ROUNDS)
 
 
 def _compare_engines(name: str, hists: dict, secs: dict, *, int8: bool,
@@ -1409,7 +1632,9 @@ def main() -> int:
 
     cycles_per_ms = _sleep_cycles_per_ms()
     launch_floor(cycles_per_ms)
-    kernels = [check_gossip_mix(cycles_per_ms), *check_codecs(cycles_per_ms),
+    kernels = [check_gossip_mix(cycles_per_ms),
+               check_gossip_mix_lanes(cycles_per_ms),
+               *check_codecs(cycles_per_ms),
                check_gossip_edges(cycles_per_ms),
                check_robust_gossip(cycles_per_ms),
                check_flash_attention(cycles_per_ms),
@@ -1431,6 +1656,7 @@ def main() -> int:
             raise AssertionError(f"{kernel['name']} never launched on the "
                                  "main path")
     check_engines_agree()
+    check_lanes_agree()
     check_lm_engines_agree(adapter, data)
 
     order = ("name", "route", "source", "replaces", "launches",

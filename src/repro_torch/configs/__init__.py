@@ -29,7 +29,8 @@ def _module(arch: str):
     if arch in _UNPORTED:
         raise NotImplementedError(
             f"arch {arch!r} ({_UNPORTED[arch]} family) is not ported to "
-            "repro_torch yet (ROADMAP.md queue 1, item 8)")
+            f"repro_torch yet (ROADMAP.md queue 1, item "
+            f"{4 if _UNPORTED[arch] in ('encdec', 'vlm') else 1})")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; available: "
                        f"{sorted(_ARCH_MODULES) + sorted(_UNPORTED)}")

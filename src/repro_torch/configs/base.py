@@ -3,7 +3,7 @@ the model-architecture description of the registry models — field-for-
 field copies of ``repro.configs.base.FedHPConfig`` and ``ModelConfig``
 with the same defaults, so one config value drives either package. The
 input-shape table (``SHAPES``) and ``RunConfig`` arrive with the launch
-and serving slice (ROADMAP.md queue 1, item 10)."""
+and serving slice (ROADMAP.md queue 1, item 4)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -120,8 +120,7 @@ class FedHPConfig:
     # lax.ppermute per distinct shard offset. Host control plane (and so
     # every host-side record field) is identical to the single-device
     # path; device trajectories agree to summation-order float drift.
-    # Excludes: pens, cfg.byzantine/robust, leafmap codecs, AD-PSGD,
-    # batched fused seeds.
+    # Excludes: pens, cfg.byzantine/robust, leafmap codecs, AD-PSGD.
     sharded: bool = False
     # error feedback: carry the per-worker compression residual into the
     # next round's payload (keeps compressed mixing unbiased); False ==

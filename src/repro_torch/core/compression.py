@@ -8,8 +8,10 @@ the device.
 ``"none"`` sends raw f32 parameters, ``"int8"`` per-(8, 1024)-tile
 scaled int8, ``"topk:<k>"`` value+index pairs and ``"randk:<k>"`` values
 plus a shared mask seed (k a fraction of P when < 1, an absolute count
-otherwise). The per-leaf ``"leafmap:..."`` maps are not ported
-(ROADMAP.md queue 1, item 8).
+otherwise), and ``"leafmap:<pat>=<codec>,...,default=<codec>"`` a
+per-leaf map of those four (``LeafmapCodec``: each leaf segment of the
+flat row ships under its own codec, one mixing delta on the combined
+payload).
 
 All codecs share one state shape, a per-worker [W, P] buffer next to the
 params (``carries_state`` / ``state_init``): int8 carries the
@@ -123,21 +125,22 @@ class Codec:
         return FP32_BITS * num_params / self.wire_bits(num_params)
 
 
-def parse_mode(mode) -> Codec:
-    """Parse a ``cfg.compress`` value (or pass a ``Codec`` through).
+def parse_mode(mode) -> "Codec | LeafmapCodec":
+    """Parse a ``cfg.compress`` value (or pass a ``Codec`` or
+    ``LeafmapCodec`` through).
 
     Accepts ``"none"``, ``"int8"``, ``"topk:<k>"`` and ``"randk:<k>"``
-    with k a positive fraction (< 1, of P) or absolute count (>= 1).
-    The per-leaf map ``"leafmap:..."`` raises ``NotImplementedError``."""
-    if isinstance(mode, Codec):
+    with k a positive fraction (< 1, of P) or absolute count (>= 1),
+    plus the per-leaf map ``"leafmap:<pat>=<codec>,...,default=<codec>"``
+    (``parse_leafmap``), e.g.
+    ``"leafmap:embed=randk:0.05,ln=none,default=int8"``."""
+    if isinstance(mode, (Codec, LeafmapCodec)):
         return mode
     if mode in ("none", "int8"):
         return Codec(str(mode))
     kind, sep, arg = str(mode).partition(":")
     if kind == "leafmap" and sep:
-        raise NotImplementedError(
-            "per-leaf codec maps (compress='leafmap:...') are not ported "
-            "yet: ROADMAP.md queue 1, item 8 (registry models)")
+        return parse_leafmap(arg)
     if kind in SPARSE_KINDS and sep:
         try:
             k = float(arg)
@@ -155,6 +158,147 @@ def validate_mode(mode: str) -> str:
     (raises ValueError) and return it unchanged."""
     parse_mode(mode)
     return mode
+
+
+# ---------------------------------------------------------------------------
+# per-leaf codec maps ("leafmap:..."): heterogeneous codecs over one model
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LeafSegment:
+    """One contiguous run ``flat[:, start:stop]`` of the wire row that a
+    single uniform ``Codec`` applies to. Built by ``LeafmapCodec.compile``
+    from the adapter's leaf-offset table (adjacent leaves with the same
+    codec merge into one segment; a sparse k fraction resolves against
+    the merged segment's length)."""
+
+    start: int
+    stop: int
+    codec: Codec
+    k_abs: int = 0
+
+    @property
+    def size(self) -> int:
+        """Segment length in parameters."""
+        return self.stop - self.start
+
+
+@dataclass(frozen=True)
+class LeafmapCodec:
+    """A per-leaf codec map: each model leaf gossips under its own wire
+    codec (e.g. embeddings rand-k, layernorms uncompressed, the rest
+    int8).
+
+    ``rules`` are (substring pattern, Codec) pairs matched against the
+    adapter's leaf names in order (first match wins, case-insensitive);
+    ``default`` covers unmatched leaves. The parsed form is layout-free;
+    the engines call ``compile(adapter.leaf_offsets())`` to bind it to a
+    flat layout, which fills ``segments``, the table every payload and
+    wire computation runs over. Frozen and tuple-valued, so a compiled
+    map is hashable.
+
+    Wire accounting is the exact per-segment sum of each segment's own
+    codec's ``wire_bits(segment length)``; ``wire_ratio`` divides the
+    uncompressed total by it. A leafmap is never ``is_sparse``: the
+    planner's k-tightening refines uniform sparse codecs only."""
+
+    rules: tuple
+    default: Codec
+    segments: tuple = ()
+    kind: str = "leafmap"
+
+    @property
+    def is_sparse(self) -> bool:
+        """False: k-tightening applies to uniform sparse codecs only."""
+        return False
+
+    @property
+    def compiled(self) -> bool:
+        """Whether ``compile`` has bound this map to a leaf layout."""
+        return bool(self.segments)
+
+    @property
+    def mode(self) -> str:
+        """The ``cfg.compress`` string this map round-trips to."""
+        body = ",".join(f"{pat}={c.mode}" for pat, c in self.rules)
+        sep = "," if body else ""
+        return f"leafmap:{body}{sep}default={self.default.mode}"
+
+    def codec_for(self, leaf_name: str) -> Codec:
+        """The codec a leaf name maps to (first matching rule wins)."""
+        name = leaf_name.lower()
+        for pat, codec in self.rules:
+            if pat in name:
+                return codec
+        return self.default
+
+    def compile(self, leaves) -> "LeafmapCodec":
+        """Bind to an adapter's leaf-offset table (objects with
+        ``name`` / ``start`` / ``stop``, contiguous from 0). Adjacent
+        same-codec leaves merge into one segment; sparse k specs resolve
+        to absolute counts per merged segment."""
+        runs: list[list] = []
+        for leaf in leaves:
+            codec = self.codec_for(leaf.name)
+            if runs and runs[-1][2] == codec and runs[-1][1] == leaf.start:
+                runs[-1][1] = leaf.stop
+            else:
+                runs.append([leaf.start, leaf.stop, codec])
+        segs = tuple(
+            LeafSegment(a, b, c, c.resolve_k(b - a)) for a, b, c in runs)
+        return LeafmapCodec(self.rules, self.default, segs)
+
+    def _require_compiled(self):
+        if not self.segments:
+            raise ValueError(
+                "LeafmapCodec must be compiled against a model's leaf "
+                "layout (adapter.leaf_offsets()) before wire accounting "
+                "or payload encoding — engines do this automatically")
+
+    def resolve_k(self, num_params: int) -> int:
+        """Per-segment k is resolved at compile time; the engines'
+        uniform-codec k slot is unused (0)."""
+        return 0
+
+    def wire_bits(self, num_params: int = 0) -> int:
+        """Exact bits on the wire for one model transfer: the sum of each
+        segment's own codec accounting (``num_params`` is ignored — the
+        compiled segment table fixes the payload)."""
+        self._require_compiled()
+        return sum(s.codec.wire_bits(s.size) for s in self.segments)
+
+    def wire_ratio(self, num_params: int = 0) -> float:
+        """Uncompressed / compressed wire bits from the segment table
+        (the Eq. 10 comm divisor; ``num_params`` ignored)."""
+        self._require_compiled()
+        total = self.segments[-1].stop
+        return FP32_BITS * total / self.wire_bits()
+
+
+def parse_leafmap(body: str) -> LeafmapCodec:
+    """Parse the body of ``"leafmap:<pat>=<codec>,...,default=<codec>"``:
+    each comma-separated item maps a leaf-name substring to a uniform
+    codec string (``none`` / ``int8`` / ``topk:<k>`` / ``randk:<k>``);
+    the reserved pattern ``default`` sets the codec of unmatched leaves
+    (``none`` if absent)."""
+    rules: list[tuple[str, Codec]] = []
+    default = Codec("none")
+    for item in body.split(","):
+        if not item.strip():
+            continue
+        pat, sep, codec_str = item.partition("=")
+        if not sep:
+            raise ValueError(
+                f"leafmap item {item!r} is not <pattern>=<codec>")
+        codec = parse_mode(codec_str.strip())
+        if not isinstance(codec, Codec):
+            raise ValueError("leafmap entries must be uniform codecs, "
+                             f"got {codec_str!r}")
+        if pat.strip().lower() == "default":
+            default = codec
+        else:
+            rules.append((pat.strip().lower(), codec))
+    return LeafmapCodec(tuple(rules), default)
 
 
 def flat_tile_shape(num_params: int) -> tuple[int, int]:
@@ -377,16 +521,179 @@ def compressed_pair_ref(xi, xj, ei, ej, *, error_feedback: bool = True,
     rand-k (the event's shared mask draw) and naive top-k, and the
     x̂-tracked form (damped by ``gamma``) for top-k with error feedback.
     The endpoints' sum is preserved exactly; both rows' round trip is one
-    codec call on the stacked [2, P] pair."""
+    codec call on the stacked pair. The rows may carry a leading lane
+    axis ([S, P]: S lanes share the event), folded into the codec's rows
+    as [2·S, P]."""
+    def pair(a, b):
+        return torch.stack([a, b]).reshape(-1, a.shape[-1])
+
     if kind == "topk" and error_feedback:
-        q = sparsify_rows(torch.stack([xi - ei, xj - ej]), "topk", k)
+        q = sparsify_rows(pair(xi - ei, xj - ej), "topk", k).view(
+            2, *xi.shape)
         xhat_i, xhat_j = ei + q[0], ej + q[1]
         half = 0.5 * gamma * (xhat_j - xhat_i)
         return xi + half, xj - half, xhat_i, xhat_j
     ef = carries_state(kind, error_feedback)
-    z = torch.stack([xi + ei, xj + ej]) if ef else torch.stack([xi, xj])
-    yhat = encode_rows(z, kind, k, scores=scores)
+    z = pair(xi + ei, xj + ej) if ef else pair(xi, xj)
+    yhat = encode_rows(z, kind, k, scores=scores).view(2, *xi.shape)
+    z = z.view(2, *xi.shape)
     half = 0.5 * (yhat[1] - yhat[0])
     if ef:
         ei, ej = z[0] - yhat[0], z[1] - yhat[1]
     return xi + half, xj - half, ei, ej
+
+
+# ---------------------------------------------------------------------------
+# per-leaf codec maps: state, rand-k draws and the compensated update
+# ---------------------------------------------------------------------------
+
+def leafmap_carries_state(lcodec: LeafmapCodec, error_feedback: bool) -> bool:
+    """Whether any segment evolves the [W, P] codec-state buffer (the
+    buffer is fleet-shaped either way; each segment reads its own
+    columns as an int8 residual, a top-k public copy x̂, or dead
+    zeros)."""
+    return any(carries_state(s.codec.kind, error_feedback)
+               for s in lcodec.segments)
+
+
+def leafmap_state_init(flat: torch.Tensor, lcodec: LeafmapCodec,
+                       error_feedback: bool) -> torch.Tensor:
+    """Per-segment ``state_init`` on [..., W, P]: x̂ segments start at the
+    (globally known) initial params, every other column at zero."""
+    lcodec._require_compiled()
+    err = torch.zeros_like(flat)
+    for s in lcodec.segments:
+        if s.codec.kind == "topk" and error_feedback:
+            err[..., s.start:s.stop] = flat[..., s.start:s.stop]
+    return err
+
+
+def leafmap_state_after_join(err: torch.Tensor, keep_col: torch.Tensor,
+                             flat: torch.Tensor, lcodec: LeafmapCodec,
+                             error_feedback: bool) -> torch.Tensor:
+    """Per-segment ``state_after_join``: joined rows re-anchor x̂
+    segments at the blended row and zero the other columns."""
+    out = torch.empty_like(err)
+    for s in lcodec.segments:
+        out[..., s.start:s.stop] = state_after_join(
+            err[..., s.start:s.stop], keep_col, flat[..., s.start:s.stop],
+            s.codec.kind, error_feedback)
+    return out
+
+
+def codec_state_init(flat: torch.Tensor, codec,
+                     error_feedback: bool) -> torch.Tensor | None:
+    """The engines' codec-state buffer at round 0 (None where the run
+    carries none): ``state_init`` for a uniform codec, a leafmap's
+    [..., W, P] segment buffer (``leafmap_state_init``)."""
+    if codec.kind == "leafmap":
+        return leafmap_state_init(flat, codec, error_feedback)
+    return state_init(flat, codec.kind, error_feedback)
+
+
+def codec_state_after_join(err, keep_col, flat, codec,
+                           error_feedback: bool) -> torch.Tensor:
+    """Joined rows' codec state after the donor-average re-init:
+    ``state_after_join``, per segment for a leafmap."""
+    if codec.kind == "leafmap":
+        return leafmap_state_after_join(err, keep_col, flat, codec,
+                                        error_feedback)
+    return state_after_join(err, keep_col, flat, codec.kind, error_feedback)
+
+
+def leafmap_gamma_mask(lcodec: LeafmapCodec,
+                       error_feedback: bool) -> np.ndarray:
+    """[P] f32 mask, 1.0 on the coordinates whose segment mixes through
+    the damped x̂-tracked top-k step (where ``sparse_gamma`` applies),
+    0.0 elsewhere. Static per compiled map."""
+    lcodec._require_compiled()
+    mask = np.zeros(lcodec.segments[-1].stop, np.float32)
+    for s in lcodec.segments:
+        if s.codec.kind == "topk" and error_feedback:
+            mask[s.start:s.stop] = 1.0
+    return mask
+
+
+def leafmap_scores(lcodec: LeafmapCodec, key: tuple[int, int],
+                   step: int) -> np.ndarray | None:
+    """The rand-k mask draws of one exchange as a [P] f32 row: each
+    rand-k segment's ``randk_scores`` under its own key, the run's key
+    folded on the segment's start (segments draw independent masks, as
+    the reference's ``fold_in(key, start)`` does), in the segment's
+    columns; zeros elsewhere. None when no segment is rand-k."""
+    lcodec._require_compiled()
+    segs = [s for s in lcodec.segments if s.codec.kind == "randk"]
+    if not segs:
+        return None
+    out = np.zeros(lcodec.segments[-1].stop, np.float32)
+    for s in segs:
+        out[s.start:s.stop] = randk_scores(_fold_in(key, s.start), step,
+                                           s.size)
+    return out
+
+
+def leafmap_payload(flat: torch.Tensor, err: torch.Tensor,
+                    lcodec: LeafmapCodec, *, error_feedback: bool = True,
+                    scores: torch.Tensor | None = None):
+    """Per-segment wire round trip on [W, P] -> (payload, new_state).
+
+    Each segment applies its own codec as the uniform paths do: ``none``
+    ships raw values; int8 the error-compensated round trip ŷ = C(x + e);
+    top-k with error feedback advances the tracked public copy x̂ by the
+    top-k innovation (the payload is x̂'; its mixing delta is damped by
+    ``sparse_gamma``); rand-k the segment's columns of ``scores``
+    (``leafmap_scores``, on the device). A segment's columns are a
+    strided view of the row; each codec call takes them as a contiguous
+    copy (the kernels need one), and its result is written back into one
+    [W, P] payload and one state tensor."""
+    lcodec._require_compiled()
+    payload = torch.empty_like(flat)
+    state = err.clone()
+    for s in lcodec.segments:
+        a, b, c = s.start, s.stop, s.codec
+        x, e = flat[:, a:b], err[:, a:b]
+        if c.kind == "none":
+            payload[:, a:b] = x
+        elif c.kind == "topk" and error_feedback:
+            xhat = e + sparsify_rows(x - e, "topk", s.k_abs)
+            payload[:, a:b] = xhat
+            state[:, a:b] = xhat
+        elif c.kind == "randk":
+            payload[:, a:b] = sparsify_rows(x.contiguous(), "randk",
+                                            s.k_abs, scores=scores[a:b])
+        else:                       # int8 (EF or naive), naive top-k
+            ef = carries_state(c.kind, error_feedback) and c.kind != "topk"
+            z = x + e if ef else x.contiguous()
+            yhat = encode_rows(z, c.kind, s.k_abs)
+            payload[:, a:b] = yhat
+            if ef:
+                state[:, a:b] = z - yhat
+    return payload, state
+
+
+def leafmap_gossip_ref(flat, err, mix, lcodec: LeafmapCodec, *,
+                       error_feedback: bool = True, scores=None,
+                       gamma: float = 1.0, edges=None, mix_delta_fn=None):
+    """One leafmap-compressed gossip round on the flat [W, P] params ->
+    (x', state'): the combined per-segment payload v through ONE mixing
+    delta (mixing is column-independent, so this is per-segment mixing),
+
+        x' = x + g ⊙ (W v - v),
+
+    g the per-coordinate step — ``gamma`` on x̂-tracked top-k segments, 1
+    elsewhere. ``edges`` (a CSR edge list; pass ``mix=None``) or
+    ``mix_delta_fn`` take the delta as in ``compressed_gossip_ref``."""
+    payload, new_err = leafmap_payload(flat, err, lcodec,
+                                       error_feedback=error_feedback,
+                                       scores=scores)
+    if mix_delta_fn is not None:
+        delta = mix_delta_fn(payload)
+    elif edges is not None:
+        delta = edge_mix_delta(payload, edges)
+    else:
+        delta = torch.matmul(mix, payload) - payload
+    if error_feedback:
+        for s in lcodec.segments:
+            if s.codec.kind == "topk":
+                delta[:, s.start:s.stop] *= gamma
+    return flat + delta, new_err

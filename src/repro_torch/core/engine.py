@@ -8,7 +8,8 @@ t_i = tau_i mu_i + max_j beta_ij (Eq. 10; a compressed link's beta
 divided by the codec's wire ratio); gossip mixes with the uniform matrix
 (Eq. 5-6) as ``x <- mix @ x`` — or over the round's directed edge list
 under ``cfg.gossip="sparse"`` — or under ``cfg.compress`` through the
-codec's compensated update (``compression.compressed_gossip_ref``), or
+codec's compensated update (``compression.compressed_gossip_ref``; a
+per-leaf map ``"leafmap:..."`` through ``leafmap_gossip_ref``), or
 under the Byzantine scenario axis (``cfg.byzantine`` / ``cfg.robust``)
 over the lying wire, plainly or robustly (``core/robust.py``);
 measurements (consensus distances, update norms, the L/sigma estimates
@@ -129,23 +130,25 @@ def resolve_device(device=None) -> torch.device:
 def check_ported(cfg: FedHPConfig, *, mesh=None, seeds=None) -> None:
     """Raise ``NotImplementedError`` for a feature the port does not run
     yet, naming the ROADMAP.md item (queue 1) that brings it — after the
-    ``ValueError`` the reference raises for the Byzantine scenario axis
-    on the sharded path, which does not compose with it."""
+    ``ValueError``s the reference raises on the sharded path for what does
+    not compose with it: the Byzantine scenario axis and, in the fused
+    engines, a batched ``seeds`` axis."""
     sharded = cfg.sharded or mesh is not None
     if sharded and (cfg.byzantine or cfg.robust != "none"):
         raise ValueError(
             "the sharded path does not compose with cfg.byzantine / "
             "cfg.robust (data-dependent sorts are single-device-only)")
+    if sharded and seeds is not None:
+        raise ValueError(
+            "the sharded fused scan runs one lane (S=1); a batched "
+            "seeds axis would stack S copies of the sharded fleet — "
+            "run seeds sequentially or drop the mesh")
     todo = []
-    if str(cfg.compress).startswith("leafmap:"):
-        todo.append("compress='leafmap:...' (item 8, registry models)")
     if sharded:
-        todo.append("sharded execution / mesh= (item 9)")
-    if seeds is not None:
-        todo.append("seeds= batching (item 4, the batched seeds axis)")
+        todo.append("sharded execution / mesh= (item 3)")
     family = str(cfg.model).partition(":")[0].strip()
     if family in ("moe", "hybrid", "xlstm"):
-        todo.append(f"model={cfg.model!r} (item 8, the {family} family)")
+        todo.append(f"model={cfg.model!r} (item 1, the {family} family)")
     if todo:
         raise NotImplementedError(
             "not ported to repro_torch yet (ROADMAP.md queue 1): "
@@ -263,9 +266,14 @@ def _gossip_scenario(flat, adj, scen, byz, *, sparse: bool, mixing: str):
 
 def _blend_joined(flat, keep, w):
     """Rows in ``keep`` adopt the w-weighted average of the fleet; an
-    all-False keep leaves the matrix untouched exactly. Shared with the
-    fused engine, which precomputes keep/w host-side."""
-    return torch.where(keep[:, None], (w @ flat)[None, :], flat)
+    all-False keep leaves the matrix untouched exactly. ``flat`` is one
+    fleet [W, P] or S lanes of it [S, W, P] (each lane blends its own
+    fleet). Shared with the fused engines, which precompute keep/w
+    host-side."""
+    if flat.dim() == 2:
+        return torch.where(keep[:, None], (w @ flat)[None, :], flat)
+    means = torch.stack([w @ f for f in flat])
+    return torch.where(keep[:, None], means[:, None, :], flat)
 
 
 def _reinit_joined(flat, joined, donors):
@@ -404,13 +412,41 @@ def round_clock(adj, taus, mu, beta, plan, alive, crashed: bool,
     return t_round, waiting
 
 
+def codec_scores(codec, skey, step: int, p_model: int) -> np.ndarray | None:
+    """The rand-k mask draws of ``step`` on the host, [P] f32: a uniform
+    rand-k codec's one draw, or a leafmap's rand-k segment draws
+    (``compression.leafmap_scores``); None for a codec that draws
+    none."""
+    if codec.kind == "randk":
+        return compression.randk_scores(skey, step, p_model)
+    if codec.kind == "leafmap":
+        return compression.leafmap_scores(codec, skey, step)
+    return None
+
+
 def randk_gate(codec, skey, step: int, p_model: int, device):
-    """The rand-k mask draw of ``step`` as a [P] tensor on ``device``
-    (None for the other codecs)."""
-    if codec.kind != "randk":
-        return None
-    return torch.from_numpy(
-        compression.randk_scores(skey, step, p_model)).to(device)
+    """``codec_scores`` as a [P] tensor on ``device`` (or None)."""
+    scores = codec_scores(codec, skey, step, p_model)
+    return None if scores is None else torch.from_numpy(scores).to(device)
+
+
+def run_codec(cfg: FedHPConfig, adapter: modelspec.ModelAdapter):
+    """The run's parsed ``cfg.compress``; a per-leaf map compiled against
+    the adapter's leaf layout (the strategy hands back an uncompiled copy
+    in ``plan.codec``, which ``round_codec`` swaps for this one)."""
+    codec = compression.parse_mode(cfg.compress)
+    if codec.kind == "leafmap":
+        codec = codec.compile(adapter.leaf_offsets())
+    return codec
+
+
+def round_codec(plan, codec0):
+    """The codec a round gossips and is billed under: the plan's
+    (possibly tightened) codec, else the run's; for a leafmap always the
+    run's compiled map."""
+    if plan.codec is None or codec0.kind == "leafmap":
+        return codec0
+    return plan.codec
 
 
 def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
@@ -449,11 +485,12 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
     # wire codec: its [W, P] state (int8 residual / top-k public copy) and
     # the rand-k mask stream; the strategy may tighten a sparse codec's k
     # per round through plan.codec
-    codec0 = compression.parse_mode(cfg.compress)
+    codec0 = run_codec(cfg, adapter)
+    leafmap = codec0.kind == "leafmap"
     compress = codec0.kind != "none"
     p_model = adapter.param_count
     skey = compression.sparsify_base_key(cfg.seed)
-    err = compression.state_init(flat, codec0.kind, cfg.error_feedback)
+    err = compression.codec_state_init(flat, codec0, cfg.error_feedback)
     sparse = cfg.gossip == "sparse"
     byz = torch.as_tensor(scen.byz, device=device)
 
@@ -469,14 +506,13 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
                 flat = _reinit_joined(flat, keep,
                                       torch.as_tensor(donors, device=device))
                 if err is not None:
-                    err = compression.state_after_join(
-                        err, keep[:, None], flat, codec0.kind,
-                        cfg.error_feedback)
+                    err = compression.codec_state_after_join(
+                        err, keep[:, None], flat, codec0, cfg.error_feedback)
         mu = cluster.sample_mu()
         beta = cluster.sample_beta()
 
         plan = strategy.plan(h, alive=alive)
-        rcodec = plan.codec if plan.codec is not None else codec0
+        rcodec = round_codec(plan, codec0)
         comm_ratio = rcodec.wire_ratio(p_model) if compress else 1.0
         adj = round_topology(plan, alive, beta)
         taus = np.where(alive, np.clip(plan.taus, 1, cfg.tau_max), 0)
@@ -507,7 +543,13 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
                                     mixing=mixing)
         elif adj.sum() > 0 and sparse:
             csr = _on(round_edges(adj, mixing), device)
-            if compress:
+            if leafmap:
+                flat, err = compression.leafmap_gossip_ref(
+                    flat, err, None, rcodec,
+                    error_feedback=cfg.error_feedback,
+                    scores=randk_gate(rcodec, skey, h, p_model, device),
+                    gamma=cfg.sparse_gamma, edges=csr)
+            elif compress:
                 flat, err = compression.compressed_gossip_ref(
                     flat, err, None, error_feedback=cfg.error_feedback,
                     kind=rcodec.kind, k=rcodec.resolve_k(p_model),
@@ -518,7 +560,13 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
         elif adj.sum() > 0:
             mix = torch.as_tensor(mixfn(adj), dtype=torch.float32,
                                   device=device)
-            if compress:
+            if leafmap:
+                flat, err = compression.leafmap_gossip_ref(
+                    flat, err, mix, rcodec,
+                    error_feedback=cfg.error_feedback,
+                    scores=randk_gate(rcodec, skey, h, p_model, device),
+                    gamma=cfg.sparse_gamma)
+            elif compress:
                 flat, err = compression.compressed_gossip_ref(
                     flat, err, mix, error_feedback=cfg.error_feedback,
                     kind=rcodec.kind, k=rcodec.resolve_k(p_model),
@@ -629,6 +677,23 @@ class AdpsgdSchedule:
         return [e for r in self.rounds for e in r.events]
 
 
+def adpsgd_codec(cfg: FedHPConfig):
+    """AD-PSGD's parsed codec and scenario axis -> (codec, scenario),
+    raising the reference's ``ValueError``s in its order: trimmed/median
+    robust gossip, then a per-leaf codec map (synchronous engines only),
+    then attackers or screening under a codec."""
+    mode, _ = robust.parse_robust(cfg.robust)
+    if mode in ("trimmed", "median"):
+        robust.scenario(cfg, asynchronous=True)     # raises
+    codec = compression.parse_mode(cfg.compress)
+    if codec.kind == "leafmap":
+        raise ValueError(
+            "per-leaf codec maps (compress='leafmap:...') are "
+            "synchronous-engine only; AD-PSGD's pairwise exchange has no "
+            "leafmap form yet")
+    return codec, robust.scenario(cfg, asynchronous=True)
+
+
 def adpsgd_schedule(cluster: SimCluster, cfg: FedHPConfig, *,
                     rounds: int | None = None,
                     time_budget: float | None = None,
@@ -651,8 +716,7 @@ def adpsgd_schedule(cluster: SimCluster, cfg: FedHPConfig, *,
     ring = topo.ring_topology(n)
     neighbors = [np.nonzero(ring[i])[0] for i in range(n)]
     tau = cfg.tau_init
-    codec = compression.parse_mode(cfg.compress)
-    robust.scenario(cfg, asynchronous=True)      # the reference's rejects
+    codec, _ = adpsgd_codec(cfg)              # the reference's rejects
     comm_ratio = codec.wire_ratio(
         p_model if p_model is not None
         else int(cluster.model_bits // compression.FP32_BITS))
@@ -718,13 +782,14 @@ def adpsgd_schedule(cluster: SimCluster, cfg: FedHPConfig, *,
 
 
 def _adpsgd_delta(adapter, snap, bx, by, lr, tau: int) -> torch.Tensor:
-    """tau local SGD steps (Eq. 3) of one worker from its SNAPSHOT row
-    ``snap`` [P]; returns the delta [P]. AD-PSGD's defining staleness: the
+    """tau local SGD steps (Eq. 3) of one worker from its SNAPSHOT rows
+    ``snap`` [S, P] (one per lane; bx [S, tau, B, *feat], by [S, tau,
+    B]); returns the deltas [S, P]. AD-PSGD's defining staleness: the
     delta is applied to whatever the live row has become meanwhile."""
-    row = snap[None]
-    out = _local_train(adapter, row, bx[None], by[None],
-                       torch.full((1,), tau, device=row.device), lr, tau)
-    return (out - row)[0]
+    out = _local_train(adapter, snap, bx, by,
+                       torch.full((snap.shape[0],), tau, device=snap.device),
+                       lr, tau)
+    return out - snap
 
 
 def _pair_average(xi: torch.Tensor, xj: torch.Tensor) -> torch.Tensor:
@@ -735,10 +800,11 @@ def _pair_average(xi: torch.Tensor, xj: torch.Tensor) -> torch.Tensor:
 
 def adpsgd_join(flat, snaps, err, histn, keep, donor_w, kind: str,
                 ef: bool):
-    """The join re-initialisation before a round's events: rows in
-    ``keep`` ([W] bool) adopt the ``donor_w``-weighted average of the
-    fleet, a fresh snapshot, a reset codec state and a fresh screening
-    history -> (flat, snaps, err, histn)."""
+    """The join re-initialisation before a round's events, on S lanes
+    ([S, W, P] rows, [S, W] histories): rows in ``keep`` ([W] bool)
+    adopt their lane's ``donor_w``-weighted fleet average, a fresh
+    snapshot, a reset codec state and a fresh screening history ->
+    (flat, snaps, err, histn)."""
     flat = _blend_joined(flat, keep, donor_w)
     snaps = torch.where(keep[:, None], flat, snaps)
     if err is not None:
@@ -750,63 +816,68 @@ def adpsgd_join(flat, snaps, err, histn, keep, donor_w, kind: str,
 
 def adpsgd_event_lying(adapter, flat, snaps, histn, ev: AdpsgdEvent, bx, by,
                        lr, tau: int, pair_mix, scen):
-    """One AD-PSGD event over a lying wire, in place on ``flat``,
-    ``snaps`` and the screening history ``histn`` [W]: byzantine
-    endpoints transmit a corrupted copy of their row (no wire on a
-    self-event), each endpoint mixes its row with the payload it
-    receives — ``pair_mix(a, b)`` [2, P] takes row r to the average of
-    a[r] and b[r] — and under ``screen:<z>`` worker i first folds its
-    fresh delta norm into its history, then each endpoint keeps its own
-    row if the payload fails its z-test. Returns the event's rejections
-    (a 0-d tensor on the device; None when nothing is screened)."""
+    """One AD-PSGD event over a lying wire on S lanes, in place on
+    ``flat`` and ``snaps`` [S, W, P] and the screening history ``histn``
+    [S, W]: byzantine endpoints transmit a corrupted copy of their row
+    (no wire on a self-event), each endpoint mixes its row with the
+    payload it receives — ``pair_mix(a, b)`` [S, 2, P] takes row r to the
+    average of a[:, r] and b[:, r] — and under ``screen:<z>`` worker i
+    first folds its fresh delta norm into its history, then each
+    endpoint keeps its own row if the payload fails its z-test. Returns
+    the event's rejections per lane ([S] on the device; None when
+    nothing is screened)."""
     i, j = ev.worker, ev.partner
-    delta = _adpsgd_delta(adapter, snaps[i], bx, by, lr, tau)
-    xi, xj = flat[i] + delta, flat[j].clone()
+    delta = _adpsgd_delta(adapter, snaps[:, i], bx, by, lr, tau)
+    xi, xj = flat[:, i] + delta, flat[:, j].clone()
     wire = i != j
     ti = robust.attack_row(xi, wire and scen.byz[i], scen.scale,
                            kind=scen.attack)
     tj = robust.attack_row(xj, wire and scen.byz[j], scen.scale,
                            kind=scen.attack)
-    row_i, row_j = pair_mix(torch.stack([xi, ti]), torch.stack([tj, xj]))
+    mixed = pair_mix(torch.stack([xi, ti], dim=1),
+                     torch.stack([tj, xj], dim=1))
+    row_i, row_j = mixed[:, 0], mixed[:, 1]
     rejects = None
     if scen.mode == "screen":
-        h_i = robust.screen_fold(histn[i], torch.linalg.vector_norm(delta))
-        histn[i] = h_i
+        h_i = robust.screen_fold(histn[:, i],
+                                 torch.linalg.vector_norm(delta, dim=-1))
+        histn[:, i] = h_i
         if wire:
             acc_i = robust.screen_accept(xi, tj, h_i, scen.knob)
-            acc_j = robust.screen_accept(xj, ti, histn[j], scen.knob)
-            row_i = torch.where(acc_i, row_i, xi)
-            row_j = torch.where(acc_j, row_j, xj)
+            acc_j = robust.screen_accept(xj, ti, histn[:, j], scen.knob)
+            row_i = torch.where(acc_i[:, None], row_i, xi)
+            row_j = torch.where(acc_j[:, None], row_j, xj)
             rejects = (~acc_i).to(torch.int32) + (~acc_j).to(torch.int32)
-    flat[i], flat[j] = row_i, row_j
-    snaps[i] = flat[i]
+    flat[:, i], flat[:, j] = row_i, row_j
+    snaps[:, i] = flat[:, i]
     return rejects
 
 
 def adpsgd_event(adapter, flat, snaps, err, ev: AdpsgdEvent, bx, by, lr,
                  tau: int, average, *, codec, k: int, ef: bool,
                  gamma: float, scores=None) -> None:
-    """One AD-PSGD event, in place on the live rows ``flat``, the
-    snapshots ``snaps`` and the codec state ``err`` (all [W, P]): worker
-    i's tau-step delta from its snapshot lands on its live row, then i
-    and its partner j exchange — ``average(x_i, x_j)`` uncompressed, the
+    """One AD-PSGD event on S lanes that share it, in place on the live
+    rows ``flat``, the snapshots ``snaps`` and the codec state ``err``
+    (all [S, W, P]; bx [S, tau, B, *feat]): worker i's tau-step delta
+    from its snapshot lands on its live row, then i and its partner j
+    exchange — ``average(x_i, x_j)`` on [S, P] rows uncompressed, the
     codec's compensated pairwise update (``scores``: the event's rand-k
     draw) otherwise — and i takes a fresh snapshot. A self-event
     (i == j) writes j's row last, as the reference does."""
     i, j = ev.worker, ev.partner
-    delta = _adpsgd_delta(adapter, snaps[i], bx, by, lr, tau)
-    xi, xj = flat[i] + delta, flat[j].clone()
+    delta = _adpsgd_delta(adapter, snaps[:, i], bx, by, lr, tau)
+    xi, xj = flat[:, i] + delta, flat[:, j].clone()
     if codec.kind == "none":
         xi = xj = average(xi, xj)
     else:
         xi, xj, ei, ej = compression.compressed_pair_ref(
-            xi, xj, None if err is None else err[i],
-            None if err is None else err[j], error_feedback=ef,
+            xi, xj, None if err is None else err[:, i],
+            None if err is None else err[:, j], error_feedback=ef,
             kind=codec.kind, k=k, gamma=gamma, scores=scores)
         if err is not None:
-            err[i], err[j] = ei, ej
-    flat[i], flat[j] = xi, xj
-    snaps[i] = flat[i]
+            err[:, i], err[:, j] = ei, ej
+    flat[:, i], flat[:, j] = xi, xj
+    snaps[:, i] = flat[:, i]
 
 
 def adpsgd_setup(cfg: FedHPConfig, cluster: SimCluster, adapter, *, rounds,
@@ -815,8 +886,7 @@ def adpsgd_setup(cfg: FedHPConfig, cluster: SimCluster, adapter, *, rounds,
     schedule): the parsed ``cfg.compress``, the Byzantine scenario axis
     and the event schedule (generated unless an explicit ``schedule``
     replays one verbatim)."""
-    scen = robust.scenario(cfg, asynchronous=True)
-    codec = compression.parse_mode(cfg.compress)
+    codec, scen = adpsgd_codec(cfg)
     if schedule is None:
         return codec, scen, adpsgd_schedule(cluster, cfg, rounds=rounds,
                                             time_budget=time_budget,
@@ -882,7 +952,9 @@ def run_adpsgd(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
                                          time_budget=time_budget,
                                          schedule=schedule)
     rng = np.random.default_rng(cfg.seed)       # batch-sampling stream
-    flat = initial_params(adapter, n, cfg.seed, init_params, device)
+    # the event helpers take a leading lane axis (the fused engine's
+    # batched seeds); this loop runs one lane
+    flat = initial_params(adapter, n, cfg.seed, init_params, device)[None]
     tx, ty = holdout_set(test_x, test_y, eval_subset, device)
     tau = schedule.tau
     p_model = adapter.param_count
@@ -891,7 +963,7 @@ def run_adpsgd(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
     skey = compression.sparsify_base_key(cfg.seed)
     ev_idx = 0          # global event counter: the rand-k mask step
     snaps = flat.clone()    # per-worker snapshot its computation started at
-    histn = torch.zeros(n, device=device)       # own-delta-norm EMA
+    histn = torch.zeros(1, n, device=device)    # own-delta-norm EMA
 
     hist = History()
     if scen.mode == "screen":
@@ -913,20 +985,20 @@ def run_adpsgd(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
         for e_k, ev in enumerate(rnd.events):
             if scen.active:
                 r = adpsgd_event_lying(adapter, flat, snaps, histn, ev,
-                                       bx[e_k], by[e_k], lr, tau,
-                                       _pair_average, scen)
-                rejects = rejects if r is None else rejects + r
+                                       bx[e_k][None], by[e_k][None], lr,
+                                       tau, _pair_average, scen)
+                rejects = rejects if r is None else rejects + r[0]
             else:
-                adpsgd_event(adapter, flat, snaps, err, ev, bx[e_k],
-                             by[e_k], lr, tau, _pair_average, codec=codec,
-                             k=k_abs, ef=cfg.error_feedback,
+                adpsgd_event(adapter, flat, snaps, err, ev, bx[e_k][None],
+                             by[e_k][None], lr, tau, _pair_average,
+                             codec=codec, k=k_abs, ef=cfg.error_feedback,
                              gamma=cfg.sparse_gamma,
                              scores=randk_gate(codec, skey, ev_idx, p_model,
                                                device))
             ev_idx += 1
         meas = scen.honest(rnd.alive)
-        mean_acc, mean_loss = _mean_accuracy(adapter, flat, tx, ty, meas)
-        flat_np = flat.cpu().numpy()
+        mean_acc, mean_loss = _mean_accuracy(adapter, flat[0], tx, ty, meas)
+        flat_np = flat[0].cpu().numpy()
         fa = flat_np[meas] if meas.any() else flat_np
         d_bar = float(np.linalg.norm(fa - fa.mean(0), axis=1).mean())
         hist.records.append(RoundRecord(
@@ -937,5 +1009,5 @@ def run_adpsgd(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
             cumulative_time=rnd.clock, staleness=rnd.mean_staleness))
         if hist.screen_rejects is not None:
             hist.screen_rejects.append(int(rejects))
-    hist.final_params = adapter.unflatten(flat)
+    hist.final_params = adapter.unflatten(flat[0])
     return hist

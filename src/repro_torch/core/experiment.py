@@ -80,20 +80,26 @@ def run_algorithm(algorithm: str, cfg: FedHPConfig, *,
     (``run_dfl_fused`` for the synchronous strategies,
     ``run_adpsgd_fused`` for the event-driven AD-PSGD; the device
     work goes through the CUDA kernels on the GPU); otherwise the
-    reference ``engine.run_dfl`` / ``engine.run_adpsgd``. ``device``:
-    ``None`` means the GPU and raises without one; ``"cpu"`` runs on the
-    CPU."""
+    reference ``engine.run_dfl`` / ``engine.run_adpsgd``. ``seeds``
+    (fused only) batches S experiments as lanes of one run and returns
+    ``list[History]``, one per lane (``fused.run_dfl_fused``).
+    ``device``: ``None`` means the GPU and raises without one; ``"cpu"``
+    runs on the CPU."""
+    if seeds is not None and not fused:
+        raise ValueError("seeds batching requires fused=True")
     cfg = replace(cfg, algorithm=algorithm)
     engine.check_ported(cfg, mesh=mesh, seeds=seeds)
     train, tx, ty, shards, cluster = setup_experiment(
         cfg, non_iid_p=non_iid_p, fail_at=fail_at, spread=spread,
         churn=churn, rounds=rounds, num_samples=num_samples, device=device)
+    lanes = {} if seeds is None else dict(seeds=seeds)
     if algorithm == "adpsgd":
         run = run_adpsgd_fused if fused else engine.run_adpsgd
         return run(train, tx, ty, shards, cluster, cfg, rounds=rounds,
-                   time_budget=time_budget, device=device)
+                   time_budget=time_budget, device=device, **lanes)
     base = make_base_topology(cfg.num_workers, cfg.base_topology, cfg.seed)
     strategy = make_strategy(cfg, base)
     run = run_dfl_fused if fused else engine.run_dfl
     return run(train, tx, ty, shards, cluster, cfg, strategy, rounds=rounds,
-               mixing=mixing, time_budget=time_budget, device=device)
+               mixing=mixing, time_budget=time_budget, device=device,
+               **lanes)

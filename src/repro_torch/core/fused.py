@@ -38,6 +38,10 @@ segment's end (the reference lowers the same loop to one
   (dense and sparse gossip alike), the attacked baseline through
   ``gossip_mix`` or ``gossip_edges`` over the lying wire. Metrics cover
   the honest alive workers.
+- ``cfg.compress="leafmap:..."`` (a per-leaf codec map compiled against
+  the adapter's leaf layout): each leaf segment's payload through its
+  codec's kernels, one mixing delta on the combined payload, the top-k
+  segments' step damped by ``sparse_gamma``.
 - Churn masks (join blend, codec-state reset, alive-weighted metrics)
   are per-round device inputs.
 - AD-PSGD: the host schedule (``engine.adpsgd_schedule``) fixes every
@@ -48,8 +52,21 @@ segment's end (the reference lowers the same loop to one
   verdicts and the screening history on the device and the rejection
   counts shipped once per segment.
 
-The batched ``seeds=`` axis, CUDA graphs and the sharded twin are not
-ported yet (ROADMAP.md queue 1).
+- ``seeds=[s_1, ..., s_S]`` runs S experiments as lanes of one batch,
+  returning one ``History`` per lane: each lane takes its seed for the
+  model init and its batch stream, and the lanes share the data split,
+  the cluster draws, the (static) plans, the AD-PSGD event schedule and
+  the rand-k key (all from ``cfg.seed``), so the lane whose seed is
+  ``cfg.seed`` reproduces the unbatched run. Params and codec state are
+  [S, W, P] on the device; the model passes take the S·W workers at
+  once, the codec kernels take the lanes as rows, ``gossip_edges`` and
+  ``robust_gossip`` the block-diagonal fleet (the round's edge list or
+  neighbour table repeated with indices offset by lane·W, each row's
+  sum in the same order), and ``gossip_mix`` its lane-strided form: one
+  launch per round (per event) for all lanes.
+
+CUDA graphs and the sharded twin are not ported yet (ROADMAP.md queue
+1).
 """
 from __future__ import annotations
 
@@ -71,11 +88,12 @@ from repro_torch.core.engine import (AdpsgdSchedule, History, RoundRecord,
                                      adpsgd_event, adpsgd_event_lying,
                                      adpsgd_join,
                                      adpsgd_setup, check_ported,
+                                     codec_scores,
                                      eval_batches, holdout_set,
                                      initial_params, mixing_fn,
                                      resolve_device, round_batches,
-                                     round_clock, round_edges,
-                                     round_topology)
+                                     round_clock, round_codec, round_edges,
+                                     round_topology, run_codec)
 from repro_torch.data.synthetic import Dataset
 from repro_torch.kernels import ops
 from repro_torch.simulation.cluster import SimCluster
@@ -98,22 +116,23 @@ ADPSGD_FUSE_ROUNDS = 32
 @dataclass
 class _Segment:
     """Per-round control inputs + host-side record fields for K rounds."""
-    bx: np.ndarray            # [K, W, T, B, D] f32
-    by: np.ndarray            # [K, W, T, B] i32
+    bx: np.ndarray            # [K, S, W, T, B, D] f32 (S lanes)
+    by: np.ndarray            # [K, S, W, T, B] i64
     taus: np.ndarray          # [K, W] i64
     lrs: np.ndarray           # [K] f32
     mixes: np.ndarray | None  # [K, W, W] f32 (identity without comm);
     #                           None when sparse
-    edges: tuple | None       # sparse: CSR ([K, W+1], [K, E], [K, E])
-    nbrs: np.ndarray | None   # robust: [K, W, D] i32 neighbour tables
-    degs: np.ndarray | None   # robust: [K, W] i32 degrees
+    edges: tuple | None       # sparse: the lanes' block-diagonal CSR
+    #                           ([K, S·W+1], [K, S·E], [K, S·E])
+    nbrs: np.ndarray | None   # robust: [K, S·W, D] i32 neighbour tables
+    degs: np.ndarray | None   # robust: [K, S·W] i32 degrees
     ew: np.ndarray            # [K, W] f32  eval (accuracy/loss) weights
     cw: np.ndarray            # [K, W] f32  consensus weights
     keep: np.ndarray          # [K, W] bool join re-init mask
     rw: np.ndarray            # [K, W] f32  donor weights
     comm: np.ndarray          # [K] bool: the round gossips
     gates: np.ndarray | None  # [K, P] f32 rand-k mask draws (else None)
-    codec: Codec              # the segment's frozen wire codec
+    codec: object             # the segment's frozen wire codec
     wire_ratio: list[float]   # [K] Eq. 10 comm divisor charged per round
     tau_cap: int
     alive: list[np.ndarray]
@@ -131,30 +150,59 @@ class _Segment:
         return len(self.round_time)
 
 
+def lane_csr(csr, lanes: int, n: int):
+    """The block-diagonal fleet of ``lanes`` lanes as one CSR edge list:
+    the round's (row_ptr [W + 1], col, w) repeated, lane l's rows and
+    sources offset by l·W, each row's edges in the round's order (so a
+    kernel's per-row sum is the single lane's, bit for bit)."""
+    if lanes == 1:
+        return csr
+    row_ptr, col, w = csr
+    e = int(row_ptr[n])
+    lane = np.arange(lanes)[:, None]
+    rp = np.append((row_ptr[:n][None] + lane * e).reshape(-1), lanes * e)
+    return (rp.astype(np.int32),
+            (col[:e][None] + lane * n).reshape(-1).astype(np.int32),
+            np.tile(w[:e], lanes).astype(np.float32))
+
+
+def lane_table(nbr: np.ndarray, deg: np.ndarray, lanes: int):
+    """A neighbour table (nbr [W, D], deg [W]) over the block-diagonal
+    fleet of ``lanes`` lanes: [S·W, D] with lane l's entries offset by
+    l·W (the padding slots past deg are never read)."""
+    n = nbr.shape[0]
+    return (np.concatenate([nbr + l * n for l in range(lanes)]),
+            np.tile(deg, lanes))
+
+
 def _precompute_segment(h0: int, seg_len: int, cluster: SimCluster,
-                        strategy: Strategy, cfg: FedHPConfig, rng, data,
+                        strategy: Strategy, cfg: FedHPConfig, rngs, data,
                         shards, mixing: str, clock: float,
                         time_budget: float | None, adaptive: bool,
-                        codec0: Codec, p_model: int, skey,
+                        codec0, p_model: int, skey,
                         scen: robust.Scenario):
     """Advance cluster/strategy/batch RNG streams for rounds h0..h0+K-1 in
     the exact order ``run_dfl`` would, and pack the device inputs.
 
-    For an adaptive strategy the plan is frozen at the segment's first
-    round; static strategies re-plan every round (observation-free, so
-    this is exactly the reference behavior). The frozen plan also fixes
-    the segment's wire codec (``plan.codec``, else ``codec0``, the parsed
-    ``cfg.compress``), whose ``wire_ratio(p_model)`` divides the Eq. 10
-    comm term as in the reference engine; rand-k rounds draw their mask
-    here, from ``skey``, on the host.
+    ``rngs`` holds one batch stream per lane; every other input is the
+    lanes' shared control plane. For an adaptive strategy the plan is
+    frozen at the segment's first round; static strategies re-plan every
+    round (observation-free, so this is exactly the reference behavior).
+    The frozen plan also fixes the segment's wire codec (``plan.codec``,
+    else ``codec0``, the parsed ``cfg.compress``; always ``codec0`` for a
+    compiled leafmap), whose ``wire_ratio(p_model)`` divides the Eq. 10
+    comm term as in the reference engine; rand-k rounds (and a leafmap's
+    rand-k segments) draw their masks here, from ``skey``, on the host.
 
     Under ``cfg.gossip="sparse"`` each round's topology ships as a CSR
     edge list (``engine.round_edges``, stably sorted by destination) and
     no [W, W] matrix is built; a robust mode ships each round's padded
     neighbour table (``robust.neighbor_table``), padded to one D per
-    segment rounded up to a power of two (one kernel instance). The
-    metric weights cover the honest alive workers (``scen.honest``)."""
+    segment rounded up to a power of two (one kernel instance). Both are
+    repeated over the lanes as one block-diagonal fleet. The metric
+    weights cover the honest alive workers (``scen.honest``)."""
     n = cfg.num_workers
+    lanes = len(rngs)
     compress = codec0.kind != "none"
     sparse = cfg.gossip == "sparse"
     robust_mode = scen.mode in ("trimmed", "median")
@@ -171,13 +219,14 @@ def _precompute_segment(h0: int, seg_len: int, cluster: SimCluster,
         beta = cluster.sample_beta()
         if plan is None or not adaptive:
             plan = strategy.plan(h, alive=alive)
-        rcodec = plan.codec if plan.codec is not None else codec0
+        rcodec = round_codec(plan, codec0)
         comm_ratio = rcodec.wire_ratio(p_model) if compress else 1.0
         adj = round_topology(plan, alive, beta)
         taus = np.where(alive, np.clip(plan.taus, 1, cfg.tau_max), 0)
         tau_cap = int(max(taus.max(), 1))
         sh = shards.shards_at(h) if drifting else shards
-        bx, by = _draw_batches(rng, data, sh, tau_cap, cfg.batch_size)
+        batches = [_draw_batches(rng, data, sh, tau_cap, cfg.batch_size)
+                   for rng in rngs]
 
         # --- clock (Eq. 10-11), the reference engine's formulas ---
         t_round, waiting = round_clock(adj, taus, mu, beta, plan, alive,
@@ -191,13 +240,12 @@ def _precompute_segment(h0: int, seg_len: int, cluster: SimCluster,
         if robust_mode:
             nbr, deg = robust.neighbor_table(adj)
         elif sparse:
-            edges = (round_edges(adj, mixing) if comm else
-                     (np.zeros(n + 1, np.int32), np.zeros(0, np.int32),
-                      np.zeros(0, np.float32)))
+            edges = lane_csr(
+                round_edges(adj, mixing) if comm else
+                (np.zeros(n + 1, np.int32), np.zeros(0, np.int32),
+                 np.zeros(0, np.float32)), lanes, n)
         else:
             mix = mixing_fn(mixing)(adj) if comm else np.eye(n)
-        gate = (compression.randk_scores(skey, h, p_model)
-                if codec0.kind == "randk" else None)
         donors = alive & ~joined
         do_reinit = joined.any() and donors.any()
         keep = joined if do_reinit else np.zeros(n, bool)
@@ -210,9 +258,10 @@ def _precompute_segment(h0: int, seg_len: int, cluster: SimCluster,
         cw = meas / meas.sum() if meas.any() else np.full(n, 1.0 / n)
 
         per.append(dict(alive=alive, meas=meas, adj=adj, mu=mu, beta=beta,
-                        taus=taus, tau_cap=tau_cap, bx=bx, by=by, mix=mix,
-                        edges=edges, nbr=nbr, deg=deg,
-                        keep=keep, rw=rw, ew=ew, cw=cw, gate=gate,
+                        taus=taus, tau_cap=tau_cap, batches=batches,
+                        mix=mix, edges=edges, nbr=nbr, deg=deg,
+                        keep=keep, rw=rw, ew=ew, cw=cw,
+                        gate=codec_scores(codec0, skey, h, p_model),
                         comm=comm, codec=rcodec,
                         wire_ratio=comm_ratio,
                         lr=cfg.lr * (cfg.lr_decay ** h),
@@ -249,12 +298,17 @@ def _precompute_segment(h0: int, seg_len: int, cluster: SimCluster,
                  np.stack([pad_to(p["edges"][2], e_max) for p in per]))
     if robust_mode:
         d_max = pow2(max(p["nbr"].shape[1] for p in per))
-        nbrs = np.stack([pad_to(p["nbr"], d_max) for p in per])
-        degs = np.stack([p["deg"] for p in per])
+        tables = [lane_table(pad_to(p["nbr"], d_max), p["deg"], lanes)
+                  for p in per]
+        nbrs = np.stack([nb for nb, _ in tables])
+        degs = np.stack([dg for _, dg in tables])
 
     seg = _Segment(
-        bx=np.stack([pad(p["bx"], p["tau_cap"]) for p in per]),
-        by=np.stack([pad(p["by"], p["tau_cap"]) for p in per]),
+        bx=np.stack([np.stack([pad(b[0], p["tau_cap"])
+                               for b in p["batches"]]) for p in per]),
+        by=np.stack([np.stack([pad(b[1], p["tau_cap"])
+                               for b in p["batches"]])
+                     for p in per]).astype(np.int64),
         taus=np.stack([p["taus"] for p in per]).astype(np.int64),
         lrs=np.array([p["lr"] for p in per], np.float32),
         mixes=(np.stack([p["mix"] for p in per]).astype(np.float32)
@@ -266,7 +320,7 @@ def _precompute_segment(h0: int, seg_len: int, cluster: SimCluster,
         rw=np.stack([p["rw"] for p in per]).astype(np.float32),
         comm=np.array([p["comm"] for p in per]),
         gates=(np.stack([p["gate"] for p in per])
-               if codec0.kind == "randk" else None),
+               if per[0]["gate"] is not None else None),
         codec=per[0]["codec"],
         wire_ratio=[p["wire_ratio"] for p in per],
         tau_cap=cap,
@@ -285,59 +339,101 @@ def _precompute_segment(h0: int, seg_len: int, cluster: SimCluster,
 # device code: the K rounds of one segment
 # ---------------------------------------------------------------------------
 
+def _mix_lanes(x: torch.Tensor, u: torch.Tensor,
+               w: torch.Tensor) -> torch.Tensor:
+    """Eq. 5 on each lane through the ``gossip_mix`` kernel: x [S, B, L],
+    u [S, K, L], one mixing matrix w [B, K] shared by the lanes. One lane
+    launches the single form, more the lane-strided form (bit-equal)."""
+    if x.shape[0] == 1:
+        return ops.gossip_mix(x[0], u[0], w)[None]
+    return ops.gossip_mix_lanes(x, u, w.expand(x.shape[0], *w.shape))
+
+
 def _round_metrics(adapter, flat, tx, ty, ew, cw) -> dict:
-    """Fleet accuracy/loss over the alive workers (weights ``ew``) and the
-    consensus distance to the alive mean (weights ``cw``), on the device."""
-    accs, tloss = _fleet_metrics(adapter, flat, tx, ty)
-    dmean = cw @ flat
-    dists = torch.sqrt(torch.sum((flat - dmean[None]) ** 2, dim=1))
-    return dict(acc=ew @ accs, loss=ew @ tloss, consensus=cw @ dists)
+    """Per lane, fleet accuracy/loss over the alive workers (weights
+    ``ew``) and the consensus distance to the alive mean (weights
+    ``cw``), on the device: flat [S, W, P] -> each metric [S]. The model
+    evaluates the S·W workers in one pass."""
+    lanes, n, p = flat.shape
+    accs, tloss = _fleet_metrics(adapter, flat.reshape(lanes * n, p), tx,
+                                 ty)
+    accs, tloss = accs.view(lanes, n), tloss.view(lanes, n)
+    out = dict(acc=[], loss=[], consensus=[])
+    for s in range(lanes):
+        dmean = cw @ flat[s]
+        dists = torch.sqrt(torch.sum((flat[s] - dmean[None]) ** 2, dim=1))
+        out["acc"].append(ew @ accs[s])
+        out["loss"].append(ew @ tloss[s])
+        out["consensus"].append(cw @ dists)
+    return {k: torch.stack(v) for k, v in out.items()}
 
 
 def _gossip_round(flat, err, seg: _Segment, t: int, dev_in: dict,
                   scen: robust.Scenario, *, k: int, ef: bool,
                   gamma: float):
-    """One communicating round's gossip on the device -> (flat, err):
+    """One communicating round's gossip on the device, on S lanes ->
+    (flat, err), flat [S, W, P] and err [S, W, P] or None:
 
     - a robust mode (trimmed/median, dense or sparse gossip alike): the
-      ``robust_gossip`` kernel over the round's neighbour table, the
-      attackers' rows corrupted on the wire;
+      ``robust_gossip`` kernel over the round's neighbour table (the
+      lanes' block-diagonal one), the attackers' rows corrupted on the
+      wire;
     - attackers without one (the attacked baseline): Eq. 5 over the lying
       wire through ``gossip_edges`` (sparse) or ``gossip_mix`` with the
       mix's diagonal zeroed (dense: x_i + sum_{j != i} W_ij (T_j - x_i)
       is W_ii x_i + sum_{j != i} W_ij T_j);
-    - a codec: its compensated update, the mixing delta through
-      ``gossip_edges(v) - v`` (sparse) or the dense product;
+    - a codec (uniform or a leafmap): its compensated update on the
+      lanes' rows, the mixing delta through ``gossip_edges(v, v) - v``
+      (sparse) or each lane's dense product;
     - honest and uncompressed: ``gossip_edges`` (sparse) or
       ``gossip_mix`` (row b of the mixing matrix as the kernel's
       neighbour weights over all W rows)."""
+    lanes, n, p = flat.shape
+    rows = flat.reshape(lanes * n, p)
     edges = (tuple(a[t] for a in dev_in["edges"])
              if dev_in["edges"] is not None else None)
     if scen.active:
         transmitted = (robust.apply_attack(flat, dev_in["byz"], scen.scale,
                                            kind=scen.attack)
                        if scen.has_byz else flat)
+        sent = transmitted.reshape(lanes * n, p)
         if scen.mode != "none":
-            return ops.robust_gossip(flat, transmitted, dev_in["nbrs"][t],
+            return ops.robust_gossip(rows, sent, dev_in["nbrs"][t],
                                      dev_in["degs"][t], b=scen.knob,
-                                     mode=scen.mode), err
+                                     mode=scen.mode).view(lanes, n, p), err
         if edges is not None:
-            return ops.gossip_edges(flat, transmitted, *edges), err
-        return ops.gossip_mix(flat, transmitted,
-                              dev_in["mixes"][t] * dev_in["off_diag"]), err
-    kind = seg.codec.kind
-    if kind != "none":
-        delta = ((lambda v: ops.gossip_edges(v, v, *edges) - v)
-                 if edges is not None else None)
-        return compression.compressed_gossip_ref(
-            flat, err, None if edges is not None else dev_in["mixes"][t],
-            error_feedback=ef, kind=kind, k=k,
-            scores=(dev_in["gates"][t] if dev_in["gates"] is not None
-                    else None),
-            gamma=gamma, mix_delta_fn=delta)
+            return ops.gossip_edges(rows, sent, *edges).view(lanes, n,
+                                                             p), err
+        return _mix_lanes(flat, transmitted,
+                          dev_in["mixes"][t] * dev_in["off_diag"]), err
+    codec = seg.codec
+    if codec.kind != "none":
+        if edges is not None:
+            def delta(v):
+                return ops.gossip_edges(v, v, *edges) - v
+        else:
+            mix = dev_in["mixes"][t]
+
+            def delta(v):
+                if lanes == 1:
+                    return torch.matmul(mix, v) - v
+                return torch.cat([torch.matmul(mix, vs) - vs
+                                  for vs in v.view(lanes, n, p)])
+        state = None if err is None else err.reshape(lanes * n, p)
+        scores = dev_in["gates"][t] if dev_in["gates"] is not None else None
+        if codec.kind == "leafmap":
+            rows, state = compression.leafmap_gossip_ref(
+                rows, state, None, codec, error_feedback=ef, scores=scores,
+                gamma=gamma, mix_delta_fn=delta)
+        else:
+            rows, state = compression.compressed_gossip_ref(
+                rows, state, None, error_feedback=ef, kind=codec.kind, k=k,
+                scores=scores, gamma=gamma, mix_delta_fn=delta)
+        return (rows.view(lanes, n, p),
+                None if state is None else state.view(lanes, n, p))
     if edges is not None:
-        return ops.gossip_edges(flat, flat, *edges), err
-    return ops.gossip_mix(flat, flat, dev_in["mixes"][t]), err
+        return ops.gossip_edges(rows, rows, *edges).view(lanes, n, p), err
+    return _mix_lanes(flat, flat, dev_in["mixes"][t]), err
 
 
 def _scan_segment(adapter, flat, err, seg: _Segment, ex, ey, px, py, tx, ty,
@@ -346,13 +442,15 @@ def _scan_segment(adapter, flat, err, seg: _Segment, ex, ey, px, py, tx, ty,
     """Run the segment's rounds on ``flat``'s device with no host sync
     (the reference's ``lax.scan`` body as a Python loop); returns
     (flat', err', outs) where outs maps each metric to a host array with
-    a leading [K] round axis. ``err`` is the codec state [W, P] (None
-    for stateless runs); ``k`` the segment codec's resolved keep
-    count."""
+    a leading [K] round axis ([K, S] for the per-lane metrics). ``flat``
+    is the lanes' params [S, W, P], ``err`` the codec state [S, W, P]
+    (None for stateless runs); ``k`` the segment codec's resolved keep
+    count. The measurements (an adaptive strategy, one lane) read lane
+    0."""
     dev = flat.device
-    kind = seg.codec.kind
+    lanes, n, p = flat.shape
     bx = torch.as_tensor(seg.bx, device=dev)
-    by = torch.as_tensor(seg.by, device=dev).long()
+    by = torch.as_tensor(seg.by, device=dev)
     taus, lrs, ew, cw, keep, rw = (
         torch.as_tensor(a, device=dev)
         for a in (seg.taus, seg.lrs, seg.ew, seg.cw, seg.keep, seg.rw))
@@ -360,7 +458,7 @@ def _scan_segment(adapter, flat, err, seg: _Segment, ex, ey, px, py, tx, ty,
     def on_dev(a):
         return None if a is None else torch.as_tensor(a, device=dev)
 
-    off_diag = 1.0 - torch.eye(flat.shape[0], device=dev) \
+    off_diag = 1.0 - torch.eye(n, device=dev) \
         if measure or (scen.has_byz and seg.mixes is not None) else None
     dev_in = dict(mixes=on_dev(seg.mixes), gates=on_dev(seg.gates),
                   nbrs=on_dev(seg.nbrs), degs=on_dev(seg.degs),
@@ -374,18 +472,23 @@ def _scan_segment(adapter, flat, err, seg: _Segment, ex, ey, px, py, tx, ty,
             outs.setdefault(key, []).append(v)
 
     for t in range(len(seg)):
-        # --- join re-init (keep/donor weights precomputed host-side; an
-        # all-False keep makes the blend an exact no-op), and the joined
-        # rows' codec state reset as in the reference engine ---
-        flat = _blend_joined(flat, keep[t], rw[t])
-        if err is not None:
-            err = compression.state_after_join(err, keep[t][:, None], flat,
-                                               kind, ef)
+        # --- join re-init (keep/donor weights precomputed host-side) and
+        # the joined rows' codec state reset as in the reference engine;
+        # the host knows the rounds nobody joins, where both are no-ops ---
+        if seg.keep[t].any():
+            flat = _blend_joined(flat, keep[t], rw[t])
+            if err is not None:
+                err = compression.codec_state_after_join(
+                    err, keep[t][:, None], flat, seg.codec, ef)
         prev = flat
 
-        # --- local updating (Eq. 3), masked to tau_i ---
-        flat = _local_train(adapter, flat, bx[t], by[t], taus[t], lrs[t],
-                            seg.tau_cap)
+        # --- local updating (Eq. 3), masked to tau_i, the S·W workers in
+        # one pass ---
+        flat = _local_train(adapter, flat.reshape(lanes * n, p),
+                            bx[t].reshape(lanes * n, *bx.shape[3:]),
+                            by[t].reshape(lanes * n, *by.shape[3:]),
+                            taus[t].repeat(lanes), lrs[t],
+                            seg.tau_cap).view(lanes, n, p)
 
         # --- gossip (Eq. 5-6) on communicating rounds only (the host
         # knows which), through the kernels ---
@@ -395,18 +498,19 @@ def _scan_segment(adapter, flat, err, seg: _Segment, ex, ey, px, py, tx, ty,
 
         emit(**_round_metrics(adapter, flat, tx, ty, ew[t], cw[t]))
         if measure:
-            losses, ls, sigs, upds = _measure(adapter, flat, prev, ex, ey,
+            f0 = flat[0]
+            losses, ls, sigs, upds = _measure(adapter, f0, prev[0], ex, ey,
                                               px, py)
             # consensus.pairwise_distances' f32 gram trick, including its
             # cancellation noise floor for near-identical models — that
             # floor feeds FedHP's tracker, so it is part of the behavior
-            sq = torch.sum(flat * flat, dim=1)
+            sq = torch.sum(f0 * f0, dim=1)
             d2 = torch.clamp(sq[:, None] + sq[None, :]
-                             - 2.0 * (flat @ flat.T), min=0.0)
+                             - 2.0 * (f0 @ f0.T), min=0.0)
             emit(losses=losses, ls=ls, sigs=sigs, upds=upds,
                  edge=torch.sqrt(d2 * off_diag))
             if needs_cross:
-                emit(cross=_cross_loss_matrix(adapter, flat, ex[:, :64],
+                emit(cross=_cross_loss_matrix(adapter, f0, ex[:, :64],
                                               ey[:, :64]))
     return flat, err, {key: torch.stack(v).cpu().numpy()
                        for key, v in outs.items()}
@@ -416,41 +520,71 @@ def _scan_segment(adapter, flat, err, seg: _Segment, ex, ey, px, py, tx, ty,
 # driver
 # ---------------------------------------------------------------------------
 
+def seed_lanes(cfg: FedHPConfig, seeds, init_params) -> list[int]:
+    """The lanes' seeds: ``cfg.seed`` alone unbatched, else ``seeds``
+    flattened — raising the reference's ``ValueError`` for
+    ``init_params`` (one run's weights) with a batched axis."""
+    if seeds is None:
+        return [int(cfg.seed)]
+    if init_params is not None:
+        raise ValueError(
+            "init_params resumes ONE run's stacked params; it does not "
+            "compose with a batched seeds axis")
+    return [int(s) for s in np.asarray(seeds).reshape(-1)]
+
+
 def run_dfl_fused(data: Dataset, test_x, test_y, shards,
                   cluster: SimCluster, cfg: FedHPConfig, strategy: Strategy,
                   *, rounds: int | None = None, hidden: int = 64,
                   eval_subset: int = 512, mixing: str = "uniform",
                   time_budget: float | None = None, seeds=None,
                   adapter: modelspec.ModelAdapter | None = None,
-                  init_params=None, mesh=None, device=None) -> History:
+                  init_params=None, mesh=None, device=None):
     """Drop-in fused replacement for ``engine.run_dfl``: one experiment
     from ``cfg.seed``, returning a ``History`` that matches the reference
     engine's — host fields exactly, device metrics to float tolerance.
     ``adapter`` and ``init_params`` as in ``engine.run_dfl``.
-    ``device``: ``None`` means the GPU (raises without one); ``"cpu"``
-    runs the same loop with the kernel's plain version."""
+
+    With ``seeds`` (an array of S ints) returns ``list[History]``, one per
+    lane, batched on the device (module docstring). Static-plan
+    strategies only when S > 1: an adaptive plan is feedback from one
+    lane's trajectory. ``device``: ``None`` means the GPU (raises without
+    one); ``"cpu"`` runs the same loop with the kernels' plain
+    versions."""
     device = resolve_device(device)
     check_ported(cfg, mesh=mesh, seeds=seeds)
     scen = robust.scenario(cfg, asynchronous=False)
     rounds = rounds or cfg.rounds
     n = cfg.num_workers
     adaptive = getattr(strategy, "adaptive", False)
+    seed_list = seed_lanes(cfg, seeds, init_params)
     if adapter is None:
         adapter = modelspec.adapter_for(cfg, data, hidden=hidden)
-    rng = np.random.default_rng(cfg.seed)
-    flat = initial_params(adapter, n, cfg.seed, init_params, device)
-    ex, ey, px, py = eval_batches(rng, data, shards, device)
+    if adaptive and len(seed_list) > 1:
+        raise ValueError(
+            f"strategy {strategy.name!r} adapts its plan to per-round "
+            "measurements; a batched seeds axis would need one plan per "
+            "seed. Batch static-plan strategies (dpsgd/ldsgd) or run "
+            "seeds sequentially.")
+    # per lane: its init and its batch stream, whose first draws are the
+    # eval batches (only lane 0's are read: the measurements run on one
+    # lane)
+    rngs = [np.random.default_rng(s) for s in seed_list]
+    flat = torch.stack([initial_params(adapter, n, s, init_params, device)
+                        for s in seed_list])
+    ex, ey, px, py = [eval_batches(rng, data, shards, device)
+                      for rng in rngs][0]
     tx, ty = holdout_set(test_x, test_y, eval_subset, device)
     needs_cross = strategy.name == "pens"
     replan = max(int(cfg.replan_every), 1)
     # the codec state stays on the device across segments (None when the
     # codec carries none: uncompressed, rand-k, error feedback off)
-    codec0 = compression.parse_mode(cfg.compress)
+    codec0 = run_codec(cfg, adapter)
     p_model = adapter.param_count
     skey = compression.sparsify_base_key(cfg.seed)
-    err = compression.state_init(flat, codec0.kind, cfg.error_feedback)
+    err = compression.codec_state_init(flat, codec0, cfg.error_feedback)
 
-    hist = History()
+    hists = [History() for _ in seed_list]
     clock = 0.0
     h = 0
     stop = False
@@ -458,7 +592,7 @@ def run_dfl_fused(data: Dataset, test_x, test_y, shards,
         seg_len = (min(replan, rounds - h) if adaptive
                    else min(rounds - h, MAX_FUSE_ROUNDS))
         seg, clock, stop = _precompute_segment(
-            h, seg_len, cluster, strategy, cfg, rng, data, shards, mixing,
+            h, seg_len, cluster, strategy, cfg, rngs, data, shards, mixing,
             clock, time_budget, adaptive, codec0, p_model, skey, scen)
         flat, err, outs = _scan_segment(
             adapter, flat, err, seg, ex, ey, px, py, tx, ty,
@@ -466,14 +600,15 @@ def run_dfl_fused(data: Dataset, test_x, test_y, shards,
             k=seg.codec.resolve_k(p_model), ef=cfg.error_feedback,
             gamma=cfg.sparse_gamma, scen=scen)
         for t in range(len(seg)):
-            hist.records.append(RoundRecord(
-                round=h + t, round_time=seg.round_time[t],
-                waiting_time=seg.waiting[t],
-                accuracy=float(outs["acc"][t]),
-                loss=float(outs["loss"][t]),
-                mean_tau=seg.mean_tau[t], num_links=seg.num_links[t],
-                consensus=float(outs["consensus"][t]),
-                cumulative_time=seg.cum_time[t]))
+            for s, hist in enumerate(hists):
+                hist.records.append(RoundRecord(
+                    round=h + t, round_time=seg.round_time[t],
+                    waiting_time=seg.waiting[t],
+                    accuracy=float(outs["acc"][t, s]),
+                    loss=float(outs["loss"][t, s]),
+                    mean_tau=seg.mean_tau[t], num_links=seg.num_links[t],
+                    consensus=float(outs["consensus"][t, s]),
+                    cumulative_time=seg.cum_time[t]))
             if adaptive:
                 a = seg.meas[t]
                 strategy.observe(
@@ -488,8 +623,9 @@ def run_dfl_fused(data: Dataset, test_x, test_y, shards,
                     if needs_cross else None,
                     alive=seg.alive[t], wire_ratio=seg.wire_ratio[t])
         h += len(seg)
-    hist.final_params = adapter.unflatten(flat)
-    return hist
+    for s, hist in enumerate(hists):
+        hist.final_params = adapter.unflatten(flat[s])
+    return hists if seeds is not None else hists[0]
 
 
 # ---------------------------------------------------------------------------
@@ -500,29 +636,33 @@ def _adpsgd_segment(adapter, flat, snaps, err, histn, rounds, tx, ty, *,
                     codec: Codec, k: int, ef: bool, gamma: float, tau: int,
                     scen: robust.Scenario, **inp):
     """Replay a segment's rounds of AD-PSGD events on the device with no
-    host sync: ``rounds`` are the schedule's ``AdpsgdRound``s and ``inp``
-    their device inputs — batches ``bx``/``by`` [K, N, tau, B, *feat],
-    ``lrs`` [K], join masks ``keep`` and donor weights ``rw`` [K, W],
-    metric weights ``ew``/``cw`` [K, W] and the events' rand-k mask draws
-    ``gates`` [K·N, P] (or None). The live rows, the snapshots, the codec
-    state and the screening history ``histn`` [W] are updated in place,
-    row by row; screening verdicts stay on the device. Returns
-    (flat, snaps, err, histn, per-round metrics as host arrays, with the
-    rejections per round under ``"rejects"`` when screening)."""
+    host sync, on S lanes that share every event: ``rounds`` are the
+    schedule's ``AdpsgdRound``s and ``inp`` their device inputs —
+    batches ``bx``/``by`` [K, N, S, tau, B, *feat], ``lrs`` [K], join
+    masks ``keep`` and donor weights ``rw`` [K, W], metric weights
+    ``ew``/``cw`` [K, W] and the events' rand-k mask draws ``gates``
+    [K·N, P] (or None). The live rows, the snapshots, the codec state
+    ([S, W, P]) and the screening history ``histn`` [S, W] are updated in
+    place, row by row; screening verdicts stay on the device. Returns
+    (flat, snaps, err, histn, per-round metrics as host arrays [K, S],
+    with the rejections per round under ``"rejects"`` when
+    screening)."""
     dev = flat.device
+    lanes = flat.shape[0]
     half = torch.full((1, 1), 0.5, dtype=torch.float32, device=dev)
     half2 = torch.diag(torch.full((2,), 0.5, dtype=torch.float32,
                                   device=dev))
 
     def average(xi, xj):
-        # the atomic pairwise average xi + ½ (xj - xi): one row through
-        # the gossip kernel
-        return ops.gossip_mix(xi[None], xj[None], half)[0]
+        # the atomic pairwise average xi + ½ (xj - xi) of each lane's
+        # rows [S, P]: one row a lane through the gossip kernel
+        return _mix_lanes(xi[:, None], xj[:, None], half)[:, 0]
 
     def pair_mix(a, b):
-        # both endpoints' rows in one launch: row r is a[r] + ½ (b[r] -
-        # a[r]); the zero off-diagonal weights add exact zeros
-        return ops.gossip_mix(a, b, half2)
+        # both endpoints' rows [S, 2, P] in one launch: row r is a[:, r] +
+        # ½ (b[:, r] - a[:, r]); the zero off-diagonal weights add exact
+        # zeros
+        return _mix_lanes(a, b, half2)
 
     outs: dict[str, list] = {}
     ev = 0
@@ -531,7 +671,7 @@ def _adpsgd_segment(adapter, flat, snaps, err, histn, rounds, tx, ty, *,
             flat, snaps, err, histn = adpsgd_join(
                 flat, snaps, err, histn, inp["keep"][t], inp["rw"][t],
                 codec.kind, ef)
-        rejects = torch.zeros((), dtype=torch.int32, device=dev)
+        rejects = torch.zeros(lanes, dtype=torch.int32, device=dev)
         for e_k, e in enumerate(rnd.events):
             if scen.active:
                 r = adpsgd_event_lying(adapter, flat, snaps, histn, e,
@@ -562,7 +702,7 @@ def run_adpsgd_fused(data: Dataset, test_x, test_y, shards,
                      time_budget: float | None = None, seeds=None,
                      schedule: AdpsgdSchedule | None = None,
                      adapter: modelspec.ModelAdapter | None = None,
-                     init_params=None, device=None) -> History:
+                     init_params=None, device=None):
     """Drop-in fused replacement for ``engine.run_adpsgd``: the host
     precomputes the event schedule (``engine.adpsgd_schedule``) and each
     segment's per-event batches, and the device replays the events with
@@ -571,13 +711,19 @@ def run_adpsgd_fused(data: Dataset, test_x, test_y, shards,
     ``cfg.compress`` the compensated exchange through the codec kernels
     (one quantize and one dequantize, or one sparsify, per event).
     Matches ``run_adpsgd`` record for record: host fields (staleness
-    included) exactly, device metrics to float tolerance. ``device``:
+    included) exactly, device metrics to float tolerance.
+
+    With ``seeds`` (an array of S ints) returns ``list[History]``, one per
+    lane: the lanes share the event schedule, the cluster draws and the
+    rand-k key, each takes its init and batch stream from its seed, and
+    every event runs once for all lanes (module docstring). ``device``:
     ``None`` means the GPU (raises without one); ``"cpu"`` runs the same
     loop with the kernels' plain versions."""
     device = resolve_device(device)
     check_ported(cfg, seeds=seeds)
     rounds = rounds or cfg.rounds
     n = cfg.num_workers
+    seed_list = seed_lanes(cfg, seeds, init_params)
     if adapter is None:
         adapter = modelspec.adapter_for(cfg, data, hidden=hidden)
     codec, scen, schedule = adpsgd_setup(cfg, cluster, adapter,
@@ -588,22 +734,26 @@ def run_adpsgd_fused(data: Dataset, test_x, test_y, shards,
     p_model = adapter.param_count
     k_abs = codec.resolve_k(p_model)
     skey = compression.sparsify_base_key(cfg.seed)
-    rng = np.random.default_rng(cfg.seed)       # batch-sampling stream
-    flat = initial_params(adapter, n, cfg.seed, init_params, device)
+    rngs = [np.random.default_rng(s) for s in seed_list]   # batch streams
+    flat = torch.stack([initial_params(adapter, n, s, init_params, device)
+                        for s in seed_list])
     snaps = flat.clone()
     err = compression.state_init(flat, codec.kind, cfg.error_feedback)
-    histn = torch.zeros(n, device=device)       # own-delta-norm EMA
+    histn = torch.zeros(len(seed_list), n, device=device)   # delta-norm EMA
     tx, ty = holdout_set(test_x, test_y, eval_subset, device)
 
-    hist = History()
+    hists = [History() for _ in seed_list]
     if scen.mode == "screen":
-        hist.screen_rejects = []
+        for hist in hists:
+            hist.screen_rejects = []
     done = 0
     ev0 = 0             # global event index: the rand-k mask step
     while done < len(schedule.rounds):
         seg = schedule.rounds[done:done + ADPSGD_FUSE_ROUNDS]
-        batches = [round_batches(rng, data, shards, done + t, r, tau,
-                                 cfg.batch_size) for t, r in enumerate(seg)]
+        # per lane, its stream's draws in the reference loop's order
+        batches = [[round_batches(rng, data, shards, done + t, r, tau,
+                                  cfg.batch_size) for t, r in enumerate(seg)]
+                   for rng in rngs]
         n_ev = sum(len(r.events) for r in seg)
         # metric weights over the honest alive workers
         meas = np.stack([scen.honest(r.alive) for r in seg])
@@ -611,8 +761,11 @@ def run_adpsgd_fused(data: Dataset, test_x, test_y, shards,
         cw = np.where(n_meas > 0, meas / np.maximum(n_meas, 1), 1.0 / n)
         ew = np.where(n_meas < n, cw, 1.0 / n)
         inp = dict(
-            bx=np.stack([b[0] for b in batches]),
-            by=np.stack([b[1] for b in batches]).astype(np.int64),
+            # [K, N, S, ...]: an event's lanes side by side
+            bx=np.stack([np.stack([b[t][0] for b in batches], axis=1)
+                         for t in range(len(seg))]),
+            by=np.stack([np.stack([b[t][1] for b in batches], axis=1)
+                         for t in range(len(seg))]).astype(np.int64),
             lrs=np.array([r.lr for r in seg], np.float32),
             keep=np.stack([r.keep for r in seg]),
             rw=np.stack([r.donor_w for r in seg]).astype(np.float32),
@@ -627,15 +780,18 @@ def run_adpsgd_fused(data: Dataset, test_x, test_y, shards,
             **{key: None if v is None else torch.as_tensor(v, device=device)
                for key, v in inp.items()})
         for t, r in enumerate(seg):
-            hist.records.append(RoundRecord(
-                round=done + t, round_time=0.0, waiting_time=0.0,
-                accuracy=float(outs["acc"][t]), loss=float(outs["loss"][t]),
-                mean_tau=float(tau), num_links=schedule.num_links,
-                consensus=float(outs["consensus"][t]),
-                cumulative_time=r.clock, staleness=r.mean_staleness))
-            if hist.screen_rejects is not None:
-                hist.screen_rejects.append(int(outs["rejects"][t]))
+            for s, hist in enumerate(hists):
+                hist.records.append(RoundRecord(
+                    round=done + t, round_time=0.0, waiting_time=0.0,
+                    accuracy=float(outs["acc"][t, s]),
+                    loss=float(outs["loss"][t, s]),
+                    mean_tau=float(tau), num_links=schedule.num_links,
+                    consensus=float(outs["consensus"][t, s]),
+                    cumulative_time=r.clock, staleness=r.mean_staleness))
+                if hist.screen_rejects is not None:
+                    hist.screen_rejects.append(int(outs["rejects"][t, s]))
         done += len(seg)
         ev0 += n_ev
-    hist.final_params = adapter.unflatten(flat)
-    return hist
+    for s, hist in enumerate(hists):
+        hist.final_params = adapter.unflatten(flat[s])
+    return hists if seeds is not None else hists[0]

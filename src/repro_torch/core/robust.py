@@ -285,18 +285,19 @@ def trimmed_mean_edges(flat: torch.Tensor, transmitted: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def screen_fold(h: torch.Tensor, nd_own: torch.Tensor) -> torch.Tensor:
-    """Fold one own-delta norm into the scalar EMA history ``h``; an
-    unseeded history (h == 0) takes the first norm as it is."""
+    """Fold an own-delta norm into the EMA history ``h`` (elementwise:
+    one per lane); an unseeded history (h == 0) takes the first norm as
+    it is."""
     a = SCREEN_EMA_ALPHA
     return torch.where(h > 0, (1.0 - a) * h + a * nd_own, nd_own)
 
 
 def screen_accept(x_self: torch.Tensor, t_peer: torch.Tensor,
                   h: torch.Tensor, z: float) -> torch.Tensor:
-    """Accept/reject verdict (0-d bool tensor, on the device) for one
-    incoming payload: with a seeded history (h > 0) the z-test
-    ||t_peer - x_self|| <= z h, before it the cosine fallback
-    <t_peer, x_self> >= 0."""
-    nd = torch.linalg.vector_norm(t_peer - x_self)
-    cos_ok = torch.dot(t_peer, x_self) >= 0
+    """Accept/reject verdicts (bool, on the device) for incoming
+    payloads, one per row of [..., P] rows (one per lane): with a seeded
+    history (h > 0) the z-test ||t_peer - x_self|| <= z h, before it the
+    cosine fallback <t_peer, x_self> >= 0."""
+    nd = torch.linalg.vector_norm(t_peer - x_self, dim=-1)
+    cos_ok = torch.linalg.vecdot(t_peer, x_self) >= 0
     return torch.where(h > 0, nd <= h * z, cos_ok)

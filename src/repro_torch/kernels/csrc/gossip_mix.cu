@@ -8,6 +8,15 @@
 // AD-PSGD's pairwise average is the B = K = 1, w = 0.5 case, and both
 // endpoints' rows in one launch the B = K = 2 case.
 //
+// The lane-strided form (gossip_mix_lanes_f32) runs S independent such
+// mixes in one launch, for the fused engines' batched seeds axis: x
+// [S, B, L], u [S, K, L], y [S, B, L] contiguous, w [S, B, K] with each
+// lane's [B, K] contiguous and a lane stride of its own (0: one mixing
+// matrix shared by every lane). The lane is the grid's z axis; a lane's
+// blocks do exactly what one launch of the single form does, so the
+// result is bit-equal to S launches of it. K is not folded into S K
+// neighbours: each lane keeps its own K.
+//
 // Replaces the TPU kernel repro/kernels/gossip_mix.py:gossip_mix_2d
 // (body _gossip_kernel, called at :45), which the reference's fused scan
 // vmaps over the W workers (repro/core/fused.py:286-289). The (8, 1024)
@@ -89,8 +98,13 @@ template <int R>
 __global__ void __launch_bounds__(kCols)
 gossip_mix_kernel(const float* __restrict__ x, const float* __restrict__ u,
                   const float* __restrict__ w, float* __restrict__ y, int B,
-                  int K, int L, int alias) {
+                  int K, int L, int alias, int64_t w_lane_stride) {
   extern __shared__ float smem[];
+  const int64_t lane = blockIdx.z;     // 0 in the single form
+  x += lane * B * (int64_t)L;
+  u += lane * K * (int64_t)L;
+  y += lane * B * (int64_t)L;
+  w += lane * w_lane_stride;
   const int kc_max = min(K, kChunk);
   float* su = smem;                    // [kc_max][kCols]
   float* sw = su + kc_max * kCols;     // [kc][R]: a k's R weights together
@@ -173,14 +187,39 @@ int num_sms() {
 }
 
 template <int R>
-int launch(const float* x, const float* u, const float* w, float* y, int B,
-           int K, int L, int alias, cudaStream_t stream) {
-  const dim3 grid((L + kCols - 1) / kCols, (B + R - 1) / R);
+int launch(const float* x, const float* u, const float* w, float* y, int S,
+           int B, int K, int L, int alias, int64_t w_lane_stride,
+           cudaStream_t stream) {
+  const dim3 grid((L + kCols - 1) / kCols, (B + R - 1) / R, S);
   const size_t smem =
       (size_t)(min(K, kChunk) * kCols + R * min(K, kChunk)) * sizeof(float);
   gossip_mix_kernel<R><<<grid, kCols, smem, stream>>>(x, u, w, y, B, K, L,
-                                                      alias);
+                                                      alias, w_lane_stride);
   return (int)cudaGetLastError();
+}
+
+int launch_lanes(const float* x, const float* u, const float* w, float* y,
+                 int S, int B, int K, int L, int64_t w_lane_stride,
+                 cudaStream_t st) {
+  if (S == 0 || B == 0 || L == 0) return 0;
+  const int64_t tiles = (L + kCols - 1) / kCols;
+  int rows = 1;
+  while (rows < B && rows < kMaxRows) rows <<= 1;
+  while (rows > kMinRows &&
+         tiles * ((B + rows - 1) / rows) * S < num_sms()) {
+    rows >>= 1;
+  }
+  const int alias = x == u && B == K && K <= kChunk;
+  switch (rows) {
+    case 1: return launch<1>(x, u, w, y, S, B, K, L, alias, w_lane_stride, st);
+    case 2: return launch<2>(x, u, w, y, S, B, K, L, alias, w_lane_stride, st);
+    case 4: return launch<4>(x, u, w, y, S, B, K, L, alias, w_lane_stride, st);
+    case 8: return launch<8>(x, u, w, y, S, B, K, L, alias, w_lane_stride, st);
+    case 16:
+      return launch<16>(x, u, w, y, S, B, K, L, alias, w_lane_stride, st);
+    default:
+      return launch<32>(x, u, w, y, S, B, K, L, alias, w_lane_stride, st);
+  }
 }
 
 }  // namespace
@@ -190,23 +229,18 @@ int launch(const float* x, const float* u, const float* w, float* y, int B,
 // devices; B <= 65535 (the row groups on grid y) and L < 2**31.
 extern "C" int gossip_mix_f32(const float* x, const float* u, const float* w,
                               float* y, int B, int K, int L, void* stream) {
-  if (B == 0 || L == 0) return 0;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int64_t tiles = (L + kCols - 1) / kCols;
-  int rows = 1;
-  while (rows < B && rows < kMaxRows) rows <<= 1;
-  while (rows > kMinRows && tiles * ((B + rows - 1) / rows) < num_sms()) {
-    rows >>= 1;
-  }
-  const int alias = x == u && B == K && K <= kChunk;
-  switch (rows) {
-    case 1: return launch<1>(x, u, w, y, B, K, L, alias, st);
-    case 2: return launch<2>(x, u, w, y, B, K, L, alias, st);
-    case 4: return launch<4>(x, u, w, y, B, K, L, alias, st);
-    case 8: return launch<8>(x, u, w, y, B, K, L, alias, st);
-    case 16: return launch<16>(x, u, w, y, B, K, L, alias, st);
-    default: return launch<32>(x, u, w, y, B, K, L, alias, st);
-  }
+  return launch_lanes(x, u, w, y, 1, B, K, L, 0, (cudaStream_t)stream);
+}
+
+// The lane-strided form: S <= 65535 lanes (grid z) of the single form,
+// x [S, B, L], u [S, K, L], y [S, B, L] contiguous; lane s's w at
+// w + s * w_lane_stride. The same return and checks as gossip_mix_f32.
+extern "C" int gossip_mix_lanes_f32(const float* x, const float* u,
+                                    const float* w, float* y, int S, int B,
+                                    int K, int L, int64_t w_lane_stride,
+                                    void* stream) {
+  return launch_lanes(x, u, w, y, S, B, K, L, w_lane_stride,
+                      (cudaStream_t)stream);
 }
 
 // cudaGetErrorString for the codes the launchers return.

@@ -34,9 +34,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"gossip_mix": 0, "quantize_block": 0, "dequantize_block": 0,
-            "sparsify_block": 0, "gossip_edges": 0, "robust_gossip": 0,
-            "flash_attention": 0, "consensus_dist": 0}
+LAUNCHES = {"gossip_mix": 0, "gossip_mix_lanes": 0, "quantize_block": 0,
+            "dequantize_block": 0, "sparsify_block": 0, "gossip_edges": 0,
+            "robust_gossip": 0, "flash_attention": 0, "consensus_dist": 0}
 # robust_gossip's and gossip_edges' launches by instance (each also
 # counts in LAUNCHES)
 INSTANCE_LAUNCHES = {"robust_gossip:register": 0, "robust_gossip:wide": 0,
@@ -150,6 +150,8 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()[0]))
         lib.gossip_mix_f32.argtypes = [ctypes.c_void_p] * 4 + \
             [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.gossip_mix_lanes_f32.argtypes = [ctypes.c_void_p] * 4 + \
+            [ctypes.c_int] * 4 + [ctypes.c_int64, ctypes.c_void_p]
         lib.quantize_block_f32.argtypes = [ctypes.c_void_p] * 3 + \
             [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.dequantize_block_f32.argtypes = [ctypes.c_void_p] * 3 + \
@@ -166,8 +168,9 @@ def _library() -> ctypes.CDLL:
             [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
         lib.consensus_dist_f32.argtypes = [ctypes.c_void_p] * 4 + \
             [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
-        for fn in (lib.gossip_mix_f32, lib.quantize_block_f32,
-                   lib.dequantize_block_f32, lib.sparsify_block_f32,
+        for fn in (lib.gossip_mix_f32, lib.gossip_mix_lanes_f32,
+                   lib.quantize_block_f32, lib.dequantize_block_f32,
+                   lib.sparsify_block_f32,
                    lib.gossip_edges_f32, lib.robust_gossip_f32,
                    lib.flash_attention_f32, lib.consensus_dist_f32):
             fn.restype = ctypes.c_int
@@ -244,6 +247,45 @@ def gossip_mix(x: torch.Tensor, u: torch.Tensor,
     y = torch.empty_like(x)
     _launch("gossip_mix", _library().gossip_mix_f32, x.device, x.data_ptr(),
             u.data_ptr(), w.data_ptr(), y.data_ptr(), b, k, length)
+    return y
+
+
+def gossip_mix_lanes(x: torch.Tensor, u: torch.Tensor,
+                     w: torch.Tensor) -> torch.Tensor:
+    """S independent Eq. 5 mixes in one launch (the fused engines'
+    batched seeds axis): y[s, b] = x[s, b] + sum_k w[s, b, k] (u[s, k] -
+    x[s, b]).
+
+    x: [S, B, L], u: [S, K, L], w: [S, B, K], f32 -> [S, B, L]; w may
+    be one [B, K] matrix expanded over the lanes (lane stride 0). CPU
+    tensors run the plain version (``ref.gossip_mix_lanes_ref``, S calls
+    of ``gossip_mix_ref``); CUDA tensors launch the kernel's lane-strided
+    form, bit-equal to S launches of ``gossip_mix``, and count it under
+    ``gossip_mix_lanes``."""
+    if x.dim() != 3 or u.dim() != 3 or w.dim() != 3:
+        raise ValueError("gossip_mix_lanes takes x [S, B, L], u [S, K, L], "
+                         "w [S, B, K]")
+    (s, b, length), k = x.shape, u.shape[1]
+    if u.shape[0] != s or u.shape[2] != length or \
+            tuple(w.shape) != (s, b, k):
+        raise ValueError(f"gossip_mix_lanes shapes disagree: x "
+                         f"{tuple(x.shape)}, u {tuple(u.shape)}, w "
+                         f"{tuple(w.shape)}")
+    if _on_cpu(x, u, w):
+        return ref.gossip_mix_lanes_ref(x, u, w)
+    if not w[0].is_contiguous():
+        raise ValueError("gossip_mix_lanes: each lane's w must be a "
+                         "contiguous [B, K]")
+    _check_cuda("gossip_mix_lanes", {"x": x, "u": u, "w": w[0]})
+    if s > _MAX_ROWS or b > _MAX_ROWS or k > _MAX_NEIGHBORS or \
+            length >= 2 ** 31:
+        raise ValueError(f"gossip_mix_lanes supports S, B <= {_MAX_ROWS}, "
+                         f"K <= {_MAX_NEIGHBORS}, L < 2**31; got S={s}, "
+                         f"B={b}, K={k}, L={length}")
+    y = torch.empty_like(x)
+    _launch("gossip_mix_lanes", _library().gossip_mix_lanes_f32, x.device,
+            x.data_ptr(), u.data_ptr(), w.data_ptr(), y.data_ptr(), s, b, k,
+            length, w.stride(0) if s > 1 else 0)
     return y
 
 

@@ -55,6 +55,15 @@ def gossip_mix_ref(x: torch.Tensor, u: torch.Tensor,
     return acc
 
 
+def gossip_mix_lanes_ref(x: torch.Tensor, u: torch.Tensor,
+                         w: torch.Tensor) -> torch.Tensor:
+    """x: [S, B, L]; u: [S, K, L]; w: [S, B, K] -> [S, B, L]: lane s is
+    ``gossip_mix_ref(x[s], u[s], w[s])``, so the lanes are bit-equal to S
+    separate calls."""
+    return torch.stack([gossip_mix_ref(x[s], u[s], w[s])
+                        for s in range(x.shape[0])])
+
+
 def quantize_block_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [W, P] f32 -> (q int8 [W, rows·cols], scales f32 [W, n_tiles]):
     per tile scale = max(amax / 127, 1e-30) and q = clip(round_half_even(

@@ -13,7 +13,7 @@ layers). The layers run as a Python loop over those stacks, in the
 reference's scan order.
 
 Serving (``prefill``, ``decode_step``, ``init_cache``) waits for
-ROADMAP.md queue 1, item 10.
+ROADMAP.md queue 1, item 4.
 """
 from __future__ import annotations
 

@@ -31,11 +31,11 @@ def check_trainable(cfg) -> None:
     if cfg.remat != "none":
         raise NotImplementedError(
             f"remat={cfg.remat!r} is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1, item 8); use remat='none'")
+            "(ROADMAP.md queue 1, item 2); use remat='none'")
     if cfg.dtype != "float32":
         raise NotImplementedError(
             f"dtype={cfg.dtype!r} is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1, item 8); the registry models train in "
+            "(ROADMAP.md queue 1, item 2); the registry models train in "
             "float32")
 
 

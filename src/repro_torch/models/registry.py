@@ -7,7 +7,7 @@ module with a uniform training interface over worker-stacked parameters
 
 Only the ``dense`` family is ported; the others raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings them.
-Serving entry points wait for item 10.
+Serving entry points wait for item 4.
 """
 from __future__ import annotations
 
@@ -24,7 +24,8 @@ def get_model(family: str):
     if family in _UNPORTED:
         raise NotImplementedError(
             f"model family {family!r} is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1, item 8)")
+            f"(ROADMAP.md queue 1, item "
+            f"{4 if family in ('encdec', 'vlm') else 1})")
     if family not in _FAMILY:
         raise KeyError(f"unknown model family {family!r}")
     return _FAMILY[family]

@@ -185,22 +185,28 @@ EXACT = ("round", "round_time", "waiting_time", "mean_tau", "num_links",
 ACC_ATOL = 1.0 / 512
 REL_TOL = 1e-4
 CONSENSUS_ATOL = 1e-6
+# under an int8 codec (tests/test_torch_codec_engine.py says why)
+INT8_LOSS_RTOL = 2e-3
+INT8_CONSENSUS_RTOL = 1e-2
 
 
-def assert_parity(h_ref, h_port, rounds: int) -> None:
+def assert_parity(h_ref, h_port, rounds: int, *, int8: bool = False) -> None:
     """The parity contract between a reference and a port History: host
     fields exactly equal, accuracy within 1/512, loss and consensus
     within 1e-4 relative (consensus also 1e-6 absolute), finite final
-    parameters of the adapter's leaves."""
+    parameters of the adapter's leaves. ``int8``: a run whose codec
+    quantizes to int8, held to loss 2e-3 and consensus 1e-2 relative."""
     assert len(h_ref.records) == len(h_port.records) == rounds
     a, b = h_ref.as_arrays(), h_port.as_arrays()
     for k in EXACT:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     np.testing.assert_allclose(a["accuracy"], b["accuracy"], rtol=0,
                                atol=ACC_ATOL)
-    np.testing.assert_allclose(a["loss"], b["loss"], rtol=REL_TOL)
-    np.testing.assert_allclose(a["consensus"], b["consensus"],
-                               rtol=REL_TOL, atol=CONSENSUS_ATOL)
+    np.testing.assert_allclose(a["loss"], b["loss"],
+                               rtol=INT8_LOSS_RTOL if int8 else REL_TOL)
+    np.testing.assert_allclose(
+        a["consensus"], b["consensus"], atol=CONSENSUS_ATOL,
+        rtol=INT8_CONSENSUS_RTOL if int8 else REL_TOL)
     for name, leaf in h_port.final_params.items():
         assert bool(torch.isfinite(leaf).all()), name
 

@@ -111,22 +111,41 @@ def _remat_block_through_an_adapter(cfg):
                    device="cpu")
 
 
-@pytest.mark.parametrize("algo,fields", [
-    ("dpsgd", dict(compress="leafmap:default=int8")),
-    ("dpsgd", dict(gossip="sparse", compress="leafmap:default=int8")),
-    ("dpsgd", dict(gossip="sparse", sharded=True)),
-    ("dpsgd", dict(sharded=True)),
-    ("dpsgd", dict(model="moe:d=16")),
-    ("dpsgd", dict(robust="median", model="hybrid:d=16")),
-    ("dpsgd", None),
-    ("adpsgd", dict(robust="screen:3", compress="leafmap:default=int8"))],
+# (algorithm, config fields, what the call does): NotImplementedError
+# naming ROADMAP.md where the port still refuses, the reference's
+# ValueError where the reference refuses too, None where it now runs (the
+# per-leaf codec maps, ported since these cases were written)
+@pytest.mark.parametrize("algo,fields,expect", [
+    ("dpsgd", dict(compress="leafmap:default=int8"), None),
+    ("dpsgd", dict(gossip="sparse", compress="leafmap:default=int8"), None),
+    ("dpsgd", dict(gossip="sparse", sharded=True), NotImplementedError),
+    ("dpsgd", dict(sharded=True), NotImplementedError),
+    ("dpsgd", dict(model="moe:d=16"), NotImplementedError),
+    ("dpsgd", dict(robust="median", model="hybrid:d=16"),
+     NotImplementedError),
+    ("dpsgd", None, NotImplementedError),
+    ("adpsgd", dict(robust="screen:3", compress="leafmap:default=int8"),
+     ValueError),
+    ("dpsgd", dict(sharded=True, compress="leafmap:default=int8"),
+     NotImplementedError)],
     ids=["compress-leafmap", "gossip-sparse-compress-leafmap",
          "gossip-sparse-sharded", "sharded-True", "model-moe",
          "robust-median-model-hybrid", "remat-block-adapter",
-         "adpsgd-robust-screen-leafmap"])
-def test_unported_options_raise(algo, fields):
-    """``fields`` None: remat="block" through an adapter."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+         "adpsgd-robust-screen-leafmap", "sharded-compress-leafmap"])
+def test_unported_options_raise(algo, fields, expect):
+    """``fields`` None: remat="block" through an adapter. A leafmap runs
+    on both synchronous engines; AD-PSGD refuses it with the reference's
+    ValueError."""
+    if expect is None:
+        for fused in (False, True):
+            h = run_algorithm(algo, port_config(**fields), rounds=2,
+                              fused=fused, device="cpu")
+            assert len(h.records) == 2
+            assert np.isfinite(h.as_arrays()["loss"]).all()
+        return
+    match = {NotImplementedError: "ROADMAP.md",
+             ValueError: "synchronous-engine only"}[expect]
+    with pytest.raises(expect, match=match):
         if fields is None:
             _remat_block_through_an_adapter(port_config())
         else:
@@ -137,6 +156,13 @@ def test_unported_options_raise(algo, fields):
 @pytest.mark.parametrize("kw", [dict(seeds=[0, 1]), dict(mesh=object())],
                          ids=["seeds", "mesh"])
 def test_unported_arguments_raise(kw):
+    """A mesh is still refused; ``seeds`` (ported since this case was
+    written) returns one History per lane."""
+    if "seeds" in kw:
+        hists = run_algorithm("dpsgd", port_config(), rounds=2, fused=True,
+                              device="cpu", **kw)
+        assert len(hists) == 2 and all(len(h.records) == 2 for h in hists)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run_algorithm("dpsgd", port_config(), rounds=2, fused=True,
                       device="cpu", **kw)

@@ -229,7 +229,11 @@ def test_codec_wire_accounting(mode, p):
 
 
 def test_leafmap_codecs_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        compression.parse_mode("leafmap:embed=int8,default=none")
+    """Ported since this test was written: a leafmap parses to the
+    reference's map (tests/test_torch_leafmap.py holds the rest)."""
+    mode = "leafmap:embed=int8,default=none"
+    lm = compression.parse_mode(mode)
+    assert isinstance(lm, compression.LeafmapCodec)
+    assert lm.mode == jax_compression.parse_mode(mode).mode == mode
     with pytest.raises(ValueError):
         compression.parse_mode("topk:0")

@@ -9,9 +9,12 @@ On the CPU ``ops.gossip_mix`` runs the kernel's plain version
 ``gossip_mix_2d`` in interpret mode, called as the reference's fused
 engine calls it (``repro/core/fused.py:284-290``: the flat rows padded to
 the int8 tile layout, the kernel vmapped over the output rows with all W
-rows as neighbour buffers). The CUDA kernels themselves are held against
+rows as neighbour buffers); its lane-strided form
+(``ops.gossip_mix_lanes``, the fused engines' batched seeds axis) runs
+one plain call a lane. The CUDA kernels themselves are held against
 their plain versions bit for bit by the ``cuda``-marked tests, on a
-card.
+card — the lane-strided form also against one single-form launch a
+lane, and the codec kernels at a leafmap's segment widths.
 
 The file imports JAX only inside the tests that compare with it, so the
 ``cuda`` tests also run where only PyTorch is installed:
@@ -90,6 +93,30 @@ def test_gossip_mix_rejects_bad_shapes(shapes):
     x, u, w = (torch.zeros(s) for s in shapes)
     with pytest.raises(ValueError):
         ops.gossip_mix(x, u, w)
+
+
+def test_gossip_mix_lanes_plain_version_is_per_lane():
+    """On the CPU the lane-strided form runs S calls of the plain
+    version, one per lane, with one mixing matrix shared (expanded) or
+    one a lane."""
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(3, 4, 50, generator=gen)
+    u = torch.randn(3, 6, 50, generator=gen)
+    for w in (torch.rand(4, 6, generator=gen).expand(3, 4, 6),
+              torch.rand(3, 4, 6, generator=gen)):
+        y = ops.gossip_mix_lanes(x, u, w)
+        for s in range(3):
+            assert torch.equal(y[s], ops.gossip_mix(x[s], u[s], w[s]))
+
+
+@pytest.mark.parametrize("shapes", [((2, 4, 10), (2, 3, 10), (2, 4, 2)),
+                                    ((2, 4, 10), (3, 3, 10), (2, 4, 3)),
+                                    ((2, 4, 10), (2, 3, 10), (4, 3)),
+                                    ((4, 10), (3, 10), (4, 3))])
+def test_gossip_mix_lanes_rejects_bad_shapes(shapes):
+    x, u, w = (torch.zeros(s) for s in shapes)
+    with pytest.raises(ValueError):
+        ops.gossip_mix_lanes(x, u, w)
 
 
 def test_gossip_edges_rejects_bad_shapes():
@@ -301,6 +328,96 @@ def test_cuda_kernel_bit_equal_to_plain_version(b, k, length):
     assert torch.equal(y, ref.gossip_mix_ref(x, u, w))
     if u is x:
         assert torch.equal(y[2], x[2])
+
+
+# (S, B, K, L, a mixing matrix shared by the lanes): the batched MLP
+# round (4 lanes of the W = 30 fleet, u = x), AD-PSGD's pairwise average
+# (one row a lane) and both endpoints' rows (two), a lane count past
+# the grid's row groups, and K past one staged chunk
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,b,k,length,shared", [
+    (4, 30, 30, 6922, True), (4, 30, 30, 6922, False),
+    (4, 1, 1, 6922, True), (4, 2, 2, 6922, True), (40, 8, 8, 1000, True),
+    (3, 100, 100, 2000, True), (1, 30, 30, 6922, True)])
+def test_cuda_gossip_mix_lanes_bit_equal(lanes, b, k, length, shared):
+    """The lane-strided form against its plain version and against one
+    launch of the single form per lane, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(lanes * length + b)
+    x = torch.randn(lanes, b, length, generator=gen, device="cuda")
+    u = x if b == k > 2 else torch.randn(lanes, k, length, generator=gen,
+                                         device="cuda")
+    w = (torch.rand(b, k, generator=gen, device="cuda") / k).expand(
+        lanes, b, k) if shared else \
+        torch.rand(lanes, b, k, generator=gen, device="cuda") / k
+    before = dict(ops.LAUNCHES)
+    y = ops.gossip_mix_lanes(x, u, w)
+    assert ops.LAUNCHES["gossip_mix_lanes"] == before["gossip_mix_lanes"] + 1
+    assert torch.equal(y, ref.gossip_mix_lanes_ref(x, u, w))
+    for s in range(lanes):
+        assert torch.equal(y[s], ops.gossip_mix(x[s], u[s], w[s]))
+
+
+# leaf segment widths (the per-leaf codec maps): one coordinate, a width
+# below one 1,024-column row (the MLP's merged biases, 138; a bias of
+# 10; a layernorm of 960), rows not a multiple of 8 (the MLP's merged
+# int8 leaves, 4,736 = 5 rows; 6,144 = 6 rows) and a segment staged from
+# a column slice of a wider fleet
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,p", [(30, 1), (30, 10), (30, 138), (8, 960),
+                                 (30, 4736), (120, 6144), (1, 1)])
+def test_cuda_codec_kernels_at_segment_widths(w, p):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(7 * p + w)
+    wide = torch.randn(w, p + 77, generator=gen, device="cuda")
+    x = wide[:, 40:40 + p].contiguous()
+    q, scales = ops.quantize_block(x)
+    assert all(torch.equal(a, b_) for a, b_ in
+               zip((q, scales), ref.quantize_block_ref(x)))
+    assert torch.equal(ops.dequantize_block(q, scales, p),
+                       ref.dequantize_block_ref(q, scales, p))
+    k = max(p // 10, 1)
+    for gate in (x.abs(), torch.rand(1, p, generator=gen, device="cuda")):
+        th = torch.topk(gate, k, dim=1).values[:, -1].expand(w).contiguous()
+        assert all(torch.equal(a, b_) for a, b_ in
+                   zip(ops.sparsify_block(x, gate, th),
+                       ref.sparsify_block_ref(x, gate, th)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [
+    "leafmap:w1=topk:0.1,b=none,default=int8",
+    "leafmap:w=randk:0.2,b1=randk:3,b=int8,default=topk:0.05"])
+def test_cuda_leafmap_payload_matches_the_cpu(mode):
+    """A leafmap's payload through the kernels on the card, each segment
+    staged from its column slice, bit-equal to the plain versions' on
+    the CPU, over 3 lanes of the MLP's fleet folded into rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.core import compression, modelspec
+    lm = compression.parse_mode(mode).compile(
+        modelspec.get_adapter("mlp").leaf_offsets())
+    gen = torch.Generator().manual_seed(11)
+    flat = 0.3 * torch.randn(90, lm.segments[-1].stop, generator=gen)
+    err = compression.leafmap_state_init(flat, lm, True) + \
+        0.01 * torch.randn(flat.shape, generator=gen)
+    scores = compression.leafmap_scores(
+        lm, compression.sparsify_base_key(5), 3)
+    scores = None if scores is None else torch.from_numpy(scores)
+    before = dict(ops.LAUNCHES)
+    got = compression.leafmap_payload(
+        flat.cuda(), err.cuda(), lm,
+        scores=None if scores is None else scores.cuda())
+    want = compression.leafmap_payload(flat, err, lm, scores=scores)
+    for a, b_ in zip(got, want):
+        assert torch.equal(a.cpu(), b_)
+    kinds = [s.codec.kind for s in lm.segments]
+    assert ops.LAUNCHES["quantize_block"] - before["quantize_block"] == \
+        kinds.count("int8")
+    assert ops.LAUNCHES["sparsify_block"] - before["sparsify_block"] == \
+        kinds.count("topk") + kinds.count("randk")
 
 
 @pytest.mark.cuda

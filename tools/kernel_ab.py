@@ -19,9 +19,10 @@ and one without it is taken to have 3c12770's, which b9bc4a0's
 ``gossip_edges`` and ``sparsify_block`` still had). Both versions are
 built with the port's nvcc flags into libraries of their own and called
 on the same inputs, at every case of ``chip_smoke.py``'s phase 2 for
-those kernels (``robust_gossip``: every table of ``ROBUST_CASES`` and
-mode of ``ROBUST_MODES``, each on the instance each version dispatches
-to; ``quantize_block``, ``dequantize_block`` and ``sparsify_block``:
+those kernels (``gossip_mix``: ``MIX_CASES``, and ``MIX_LANE_CASES``
+in the lane-strided form where both versions have it;
+``robust_gossip``: every table of ``ROBUST_CASES`` and mode of
+``ROBUST_MODES``, each on the instance each version dispatches to; ``quantize_block``, ``dequantize_block`` and ``sparsify_block``:
 ``CODEC_CASES``, ``dequantize_block`` also on one element, the launch
 floor, ``sparsify_block`` with the top-k and the rand-k gate;
 ``gossip_edges``: ``EDGES_CASES``, honest and over a lying wire), and
@@ -126,6 +127,12 @@ def build(src_dir: Path, name: str, kernels: list[str]) -> ctypes.CDLL:
         lib.gossip_mix_f32.argtypes = [ctypes.c_void_p] * 4 + \
             [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.gossip_mix_f32.restype = ctypes.c_int
+        # the lane-strided form, where the source exports it
+        lib.has_lanes = hasattr(lib, "gossip_mix_lanes_f32")
+        if lib.has_lanes:
+            lib.gossip_mix_lanes_f32.argtypes = [ctypes.c_void_p] * 4 + \
+                [ctypes.c_int] * 4 + [ctypes.c_int64, ctypes.c_void_p]
+            lib.gossip_mix_lanes_f32.restype = ctypes.c_int
     if "flash" in kernels:
         lib.flash_attention_f32.argtypes = [ctypes.c_void_p] * 4 + \
             [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
@@ -220,6 +227,20 @@ def mix_call(lib, x, u, w):
         _check(lib.gossip_mix_f32(x.data_ptr(), u.data_ptr(), w.data_ptr(),
                                   y.data_ptr(), b, u.shape[0], length,
                                   _stream()), "gossip_mix")
+        return y
+    return call
+
+
+def mix_lanes_call(lib, x, u, w):
+    """One launch of ``lib``'s lane-strided gossip_mix (w: one [B, K]
+    matrix shared by the lanes, lane stride 0)."""
+    y = torch.empty_like(x)
+    s, b, length = x.shape
+
+    def call():
+        _check(lib.gossip_mix_lanes_f32(
+            x.data_ptr(), u.data_ptr(), w.data_ptr(), y.data_ptr(), s, b,
+            u.shape[1], length, 0, _stream()), "gossip_mix_lanes")
         return y
     return call
 
@@ -377,6 +398,28 @@ def run_mix(libs: dict, cycles_per_ms: float) -> list[dict]:
                              L=length))
         del x, u, w, want, calls
         torch.cuda.empty_cache()
+    if not all(lib.has_lanes for lib in libs.values()):
+        return rows
+    for name, lanes, b, k, length in cs.MIX_LANE_CASES:
+        x = torch.randn(lanes, b, length, generator=gen, device="cuda")
+        u = x if b == k > 2 else torch.randn(lanes, k, length, generator=gen,
+                                             device="cuda")
+        w = torch.rand(b, k, generator=gen, device="cuda") / k
+        want = ref.gossip_mix_lanes_ref(x, u, w.expand(lanes, b, k))
+        calls = {which: mix_lanes_call(lib, x, u, w)
+                 for which, lib in libs.items()}
+        for which, call in calls.items():
+            got = call()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"gossip_mix_lanes[{name}] of {which} "
+                                     "differs from its plain version")
+        times = in_turns(calls, cycles_per_ms, batch=10)
+        u_bytes = 0 if u.data_ptr() == x.data_ptr() else lanes * k * length
+        bound_ms, _ = cs._bound((2 * lanes * b * length + u_bytes + b * k)
+                                * 4, 3 * lanes * b * k * length)
+        rows.append(_summary("gossip_mix_lanes", name, times, bound_ms,
+                             S=lanes, B=b, K=k, L=length))
     return rows
 
 
