@@ -32,8 +32,11 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    (the registry path's local step and measurement stack, smollm-360m's
    train shape, a gemma3-27b local layer, a 192-wide head, the forced
    causal rule, the short-sequence kernel's dispatch limit and one key
-   past it, a non-causal Sk = 128 and a short sliding window; each line
-   names the instance that ran; within 2e-5, with the f32-FMA bound
+   past it, a non-causal Sk = 128 and a short sliding window, and at
+   head width 112 zamba2-7b's attention on its path, zamba2-7b's and
+   kimi-k2's train shapes at S = 4,096 and the short kernel's limit and
+   one key past it; each line names the instance that ran; within 2e-5,
+   with the f32-FMA bound
    (operations at 67 TFLOP/s or bytes), the tensor-core bound (3 x the
    operations at 495 TFLOP/s, or bytes) and
    ``scaled_dot_product_attention``'s time) and
@@ -62,6 +65,12 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    ``run_dfl_fused(adapter=...)``, and FedHP there under the per-leaf
    codec map ``leafmap:embed=randk:0.05,ln=none,default=int8`` (its
    seconds a round, peak memory and wire ratio beside uniform int8's);
+   FedHP on the moe, hybrid and xlstm families at published widths
+   (``FAMILY_PATHS``: olmoe-1b-7b 1 layer at W = 4, zamba2-7b 6 layers
+   at W = 2, xlstm-1.3b 8 layers at W = 4; vocabulary 6,144, the flash
+   kernel on; zamba2 and xlstm at a lower learning rate), its flash
+   launches held to the family's attention calls a forward pass times
+   the passes, with P, W and peak memory;
    FedHP and D-PSGD on the MLP under ``leafmap:w1=topk:0.1,b=none,
    default=int8``, dense and sparse; D-PSGD, LD-SGD and AD-PSGD with
    ``seeds`` of 4 lanes — each after a short warm-up run, with the
@@ -73,7 +82,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    sparse and dense, the median, AD-PSGD screening, and the registry
    path's FedHP over an ``erdos:0.5`` base, and the 70-worker trimmed
    FedHP over ``erdos:0.95`` (degrees 65-69), FedHP under the MLP's
-   leafmap and the registry path's FedHP under its leafmap: host record
+   leafmap and the registry path's FedHP under its leafmap, and FedHP on
+   each of the three families' paths over ``erdos:0.5``: host record
    fields (and screening's rejection counts) equal, device metrics within
    the tests' tolerances (int8's wider wherever a codec quantizes to
    int8, ``tests/test_torch_codec_engine.py``); and each batched lane of
@@ -107,7 +117,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import smollm_360m  # noqa: E402
+from repro_torch.configs import get_config, smollm_360m  # noqa: E402
 from repro_torch.configs.base import FedHPConfig  # noqa: E402
 from repro_torch.core import compression  # noqa: E402
 from repro_torch.core import engine, fused, modelspec  # noqa: E402
@@ -116,7 +126,9 @@ from repro_torch.core import topology as topo  # noqa: E402
 from repro_torch.core.algorithms import make_strategy  # noqa: E402
 from repro_torch.core.experiment import (run_algorithm,  # noqa: E402
                                          setup_experiment)
+from repro_torch.data.partition import pskew_partition  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import registry  # noqa: E402
 from repro_torch.simulation.cluster import SimCluster  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
@@ -236,6 +248,31 @@ LM_WARMUP_ROUNDS = 1
 # past the 1e-4 of the parity contract; over this base the distance is
 # 0.25-0.29 and they agree within 2e-6 (PERF.md, section 6, PR 14)
 LM_PARITY_FIELDS = dict(base_topology="erdos:0.5")
+# the moe, hybrid and xlstm families on the registry path: each at its
+# published widths, its depth cut to the fewest layers that run every
+# block kind and its vocabulary to the path's 6,144, trained in f32 with
+# the flash kernel on, under LM_CFG's settings apart from the fleet size
+# W and, for zamba2 and xlstm, the learning rate: (arch, layers, P from
+# jax.eval_shape on the reference, W, lr). W is 4 where the peak stays
+# under about 70 GB of the card's 80, else 2 (zamba2 at W = 4: five
+# [4, P] f32 matrices alone are 73.8 GB). At LM_CFG's lr 0.05 xlstm-1.3b's
+# loss turns NaN in both engines (its input gates exp(i) are unbounded, as
+# in the reference), and at 0.05 (zamba2-7b) or 0.01 (xlstm) the engines
+# part by about 6e-4 in loss, past the parity contract, where the fused
+# engine from a start moved by one ulp parts from itself by 1.3-1.8e-3
+# (tools/family_witness.py; PERF.md §6, PR 21): there the trajectory
+# itself amplifies the engines' last-ulp differences. Phase 4 holds at
+# these lr.
+# olmoe-1b-7b: one layer (attention at head width 128, 64 experts, 8 a
+# token); zamba2-7b: one group of 6 Mamba2 blocks and shared block A
+# (attention at head width 112); xlstm-1.3b: one group of 7 mLSTM blocks
+# and an sLSTM block (no attention). kimi-k2-1t-a32b holds 17.16 G
+# parameters in one layer, 68.6 GB in f32 for one worker: it waits for
+# sharded execution (ROADMAP.md queue 1, item 3)
+FAMILY_PATHS = (("olmoe-1b-7b", 1, 444_733_440, 4, LM_CFG.lr),
+                ("zamba2-7b", 6, 922_968_288, 2, 0.01),
+                ("xlstm-1.3b", 8, 474_241_080, 4, 5e-4))
+FAMILY_ROUNDS = 2
 
 # the kernels' agreement with their plain versions where it is not
 # bit-equality: flash attention reassociates the softmax sums (the
@@ -962,7 +999,12 @@ def check_robust_gossip(cycles_per_ms: float) -> dict:
 # (non-causal, S not a multiple of 128); the short-sequence kernel's
 # dispatch limit at hd 64 (Sk = FLASH_SHORT_MAX_KEYS[64]) and one key
 # past it, a non-causal Sk = 128 (a multiple of 128, so no mask is
-# forced) and a sliding window inside the short kernel's reach
+# forced) and a sliding window inside the short kernel's reach; then head
+# width 112: zamba2-7b's attention on its path (32 heads, no grouping: a
+# local step of W = 2 workers x 32 sequences and a measurement pass of one
+# worker on the W x 256 eval stack), zamba2-7b's and kimi-k2's (64 / 8
+# heads) train shape at S = 4,096 (the tile kernel), and the short
+# kernel's dispatch limit at hd 112 and one key past it
 FLASH_CASES = (("local-step", 256, 15, 15, 5, 64, True, 0, False),
                ("measurement-group", 4096, 15, 15, 5, 64, True, 0, True),
                ("measurement-stack", 16384, 15, 15, 5, 64, True, 0, False),
@@ -976,7 +1018,15 @@ FLASH_CASES = (("local-step", 256, 15, 15, 5, 64, True, 0, False),
                 5, 64, True, 0, False),
                ("noncausal-128", 64, 128, 15, 5, 64, False, 0, False),
                ("short-window", 64, ops.FLASH_SHORT_MAX_KEYS[128], 32, 16,
-                128, True, 16, False))
+                128, True, 16, False),
+               ("zamba2-step", 64, 15, 32, 32, 112, True, 0, False),
+               ("zamba2-measure", 512, 15, 32, 32, 112, True, 0, False),
+               ("zamba2-train", 1, 4096, 32, 32, 112, True, 0, False),
+               ("kimi-k2-train", 1, 4096, 64, 8, 112, True, 0, False),
+               ("short-limit-hd112", 64, ops.FLASH_SHORT_MAX_KEYS[112], 32,
+                32, 112, True, 0, False),
+               ("short-limit+1-hd112", 64, ops.FLASH_SHORT_MAX_KEYS[112] + 1,
+                32, 32, 112, True, 0, False))
 
 
 def check_flash_attention(cycles_per_ms: float) -> dict:
@@ -1356,10 +1406,11 @@ def _lm_data():
 
 
 def _lm_run(adapter, data, algo: str, rounds: int, *, fused_engine: bool,
-            **fields):
+            init_params=None, **fields):
     """One registry-path run from a fresh cluster (which prices a model
-    transfer at the trained model's size) and strategy -> (history, the
-    recorded taus)."""
+    transfer at the trained model's size) and strategy, from
+    ``init_params`` (the engines' ``init_params``) or the seed's weights
+    -> (history, the recorded taus)."""
     cfg = replace(LM_CFG, algorithm=algo, **fields)
     train, tx, ty, shards = data
     cluster = SimCluster(cfg.num_workers, model_bits=adapter.model_bits,
@@ -1368,7 +1419,7 @@ def _lm_run(adapter, data, algo: str, rounds: int, *, fused_engine: bool,
         cfg.num_workers, cfg.base_topology, cfg.seed)), cfg.tau_max)
     run = fused.run_dfl_fused if fused_engine else engine.run_dfl
     hist = run(train, tx, ty, shards, cluster, cfg, strategy, rounds=rounds,
-               adapter=adapter, device="cuda")
+               adapter=adapter, init_params=init_params, device="cuda")
     return hist, strategy.taus
 
 
@@ -1453,6 +1504,122 @@ def run_lm_path(adapter, data) -> dict[str, int]:
     return total
 
 
+def family_adapter(arch: str, layers: int, params: int):
+    """``arch``'s published widths, ``layers`` deep, with the registry
+    path's vocabulary, in f32 with the flash kernel on."""
+    cfg = replace(get_config(arch), num_layers=layers,
+                  vocab_size=LM_MODEL.vocab_size, dtype="float32",
+                  remat="none", use_flash_kernel=True)
+    adapter = modelspec.RegistryAdapter(
+        cfg, LM_SEQ, LM_CLASSES,
+        spec=f"{arch}:layers={layers},vocab={cfg.vocab_size},flash")
+    if adapter.param_count != params:
+        raise AssertionError(f"{arch}: P = {adapter.param_count}, the "
+                             f"reference's is {params}")
+    return adapter
+
+
+def _fleet_data(data, num_workers: int):
+    """The registry corpus and test split with the shards of a fleet of
+    ``num_workers`` (``setup_experiment``'s partition at LM_CFG's seed)."""
+    train, tx, ty, _ = data
+    shards = pskew_partition(train.y, num_workers, LM_KW["non_iid_p"],
+                             np.random.default_rng(LM_CFG.seed + 1))
+    return train, tx, ty, shards
+
+
+def run_family_paths(data) -> dict[str, int]:
+    """Phase 3 for the moe, hybrid and xlstm families: FedHP through the
+    fused engine at each family's published widths (``FAMILY_PATHS``), a
+    warm-up round and then the timed rounds, held to exactly the
+    flash_attention launches (the family's attention calls a forward x
+    forward passes: olmoe one a layer, zamba2 one a group, xlstm none)
+    and one gossip_mix a communicating round."""
+    total = {k: 0 for k in ops.LAUNCHES}
+    for arch, layers, params, w, lr in FAMILY_PATHS:
+        adapter = family_adapter(arch, layers, params)
+        fdata = _fleet_data(data, w)
+        cfg = replace(LM_CFG, num_workers=w, lr=lr)
+        torch.cuda.empty_cache()
+        _lm_run(adapter, fdata, "fedhp", LM_WARMUP_ROUNDS, fused_engine=True,
+                num_workers=w, lr=lr)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        hist, taus = _lm_run(adapter, fdata, "fedhp", FAMILY_ROUNDS,
+                             fused_engine=True, num_workers=w, lr=lr)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        arr = hist.as_arrays()
+        forwards = _lm_forwards(adapter, cfg, taus, adaptive=True)
+        expected = {k: 0 for k in ops.LAUNCHES}
+        expected["gossip_mix"] = int((arr["num_links"] > 0).sum())
+        expected["flash_attention"] = \
+            registry.attention_calls(adapter.cfg) * forwards
+        name = f"fedhp/{arch}-{layers}l"
+        if counts != expected:
+            raise AssertionError(f"{name}: launched {counts}, the path must "
+                                 f"launch {expected}")
+        _check_history(name, cfg, FAMILY_ROUNDS, hist)
+        for k in total:
+            total[k] += counts[k]
+        stack = torch.zeros(1, dtype=torch.int32).expand(w, w, 256, LM_SEQ)
+        log("phase3", path=name, rounds=FAMILY_ROUNDS, W=w, lr=lr,
+            P=adapter.param_count, launches={k: v for k, v in counts.items()
+                                             if v},
+            forward_passes=forwards,
+            attention_calls_per_forward=registry.attention_calls(
+                adapter.cfg),
+            eval_workers_per_pass=adapter.workers_per_pass(stack),
+            seconds_per_round=f"{elapsed / FAMILY_ROUNDS:.4f}",
+            seconds=f"{elapsed:.3f}",
+            first_loss=f"{arr['loss'][0]:.7f}",
+            last_loss=f"{arr['loss'][-1]:.7f}",
+            mean_tau=arr["mean_tau"].tolist(),
+            num_links=arr["num_links"].tolist(),
+            peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+        del hist
+        torch.cuda.empty_cache()
+    return total
+
+
+def check_family_engines_agree(data) -> None:
+    """Phase 4 for the moe, hybrid and xlstm families: FedHP through both
+    engines at each family's published widths, over the registry path's
+    ``erdos:0.5`` base."""
+    for arch, layers, params, w, lr in FAMILY_PATHS:
+        adapter = family_adapter(arch, layers, params)
+        fdata = _fleet_data(data, w)
+        hists, secs = {}, {}
+        for fused_engine in (False, True):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            hists[fused_engine], _ = _lm_run(
+                adapter, fdata, "fedhp", FAMILY_ROUNDS,
+                fused_engine=fused_engine, num_workers=w, lr=lr,
+                **LM_PARITY_FIELDS)
+            torch.cuda.synchronize()
+            secs[fused_engine] = time.perf_counter() - t0
+            log("phase4", path=f"fedhp/{arch}-{layers}l",
+                engine="fused" if fused_engine else "reference",
+                peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+            # the first engine's final [W, P] parameters wait on the host
+            # while the second runs, in the memory the first had
+            hist = hists[False]
+            hist.final_params = {k: v.to("cpu" if not fused_engine
+                                         else "cuda")
+                                 for k, v in hist.final_params.items()}
+        _compare_engines(f"fedhp/{arch}-{layers}l/W={w}/erdos:0.5", hists,
+                         secs, int8=False, rounds=FAMILY_ROUNDS)
+        del hists
+        torch.cuda.empty_cache()
+
+
 def check_lm_engines_agree(adapter, data) -> None:
     """Phase 4 on the registry path: FedHP through both engines,
     uncompressed and under the reference's per-leaf codec map."""
@@ -1521,6 +1688,25 @@ def check_engines_agree() -> None:
                          int8="int8" in cfg.compress, rounds=PARITY_ROUNDS)
 
 
+def history_gaps(ha, hb) -> dict:
+    """How far run ``hb`` is from run ``ha``: the largest accuracy
+    difference, loss and consensus differences relative to ``ha``'s, and
+    the largest difference of their final parameters (where the engines'
+    mixing formulas part: the reference mixes as sum_j w_ij x_j, the
+    kernel as x_i + sum_j w_ij (x_j - x_i))."""
+    a, b = ha.as_arrays(), hb.as_arrays()
+    gaps = {k: float((np.abs(a[k] - b[k])
+                      / np.maximum(np.abs(a[k]), 1e-12)).max())
+            for k in ("loss", "consensus")}
+    gaps["acc"] = float(np.abs(a["accuracy"] - b["accuracy"]).max())
+    gaps["params"] = max(float((ha.final_params[k].double()
+                                - hb.final_params[k].double().to(
+                                    ha.final_params[k].device))
+                               .abs().max())
+                         for k in ha.final_params)
+    return gaps
+
+
 def _compare_engines(name: str, hists: dict, secs: dict, *, int8: bool,
                      rounds: int) -> None:
     """Reference (``hists[False]``) against fused (``hists[True]``): host
@@ -1536,10 +1722,7 @@ def _compare_engines(name: str, hists: dict, secs: dict, *, int8: bool,
             f"{name}: screen rejections differ: "
             f"{hists[False].screen_rejects} vs "
             f"{hists[True].screen_rejects}")
-    acc = float(np.abs(a["accuracy"] - b["accuracy"]).max())
-    rel = {k: float((np.abs(a[k] - b[k])
-                     / np.maximum(np.abs(a[k]), 1e-12)).max())
-           for k in ("loss", "consensus")}
+    gaps = history_gaps(hists[False], hists[True])
     np.testing.assert_allclose(a["accuracy"], b["accuracy"], rtol=0,
                                atol=ACC_ATOL, err_msg=name)
     np.testing.assert_allclose(a["loss"], b["loss"], err_msg=name,
@@ -1547,12 +1730,6 @@ def _compare_engines(name: str, hists: dict, secs: dict, *, int8: bool,
     np.testing.assert_allclose(
         a["consensus"], b["consensus"], atol=CONSENSUS_ATOL,
         rtol=INT8_CONSENSUS_RTOL if int8 else REL_TOL, err_msg=name)
-    # how far apart the engines' final parameters are (the reference
-    # mixes as sum_j w_ij x_j, the kernel as x_i + sum_j w_ij (x_j - x_i))
-    param_diff = max(float((hists[False].final_params[k].double()
-                            - hists[True].final_params[k].double())
-                           .abs().max())
-                     for k in hists[False].final_params)
     # the rounds that pass only through the absolute term, with both
     # engines' consensus values there
     cdiff = np.abs(a["consensus"] - b["consensus"])
@@ -1561,14 +1738,14 @@ def _compare_engines(name: str, hists: dict, secs: dict, *, int8: bool,
     extra = ({} if hists[True].screen_rejects is None
              else dict(screen_rejects=hists[True].screen_rejects))
     log("phase4", path=name, rounds=rounds,
-        host_fields_equal=True, acc_max_abs_diff=acc,
-        loss_max_rel_diff=rel["loss"],
-        consensus_max_rel_diff=rel["consensus"],
+        host_fields_equal=True, acc_max_abs_diff=gaps["acc"],
+        loss_max_rel_diff=gaps["loss"],
+        consensus_max_rel_diff=gaps["consensus"],
         consensus_max_abs_diff=float(cdiff[worst]), at_round=worst,
         consensus_there=[float(a["consensus"][worst]),
                          float(b["consensus"][worst])],
         rounds_admitted_by_atol=abs_only.tolist(),
-        param_max_abs_diff=param_diff,
+        param_max_abs_diff=gaps["params"],
         reference_s=f"{secs[False]:.3f}", fused_s=f"{secs[True]:.3f}",
         mean_tau=a["mean_tau"].tolist(),
         num_links=a["num_links"].tolist(), **extra)
@@ -1631,6 +1808,7 @@ def main() -> int:
         library=lib.name, ptxas=ptxas)
 
     cycles_per_ms = _sleep_cycles_per_ms()
+    marks = [("start", time.perf_counter())]
     launch_floor(cycles_per_ms)
     kernels = [check_gossip_mix(cycles_per_ms),
                check_gossip_mix_lanes(cycles_per_ms),
@@ -1639,13 +1817,19 @@ def main() -> int:
                check_robust_gossip(cycles_per_ms),
                check_flash_attention(cycles_per_ms),
                check_consensus_dist(cycles_per_ms)]
+    marks.append(("phase2", time.perf_counter()))
     launches = run_main_path()
+    marks.append(("phase3_mlp", time.perf_counter()))
     adapter = lm_adapter()
     data, data_s = _lm_data()
     log("phase3", registry_corpus=LM_SPEC, setup_s=f"{data_s:.3f}",
         sequences=len(data[0].x) + len(data[1]))
     for k, v in run_lm_path(adapter, data).items():
         launches[k] += v
+    marks.append(("phase3_registry", time.perf_counter()))
+    for k, v in run_family_paths(data).items():
+        launches[k] += v
+    marks.append(("phase3_families", time.perf_counter()))
     for kernel in kernels:
         kernel["launches"] = launches[kernel["name"]]
         if kernel["name"] in OFF_PATH:
@@ -1657,7 +1841,14 @@ def main() -> int:
                                  "main path")
     check_engines_agree()
     check_lanes_agree()
+    marks.append(("phase4_mlp", time.perf_counter()))
     check_lm_engines_agree(adapter, data)
+    marks.append(("phase4_registry", time.perf_counter()))
+    check_family_engines_agree(data)
+    marks.append(("phase4_families", time.perf_counter()))
+    log("timing", build_s=f"{build_s:.3f}",
+        **{f"{name}_s": f"{t - marks[i][1]:.3f}"
+           for i, (name, t) in enumerate(marks[1:])})
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

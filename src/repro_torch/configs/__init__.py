@@ -1,7 +1,8 @@
 """Architecture registry: ``arch`` id -> (CONFIG, smoke_config), the
-port of ``repro.configs``. The four dense architectures are ported; the
-other six raise ``NotImplementedError`` naming the ROADMAP.md item that
-brings their family."""
+port of ``repro.configs``. The dense, moe, hybrid and xlstm architectures
+are ported; whisper-large-v3 (encdec) and qwen2-vl-2b (vlm) raise
+``NotImplementedError`` naming the ROADMAP.md item that brings their
+family."""
 from __future__ import annotations
 
 import importlib
@@ -13,13 +14,15 @@ _ARCH_MODULES: dict[str, str] = {
     "gemma3-27b": "repro_torch.configs.gemma3_27b",
     "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
     "smollm-360m": "repro_torch.configs.smollm_360m",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
 }
 
 # the reference's other architectures, by the family that is not ported
 _UNPORTED: dict[str, str] = {
-    "kimi-k2-1t-a32b": "moe", "olmoe-1b-7b": "moe",
-    "whisper-large-v3": "encdec", "zamba2-7b": "hybrid",
-    "xlstm-1.3b": "xlstm", "qwen2-vl-2b": "vlm",
+    "whisper-large-v3": "encdec", "qwen2-vl-2b": "vlm",
 }
 
 ARCH_IDS: tuple[str, ...] = tuple(_ARCH_MODULES)
@@ -29,8 +32,7 @@ def _module(arch: str):
     if arch in _UNPORTED:
         raise NotImplementedError(
             f"arch {arch!r} ({_UNPORTED[arch]} family) is not ported to "
-            f"repro_torch yet (ROADMAP.md queue 1, item "
-            f"{4 if _UNPORTED[arch] in ('encdec', 'vlm') else 1})")
+            "repro_torch yet (ROADMAP.md queue 1, item 4)")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; available: "
                        f"{sorted(_ARCH_MODULES) + sorted(_UNPORTED)}")

@@ -15,7 +15,7 @@ class ModelConfig:
 
     ``family`` selects the model implementation in
     ``repro_torch.models.registry``: dense | moe | encdec | hybrid |
-    xlstm | vlm (only ``dense`` is ported)."""
+    xlstm | vlm (encdec and vlm are not ported)."""
 
     name: str
     family: str

@@ -44,7 +44,6 @@ from repro_torch.core import modelspec
 from repro_torch.core import robust
 from repro_torch.core import topology as topo
 from repro_torch.core.algorithms import Strategy
-from repro_torch.core.consensus import pairwise_distances
 from repro_torch.data.synthetic import Dataset
 from repro_torch.simulation.cluster import SimCluster
 
@@ -143,16 +142,10 @@ def check_ported(cfg: FedHPConfig, *, mesh=None, seeds=None) -> None:
             "the sharded fused scan runs one lane (S=1); a batched "
             "seeds axis would stack S copies of the sharded fleet — "
             "run seeds sequentially or drop the mesh")
-    todo = []
     if sharded:
-        todo.append("sharded execution / mesh= (item 3)")
-    family = str(cfg.model).partition(":")[0].strip()
-    if family in ("moe", "hybrid", "xlstm"):
-        todo.append(f"model={cfg.model!r} (item 1, the {family} family)")
-    if todo:
         raise NotImplementedError(
-            "not ported to repro_torch yet (ROADMAP.md queue 1): "
-            + "; ".join(todo))
+            "not ported to repro_torch yet (ROADMAP.md queue 1): sharded "
+            "execution / mesh= (item 3)")
 
 
 # ---------------------------------------------------------------------------
@@ -305,6 +298,34 @@ def _measure(adapter, flat, prev, ex, ey, px, py):
     smooth_l = num / torch.clamp(den, min=1e-8)
     sigma = torch.sqrt(torch.sum(torch.square(g_s - g_p), dim=1))
     return loss_p, smooth_l, sigma, den
+
+
+def edge_distances(flat: torch.Tensor) -> torch.Tensor:
+    """Eq. (7) on flat's device: ``consensus.pairwise_distances``' f32
+    gram form for [W, P], including its cancellation noise floor for
+    near-identical models — that floor feeds FedHP's tracker, so it is
+    part of the behavior."""
+    sq = torch.sum(flat * flat, dim=1)
+    d2 = torch.clamp(sq[:, None] + sq[None, :] - 2.0 * (flat @ flat.T),
+                     min=0.0)
+    n = flat.shape[0]
+    return torch.sqrt(d2 * (1.0 - torch.eye(n, device=flat.device)))
+
+
+def consensus_record(flat: torch.Tensor, meas: np.ndarray) -> float:
+    """The round's consensus record on flat's device, as the reference
+    computes it in numpy: the measured workers' (every worker's when none
+    is measured) mean distance to their mean model. The mean is summed
+    row by row in f32 and divided, as numpy's ``mean(0)`` does: where the
+    rows are equal its rounding is the record's floor."""
+    rows = np.flatnonzero(meas) if meas.any() else np.arange(flat.shape[0])
+    if len(rows) < flat.shape[0]:
+        flat = flat[torch.as_tensor(rows, device=flat.device)]
+    total = flat[0].clone()
+    for i in range(1, flat.shape[0]):
+        total += flat[i]
+    dists = torch.linalg.vector_norm(flat - total / flat.shape[0], dim=1)
+    return float(dists.mean())
 
 
 def _cross_loss_matrix(adapter, flat, xs, ys):
@@ -581,14 +602,13 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
         losses, ls, sigs, upds = (
             v.cpu().numpy() for v in _measure(adapter, flat, prev, ex, ey,
                                               px, py))
-        flat_np = flat.cpu().numpy()
         cross = None
         if needs_cross:
             cross = _cross_loss_matrix(adapter, flat, ex[:, :64],
                                        ey[:, :64]).cpu().numpy()
         strategy.observe(
             h, adj=adj, mu=mu, beta=beta,
-            edge_dist=pairwise_distances(flat_np),
+            edge_dist=edge_distances(flat).cpu().numpy(),
             update_norms=upds[meas] if meas.any() else [0.0],
             smooth_l=float(np.median(ls[meas])),
             sigma=float(np.median(sigs[meas])),
@@ -596,8 +616,7 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
             cross_loss=cross, alive=alive, wire_ratio=comm_ratio)
 
         mean_acc, mean_loss = _mean_accuracy(adapter, flat, tx, ty, meas)
-        fa = flat_np[meas] if meas.any() else flat_np
-        d_bar = float(np.linalg.norm(fa - fa.mean(0), axis=1).mean())
+        d_bar = consensus_record(flat, meas)
         hist.records.append(RoundRecord(
             round=h, round_time=t_round, waiting_time=waiting,
             accuracy=mean_acc, loss=mean_loss,
@@ -998,9 +1017,7 @@ def run_adpsgd(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
             ev_idx += 1
         meas = scen.honest(rnd.alive)
         mean_acc, mean_loss = _mean_accuracy(adapter, flat[0], tx, ty, meas)
-        flat_np = flat[0].cpu().numpy()
-        fa = flat_np[meas] if meas.any() else flat_np
-        d_bar = float(np.linalg.norm(fa - fa.mean(0), axis=1).mean())
+        d_bar = consensus_record(flat[0], meas)
         hist.records.append(RoundRecord(
             round=len(hist.records), round_time=0.0,
             waiting_time=0.0,          # async: no synchronization barrier

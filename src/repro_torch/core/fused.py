@@ -88,7 +88,7 @@ from repro_torch.core.engine import (AdpsgdSchedule, History, RoundRecord,
                                      adpsgd_event, adpsgd_event_lying,
                                      adpsgd_join,
                                      adpsgd_setup, check_ported,
-                                     codec_scores,
+                                     codec_scores, edge_distances,
                                      eval_batches, holdout_set,
                                      initial_params, mixing_fn,
                                      resolve_device, round_batches,
@@ -459,7 +459,7 @@ def _scan_segment(adapter, flat, err, seg: _Segment, ex, ey, px, py, tx, ty,
         return None if a is None else torch.as_tensor(a, device=dev)
 
     off_diag = 1.0 - torch.eye(n, device=dev) \
-        if measure or (scen.has_byz and seg.mixes is not None) else None
+        if scen.has_byz and seg.mixes is not None else None
     dev_in = dict(mixes=on_dev(seg.mixes), gates=on_dev(seg.gates),
                   nbrs=on_dev(seg.nbrs), degs=on_dev(seg.degs),
                   edges=(tuple(on_dev(a) for a in seg.edges)
@@ -501,14 +501,8 @@ def _scan_segment(adapter, flat, err, seg: _Segment, ex, ey, px, py, tx, ty,
             f0 = flat[0]
             losses, ls, sigs, upds = _measure(adapter, f0, prev[0], ex, ey,
                                               px, py)
-            # consensus.pairwise_distances' f32 gram trick, including its
-            # cancellation noise floor for near-identical models — that
-            # floor feeds FedHP's tracker, so it is part of the behavior
-            sq = torch.sum(f0 * f0, dim=1)
-            d2 = torch.clamp(sq[:, None] + sq[None, :]
-                             - 2.0 * (f0 @ f0.T), min=0.0)
             emit(losses=losses, ls=ls, sigs=sigs, upds=upds,
-                 edge=torch.sqrt(d2 * off_diag))
+                 edge=edge_distances(f0))
             if needs_cross:
                 emit(cross=_cross_loss_matrix(adapter, f0, ex[:, :64],
                                               ey[:, :64]))

@@ -26,7 +26,7 @@ adapter:
 
 Spec syntax (``FedHPConfig.model``): ``"mlp"`` / ``"mlp:<hidden>"``, or
 ``"<family>:key=val,..."`` for a registry model (``models/registry.py``;
-token families dense / moe / hybrid / xlstm, of which dense is ported).
+token families dense / moe / hybrid / xlstm).
 Keys: ``d`` (d_model), ``layers``, ``heads``, ``kv`` (kv heads), ``ff``
 (d_ff), ``vocab``, ``seq`` (corpus sequence length), ``classes``
 (document classes of the synthetic corpus), and the moe / hybrid /
@@ -263,14 +263,14 @@ class RegistryAdapter(ModelAdapter):
 
     def activation_bytes_per_token(self) -> int:
         """What one token's forward keeps for the backward pass, about:
-        per layer the norms' inputs and outputs, q, k and v before and
-        after RoPE, the attention output and the MLP's four [d_ff]
-        intermediates; then the logits and their log-softmax (f32)."""
-        c = self.cfg
-        hd = c.resolved_head_dim
-        qd, kvd = c.num_heads * hd, c.num_kv_heads * hd
-        per_layer = 8 * c.d_model + 3 * qd + 3 * kvd + 4 * c.d_ff
-        return 4 * (c.num_layers * per_layer + 2 * c.vocab_size)
+        the family's own count at the corpus's sequence length
+        (``activation_floats`` of its model module: a dense layer's norms,
+        projections and MLP; MoE's expert slots; the SSD and mLSTM
+        recurrences' intra-chunk terms and chunk states; sLSTM's
+        per-token state), then the logits and their log-softmax (f32)."""
+        model = _registry.get_model(self.cfg.family)
+        return 4 * (model.activation_floats(self.cfg, self.seq_len - 1)
+                    + 2 * self.cfg.vocab_size)
 
     def workers_per_pass(self, x: torch.Tensor) -> int:
         """As many workers as keep one pass's activations within
@@ -299,9 +299,10 @@ def get_adapter(spec: str, *, dim: int = 32, hidden: int = 64,
 
     ``dim``/``hidden``/``num_classes`` apply to the MLP family only (its
     shapes come from the classification dataset); registry specs carry
-    their own dims. Raises ValueError for non-token registry families
-    (encdec / vlm), NotImplementedError for the token families not
-    ported yet (moe / hybrid / xlstm)."""
+    their own dims, over the reference's defaults for the family (moe: 4
+    experts, 2 a token; hybrid: ssm_state 16, a shared block every 2
+    Mamba2 blocks; xlstm: an sLSTM block after every 2 mLSTM blocks).
+    Raises ValueError for non-token registry families (encdec / vlm)."""
     family, _, body = str(spec).partition(":")
     family = family.strip() or "mlp"
     if family == "mlp":

@@ -48,11 +48,16 @@
 //   updates its running max, denominator and accumulator (rescaled only
 //   when the max rises) -- no score tile, no expf on a masked entry.
 //   Shared memory is 2 * Sk * hd * 4 bytes (32 KB at Sk = 64, hd 64;
-//   96 KB at hd 192, opted in above the 48 KB default). The caller's
-//   limits (ops.FLASH_SHORT_MAX_KEYS: 48 keys at hd 64 and 192, 32 at
-//   hd 128) sit where this kernel and the tensor-core tile kernel cross
-//   on an H100 SXM at 700 W (tools/kernel_ab.py, Sk = 16 to 64); at
-//   Sk = 64 the tile kernel now wins at every head width.
+//   56 KB at hd 112 and 96 KB at hd 192, opted in above the 48 KB
+//   default). The caller's limits (ops.FLASH_SHORT_MAX_KEYS: 48 keys at
+//   hd 64 and 192, 32 at hd 128, 16 at hd 112) sit where this kernel and
+//   the tensor-core tile kernel cross on an H100 SXM at 700 W
+//   (tools/kernel_ab.py, Sk = 16 to 64); at Sk = 64 the tile kernel wins
+//   at hd 64, 128 and 192. At hd 112 this kernel wins up to its 64 keys
+//   on zamba2's 32 ungrouped heads (one row a position in a KV group)
+//   but only to about 20 on kimi-k2's 64 / 8 heads, and the limit is
+//   the worse of the two. At hd 112 a thread holds 7 float4s of q and of
+//   its accumulator (28 a row over the quad).
 // * The tile kernel, for longer Sk, on the tensor cores: one block of
 //   four warps per (sequence b, KV head, tile of query rows) of the
 //   group's heads, packed head-major; each warp owns MT m-tiles of 16
@@ -85,6 +90,13 @@
 //   m-tiles of the warp. Per head width (shared memory (rows + 4 keys) x
 //   (hd + 4) floats; blocks an SM by the register bound):
 //     hd  64: MT 2 (128 rows a block), 32-key tiles -- 68 KB, 3 blocks;
+//     hd 112: MT 2 (128 rows), 16-key tiles -- 87 KB, 2 blocks (zamba2's
+//             and kimi-k2's heads; hd is not a power of two: a row is 28
+//             16-byte chunks, 14 k-steps of QK^T and 14 n-tiles of PV, and
+//             the padded row of 116 floats is 20 banks mod 32, so the
+//             8 x 4 fragment loads hit banks 20 gq + tq = 4 (5 gq) + tq
+//             mod 32, all 32 distinct because 5 is odd, and v's
+//             reordered rows 8 tq + gq as at the other widths);
 //     hd 128: MT 2 (128 rows), 16-key tiles -- 99 KB, 2 blocks;
 //     hd 192: MT 1 (64 rows), 16-key tiles -- 98 KB, 2 blocks (two
 //             m-tiles' accumulators, 192 registers, would not fit).
@@ -152,6 +164,9 @@ constexpr float kNegInf = -1e30f;
 template <int HD> struct TileShape;
 template <> struct TileShape<64> {
   static constexpr int kMT = 2, kKeys = 32, kMinBlocks = 3;
+};
+template <> struct TileShape<112> {
+  static constexpr int kMT = 2, kKeys = 16, kMinBlocks = 2;
 };
 template <> struct TileShape<128> {
   static constexpr int kMT = 2, kKeys = 16, kMinBlocks = 2;
@@ -675,6 +690,9 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
       case 64:
         return launch_short<64>(q, k, v, o, B, S, Sk, Hq, Hkv, causal,
                                 window, scale, st);
+      case 112:
+        return launch_short<112>(q, k, v, o, B, S, Sk, Hq, Hkv, causal,
+                                 window, scale, st);
       case 128:
         return launch_short<128>(q, k, v, o, B, S, Sk, Hq, Hkv, causal,
                                  window, scale, st);
@@ -689,6 +707,9 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
     case 64:
       return launch<64>(q, k, v, o, B, S, Sk, Hq, Hkv, causal, window,
                         scale, st);
+    case 112:
+      return launch<112>(q, k, v, o, B, S, Sk, Hq, Hkv, causal, window,
+                         scale, st);
     case 128:
       return launch<128>(q, k, v, o, B, S, Sk, Hq, Hkv, causal, window,
                          scale, st);

@@ -78,16 +78,20 @@ CONSENSUS_BLOCK_COLS = 2048
 # to FLASH_SHORT_MAX_KEYS[hd] (the group's whole K and V in shared
 # memory, room for 64 keys; 16-byte aligned operands), the tile kernel
 # longer Sk (four warps on the tensor cores, 32 query rows a warp at hd
-# 64 and 128, 16 at hd 192). The limits are where the two cross on an
-# H100 (tools/kernel_ab.py at Sk = 16, 32, 48, 64: the short kernel wins
-# up to 48 keys at hd 64 and 192, up to 32 at hd 128). A block takes
-# this many query rows of the g = Hq / Hkv heads that share a KV head
-FLASH_SHORT_MAX_KEYS = {64: 48, 128: 32, 192: 48}
+# 64, 112 and 128, 16 at hd 192). The limits are where the two cross on
+# an H100 (tools/kernel_ab.py at Sk = 16, 32, 48, 64: the short kernel
+# wins up to 48 keys at hd 64 and 192, up to 32 at hd 128); at hd 112 it
+# wins at every Sk it has room for on zamba2-7b's 32 ungrouped heads but
+# only to about 20 keys on kimi-k2's 64 / 8 heads, and the limit is the
+# worse of the two (the crossing sweep in PERF.md). A block takes this
+# many query rows of the g = Hq / Hkv heads that share a KV head
+FLASH_SHORT_MAX_KEYS = {64: 48, 112: 16, 128: 32, 192: 48}
 FLASH_SHORT_ROWS = 64
-FLASH_TILE_ROWS = {64: 128, 128: 128, 192: 64}
+FLASH_TILE_ROWS = {64: 128, 112: 128, 128: 128, 192: 64}
 # flash_attention's template instances: the registry models' head widths
-# (smollm 64; gemma3 and internlm2 128; nemotron 192)
-FLASH_HEAD_DIMS = (64, 128, 192)
+# (smollm 64; zamba2 and kimi-k2 112; gemma3, internlm2 and olmoe 128;
+# nemotron 192)
+FLASH_HEAD_DIMS = (64, 112, 128, 192)
 
 _lib = None
 

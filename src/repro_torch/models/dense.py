@@ -22,9 +22,6 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
-_BLOCK_LEAVES = ("attn/wk", "attn/wo", "attn/wq", "attn/wv", "ln1", "ln2",
-                 "mlp/w_down", "mlp/w_gate", "mlp/w_up")
-
 
 def _group_shape(cfg: ModelConfig) -> tuple[int, int, int]:
     """(num_groups, locals_per_group, tail_locals)."""
@@ -45,7 +42,9 @@ def _stacks(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     return out
 
 
-def _block_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+def block_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """One attention + MLP block's leaf shapes (also the hybrid family's
+    shared blocks)."""
     d, ff = cfg.d_model, cfg.d_ff
     hd = cfg.resolved_head_dim
     qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
@@ -63,9 +62,28 @@ def leaf_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     if not cfg.tie_embeddings:
         out["lm_head"] = (cfg.d_model, cfg.vocab_size)
     for stack, axes in _stacks(cfg).items():
-        for leaf, shape in _block_shapes(cfg).items():
+        for leaf, shape in block_shapes(cfg).items():
             out[f"{stack}/{leaf}"] = axes + shape
     return out
+
+
+def init_attention_half(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """One worker's block norms and attention, by the reference's init
+    laws: the part a dense and a MoE block share, drawn first."""
+    d = cfg.d_model
+    blk = {"ln1": torch.zeros(d), "ln2": torch.zeros(d)}
+    attn = L.init_attention(gen, d, cfg.num_heads, cfg.num_kv_heads,
+                            cfg.resolved_head_dim)
+    blk.update({f"attn/{k}": v for k, v in attn.items()})
+    return blk
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """One worker's attention + MLP block, by the reference's init laws."""
+    blk = init_attention_half(gen, cfg)
+    mlp = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act)
+    blk.update({f"mlp/{k}": v for k, v in mlp.items()})
+    return blk
 
 
 def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -78,22 +96,8 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(generator, (d, cfg.vocab_size))
     for stack, axes in _stacks(cfg).items():
-        n = 1
-        for a in axes:
-            n *= a
-        blocks = []
-        for _ in range(n):
-            blk = {"ln1": torch.zeros(d), "ln2": torch.zeros(d)}
-            attn = L.init_attention(generator, d, cfg.num_heads,
-                                    cfg.num_kv_heads, cfg.resolved_head_dim)
-            mlp = L.init_mlp(generator, d, cfg.d_ff, cfg.act)
-            blk.update({f"attn/{k}": v for k, v in attn.items()})
-            blk.update({f"mlp/{k}": v for k, v in mlp.items()})
-            blocks.append(blk)
-        for leaf in blocks[0]:
-            p[f"{stack}/{leaf}"] = torch.stack(
-                [blk[leaf] for blk in blocks]).reshape(
-                    axes + tuple(blocks[0][leaf].shape))
+        p.update(L.stack_blocks(stack, axes,
+                                lambda: init_block(generator, cfg)))
     return p
 
 
@@ -113,33 +117,51 @@ def layer_order(cfg: ModelConfig):
         yield "tail", (j,), cfg.sliding_window
 
 
-def _block(cfg: ModelConfig, bp: dict, x, positions, *, window: int):
+def block(cfg: ModelConfig, bp: dict, x, positions, *, window: int):
+    """x + attn(norm(x)), then + mlp(norm(.)), with one block's
+    worker-stacked leaves ``bp``."""
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
     h = L.multi_head_attention(
-        {k[len("attn/"):]: v for k, v in bp.items() if k.startswith("attn/")},
-        h, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-        head_dim=cfg.resolved_head_dim, positions=positions,
-        theta=cfg.rope_theta, causal=True, window=window,
+        L.sub(bp, "attn"), h, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+        positions=positions, theta=cfg.rope_theta, causal=True,
+        window=window,
         attn_fn=L.pick_attn_fn(cfg, causal=True, window=window))
     x = x + h
     h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-    mlp = {k[len("mlp/"):]: v for k, v in bp.items() if k.startswith("mlp/")}
-    return x + L.apply_mlp(mlp, h, cfg.act)
+    return x + L.apply_mlp(L.sub(bp, "mlp"), h, cfg.act)
+
+
+def attention_calls(cfg: ModelConfig) -> int:
+    """Attention layers one forward pass runs (every layer attends)."""
+    return cfg.num_layers
+
+
+def activation_floats(cfg: ModelConfig, seq_len: int) -> int:
+    """The floats one token's forward keeps for the backward pass, about:
+    per layer the norms' inputs and outputs, q, k and v before and after
+    RoPE, the attention output and the MLP's four [d_ff]
+    intermediates."""
+    return cfg.num_layers * attention_block_floats(cfg, cfg.d_ff)
+
+
+def attention_block_floats(cfg: ModelConfig, d_ff: int) -> int:
+    """``activation_floats`` of one attention + MLP block (MLP width
+    ``d_ff``; 0 for the attention half alone)."""
+    hd = cfg.resolved_head_dim
+    qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    return 8 * cfg.d_model + 3 * qd + 3 * kvd + 4 * d_ff
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
     """Full forward to final hidden states: tokens [W, B, S] int ->
     [W, B, S, D]."""
     L.check_trainable(cfg)
-    wn, _, s = tokens.shape
-    embed = params["embed"]
-    rows = torch.arange(wn, device=tokens.device)[:, None, None]
-    x = embed[rows, tokens.long()]
-    positions = torch.arange(s, device=tokens.device)
+    x = L.embed(params["embed"], tokens)
+    positions = torch.arange(tokens.shape[-1], device=tokens.device)
     for stack, idx, window in layer_order(cfg):
-        bp = {leaf: params[f"{stack}/{leaf}"][(slice(None),) + idx]
-              for leaf in _BLOCK_LEAVES if f"{stack}/{leaf}" in params}
-        x = _block(cfg, bp, x, positions, window=window)
+        x = block(cfg, L.layer(params, stack, idx), x, positions,
+                   window=window)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 

@@ -1,0 +1,141 @@
+"""Zamba2-style hybrid: a Mamba2 backbone with shared attention blocks —
+the port of ``repro.models.hybrid``'s training forward, for a fleet of W
+workers at once.
+
+``num_layers`` Mamba2 blocks; after every ``ssm_every`` of them one of
+TWO shared attention + MLP blocks fires (parameters reused across
+invocations, alternating A / B by group parity), then the tail Mamba2
+blocks. Leaves, worker-stacked as in ``models/dense.py``: ``mamba/...``
+``[W, G, ssm_every, ...]``, ``shared/...`` ``[W, 2, ...]`` (both shared
+blocks are leaves even when one group runs only block A: the unused one
+gets a zero gradient, but it still gossips and counts in P) and
+``tail/...`` ``[W, tail, ...]``.
+
+Serving waits for ROADMAP.md queue 1, item 4.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import dense
+from repro_torch.models import layers as L
+from repro_torch.models import ssm
+
+NUM_SHARED = 2
+
+
+def _group_shape(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(num_groups, mamba_per_group, tail_mamba)."""
+    if not cfg.ssm_every:
+        return 0, 0, cfg.num_layers
+    g = cfg.num_layers // cfg.ssm_every
+    return g, cfg.ssm_every, cfg.num_layers - g * cfg.ssm_every
+
+
+def _mamba_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    out = {"ln": (cfg.d_model,)}
+    out.update({f"mamba/{k}": v for k, v in
+                ssm.mamba2_shapes(cfg.d_model, cfg.ssm_state).items()})
+    return out
+
+
+def _stacks(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], dict]]:
+    """Each block stack's name, stacked layer axes and block leaf shapes."""
+    g, mpg, tail = _group_shape(cfg)
+    out = {}
+    if g:
+        out["mamba"] = ((g, mpg), _mamba_shapes(cfg))
+        out["shared"] = ((NUM_SHARED,), dense.block_shapes(cfg))
+    if tail:
+        out["tail"] = ((tail,), _mamba_shapes(cfg))
+    return out
+
+
+def leaf_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """One worker's leaf shapes by ``"/"``-joined name."""
+    out = {"embed": (cfg.vocab_size, cfg.d_model), "ln_f": (cfg.d_model,)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (cfg.d_model, cfg.vocab_size)
+    for stack, (axes, shapes) in _stacks(cfg).items():
+        for leaf, shape in shapes.items():
+            out[f"{stack}/{leaf}"] = axes + shape
+    return out
+
+
+def _init_mamba_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    blk = {"ln": torch.zeros(cfg.d_model)}
+    blk.update({f"mamba/{k}": v for k, v in
+                ssm.init_mamba2(gen, cfg.d_model, cfg.ssm_state).items()})
+    return blk
+
+
+def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
+    """One worker's parameters, drawn from ``generator`` (the reference's
+    init laws)."""
+    d = cfg.d_model
+    p = {"embed": L.embed_init(generator, (cfg.vocab_size, d)),
+         "ln_f": torch.zeros(d)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L.dense_init(generator, (d, cfg.vocab_size))
+    make = {"mamba": _init_mamba_block, "shared": dense.init_block,
+            "tail": _init_mamba_block}
+    for stack, (axes, _) in _stacks(cfg).items():
+        p.update(L.stack_blocks(stack, axes,
+                                lambda: make[stack](generator, cfg)))
+    return p
+
+
+def _mamba_apply(cfg: ModelConfig, bp: dict, h):
+    x = L.rms_norm(h, bp["ln"], cfg.norm_eps)
+    return h + ssm.apply_mamba2(L.sub(bp, "mamba"), x, cfg.ssm_state)
+
+
+def attention_calls(cfg: ModelConfig) -> int:
+    """Attention layers one forward pass runs: one shared block a group."""
+    return _group_shape(cfg)[0]
+
+
+def activation_floats(cfg: ModelConfig, seq_len: int) -> int:
+    """The floats one token's forward keeps for the backward pass, about:
+    every Mamba2 block's (``ssm.mamba2_floats``) and every group's shared
+    attention + MLP block's (``dense.attention_block_floats``)."""
+    g = _group_shape(cfg)[0]
+    return (cfg.num_layers * ssm.mamba2_floats(cfg.d_model, cfg.ssm_state,
+                                                seq_len)
+            + g * dense.attention_block_floats(cfg, cfg.d_ff))
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+    """Full forward to final hidden states: tokens [W, B, S] int ->
+    [W, B, S, D]."""
+    L.check_trainable(cfg)
+    x = L.embed(params["embed"], tokens)
+    positions = torch.arange(tokens.shape[-1], device=tokens.device)
+    g, mpg, tail = _group_shape(cfg)
+    for gi in range(g):
+        for j in range(mpg):
+            x = _mamba_apply(cfg, L.layer(params, "mamba", (gi, j)), x)
+        # the shared attention + MLP block: a dense block (full attention)
+        x = dense.block(cfg, L.layer(params, "shared", (gi % NUM_SHARED,)),
+                        x, positions, window=0)
+    for j in range(tail):
+        x = _mamba_apply(cfg, L.layer(params, "tail", (j,)), x)
+    return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def head_matrix(cfg: ModelConfig, params: dict) -> torch.Tensor:
+    """The [W, D, V] output projection (the embedding's transpose when
+    tied)."""
+    return (params["embed"].transpose(1, 2) if cfg.tie_embeddings
+            else params["lm_head"])
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+    """Per-worker next-token loss: batch ``tokens`` and ``labels`` [W, B,
+    S] (optional ``loss_mask``) -> (loss [W], {"tokens": count [W]})."""
+    h = forward(cfg, params, batch["tokens"])
+    loss, cnt = L.chunked_softmax_xent(h, head_matrix(cfg, params),
+                                       batch["labels"].long(),
+                                       batch.get("loss_mask"))
+    return loss, {"tokens": cnt}

@@ -11,7 +11,7 @@ leaves from a ``torch.Generator`` (not ``jax.random``: the tests carry
 the reference's weights across instead).
 
 Not ported here: ``decode_attention``, ``layer_norm``, M-RoPE and
-sinusoidal positions (ROADMAP.md queue 1, items 8 and 10).
+sinusoidal positions (ROADMAP.md queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -55,9 +55,45 @@ def embed_init(gen: torch.Generator, shape):
     return torch.randn(*shape, generator=gen) * 0.02
 
 
+def stack_blocks(stack: str, axes: tuple[int, ...], make) -> dict:
+    """prod(axes) blocks drawn by ``make()`` (one worker's ``{leaf:
+    tensor}``), in order, stacked along the stack's layer axes:
+    ``{"<stack>/<leaf>": [*axes, ...]}``."""
+    blocks = [make() for _ in range(math.prod(axes))]
+    return {f"{stack}/{leaf}": torch.stack([blk[leaf] for blk in blocks])
+            .reshape(axes + tuple(blocks[0][leaf].shape))
+            for leaf in blocks[0]}
+
+
+# ---------------------------------------------------------------------------
+# Leaf selection
+# ---------------------------------------------------------------------------
+
+def sub(params: dict, prefix: str) -> dict:
+    """The leaves under ``prefix/``, named without the prefix."""
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in params.items()
+            if k.startswith(prefix + "/")}
+
+
+def layer(params: dict, stack: str, idx: tuple[int, ...]) -> dict:
+    """One block of a stack: the ``stack/...`` leaves [W, *axes, ...] at
+    the layer index ``idx`` -> {leaf: [W, ...]}, views."""
+    return {k: v[(slice(None),) + idx] for k, v in sub(params,
+                                                        stack).items()}
+
+
 # ---------------------------------------------------------------------------
 # Fleet math
 # ---------------------------------------------------------------------------
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Each worker's rows of its own table: table [W, V, D], tokens [W,
+    ...] int -> [W, ..., D]."""
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    rows = rows.reshape(-1, *([1] * (tokens.dim() - 1)))
+    return table[rows, tokens.long()]
+
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [W, ..., din] @ w [W, din, dout] -> [W, ..., dout], one batched

@@ -1,0 +1,259 @@
+"""Mixture-of-Experts decoder (olmoe-1b-7b, kimi-k2-1t-a32b): the port of
+``repro.models.moe``'s training forward, for a fleet of W workers at
+once.
+
+Routing is the reference's sort-based "dropped" capacity MoE, per
+worker: each worker routes its own T = B * S tokens (capacity C =
+ceil(k T / E * 1.25) from that T), its token -> expert assignments are
+sorted by expert id (a stable sort, as ``jnp.argsort``), packed into
+its own ``[E * C + 1, d]`` buffer — the last row takes every write past
+capacity and is sliced away — and contracted with its own experts
+``[E, d, d_ff]`` in one batched product over (worker, expert). Overflow
+tokens are dropped and scattered back as zeros.
+
+Parameters are the flat dict of ``"/"``-joined leaf names of
+``models/dense.py``, worker-stacked ``[W, ...]``; ``blocks/...`` carry
+the stacked layer axis ``[W, L, ...]`` and the layers run as a Python
+loop in the reference's scan order.
+
+Serving (``prefill``, ``decode_step``, ``init_cache``) waits for
+ROADMAP.md queue 1, item 4.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import dense
+from repro_torch.models import layers as L
+
+CAPACITY_FACTOR = 1.25
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN layer
+# ---------------------------------------------------------------------------
+
+def _ffn_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    d, e = cfg.d_model, cfg.num_experts
+    dff = cfg.moe_d_ff or cfg.d_ff
+    out = {"router": (d, e), "w_down": (e, dff, d), "w_gate": (e, d, dff),
+           "w_up": (e, d, dff)}
+    if cfg.num_shared_experts:
+        sff = cfg.num_shared_experts * dff
+        out.update({"shared/w_down": (sff, d), "shared/w_up": (d, sff)})
+        if cfg.act in ("silu", "gelu"):
+            out["shared/w_gate"] = (d, sff)
+    return out
+
+
+def init_moe_ffn(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """One worker's router, experts and (with ``num_shared_experts``) its
+    shared expert MLP, by ``"/"``-joined name."""
+    d, e = cfg.d_model, cfg.num_experts
+    dff = cfg.moe_d_ff or cfg.d_ff
+    p = {"router": L.dense_init(gen, (d, e), scale=0.02),
+         "w_gate": L.dense_init(gen, (e, d, dff)),
+         "w_up": L.dense_init(gen, (e, d, dff)),
+         "w_down": L.dense_init(gen, (e, dff, d))}
+    if cfg.num_shared_experts:
+        mlp = L.init_mlp(gen, d, cfg.num_shared_experts * dff, cfg.act)
+        p.update({f"shared/{k}": v for k, v in mlp.items()})
+    return p
+
+
+def capacity(tokens: int, num_experts: int, k: int) -> int:
+    """Expert capacity C = max(1, ceil(k T / E * CAPACITY_FACTOR))."""
+    return max(1, math.ceil(k * tokens / num_experts * CAPACITY_FACTOR))
+
+
+def apply_moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """x [W, B, S, d] -> ([W, B, S, d], aux loss [W]).
+
+    ``cfg.moe_shard_groups`` G > 0 routes each worker's tokens within G
+    independent groups of T / G tokens (capacity per group), when G
+    divides T = B * S; the aux loss is the groups' mean."""
+    wn, b, s, d = x.shape
+    groups = cfg.moe_shard_groups
+    if groups and (b * s) % groups == 0:
+        y, aux = _moe_ffn_flat(p, x.reshape(wn, groups, (b * s) // groups,
+                                            d), cfg)
+        return y.reshape(wn, b, s, d), aux.mean(dim=1)
+    y, aux = _moe_ffn_flat(p, x.reshape(wn, 1, b * s, d), cfg)
+    return y.reshape(wn, b, s, d), aux[:, 0]
+
+
+def _moe_ffn_flat(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Routing groups x [W, G, T, d] (each group of each worker routes its
+    own T tokens) -> (y [W, G, T, d], aux loss [W, G])."""
+    wn, ng, t, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    c = capacity(t, e, k)
+    n = wn * ng
+    xw = x.reshape(wn, ng * t, d)
+
+    logits = L.matmul(xw.to(torch.float32), p["router"])     # [W, G T, E]
+    probs = torch.softmax(logits, dim=-1).reshape(n, t, e)
+    gate, eidx = torch.topk(probs, k, dim=-1)                 # [N, T, k]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balancing auxiliary loss (Switch-style); ce is a count and
+    # carries no gradient, which flows through me
+    me = probs.mean(dim=1)                                    # [N, E]
+    flat_e = eidx.reshape(n, t * k)
+    ce = torch.zeros(n, e, dtype=probs.dtype, device=x.device).scatter_add_(
+        1, flat_e, torch.ones(flat_e.shape, dtype=probs.dtype,
+                              device=x.device)) / (t * k)
+    aux = e * torch.sum(me * ce, dim=-1)
+
+    # ---- pack: sort assignments by expert, drop beyond capacity ----
+    sidx = torch.argsort(flat_e, dim=-1, stable=True)         # [N, T k]
+    sorted_e = torch.gather(flat_e, 1, sidx)
+    experts = torch.arange(e, device=x.device).expand(n, e).contiguous()
+    seg_start = torch.searchsorted(sorted_e, experts)         # [N, E]
+    pos = (torch.arange(t * k, device=x.device)
+           - torch.gather(seg_start, 1, sorted_e))
+    keep = pos < c
+    slot = torch.where(keep, sorted_e * c + torch.clamp(pos, 0, c - 1),
+                       e * c)
+    src_tok = sidx // k                                       # origin token
+    xf = x.reshape(n, t, d)
+    rows = torch.gather(xf, 1, src_tok[..., None].expand(n, t * k, d))
+    buf = torch.zeros(n, e * c + 1, d, dtype=x.dtype, device=x.device)
+    buf = buf.scatter(1, slot[..., None].expand(n, t * k, d), rows)
+
+    # ---- expert computation: one batched product over (worker, expert),
+    # a worker's groups side by side in its experts' rows ----
+    h = (buf[:, :e * c].reshape(wn, ng, e, c, d).transpose(1, 2)
+         .reshape(wn * e, ng * c, d))
+    dff = p["w_gate"].shape[-1]
+    f = L.act_fn(cfg.act)
+    a = f(torch.bmm(h, p["w_gate"].reshape(wn * e, d, dff))) \
+        * torch.bmm(h, p["w_up"].reshape(wn * e, d, dff))
+    o = torch.bmm(a, p["w_down"].reshape(wn * e, dff, d))     # [W E, G C, d]
+    o = o.reshape(wn, e, ng, c, d).transpose(1, 2).reshape(n, e * c, d)
+
+    # ---- unpack: gather back, unsort, combine with gates ----
+    of = torch.cat([o, torch.zeros(n, 1, d, dtype=o.dtype,
+                                   device=o.device)], dim=1)
+    back = torch.where(keep, slot, e * c)                     # dropped -> 0
+    y_rep = torch.gather(of, 1, back[..., None].expand(n, t * k, d))
+    y_unsorted = torch.zeros(n, t * k, d, dtype=x.dtype, device=x.device)
+    y_unsorted = y_unsorted.scatter(1, sidx[..., None].expand(n, t * k, d),
+                                    y_rep)
+    y = (y_unsorted.reshape(n, t, k, d)
+         * gate[..., None].to(x.dtype)).sum(dim=2)
+
+    if "shared/w_up" in p:
+        y = y + L.apply_mlp(L.sub(p, "shared"), xw, cfg.act).reshape(n, t, d)
+    return y.reshape(wn, ng, t, d), aux.reshape(wn, ng)
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+
+def _block_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    out = {"attn/wk": (d, kvd), "attn/wo": (qd, d), "attn/wq": (d, qd),
+           "attn/wv": (d, kvd), "ln1": (d,), "ln2": (d,)}
+    out.update({f"moe/{k}": v for k, v in _ffn_shapes(cfg).items()})
+    return out
+
+
+def leaf_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """One worker's leaf shapes by ``"/"``-joined name."""
+    out = {"embed": (cfg.vocab_size, cfg.d_model), "ln_f": (cfg.d_model,)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (cfg.d_model, cfg.vocab_size)
+    for leaf, shape in _block_shapes(cfg).items():
+        out[f"blocks/{leaf}"] = (cfg.num_layers,) + shape
+    return out
+
+
+def _block_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    blk = dense.init_attention_half(gen, cfg)
+    blk.update({f"moe/{k}": v for k, v in init_moe_ffn(gen, cfg).items()})
+    return blk
+
+
+def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
+    """One worker's parameters, drawn from ``generator`` (the reference's
+    init laws)."""
+    d = cfg.d_model
+    p = {"embed": L.embed_init(generator, (cfg.vocab_size, d)),
+         "ln_f": torch.zeros(d)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L.dense_init(generator, (d, cfg.vocab_size))
+    p.update(L.stack_blocks("blocks", (cfg.num_layers,),
+                            lambda: _block_init(generator, cfg)))
+    return p
+
+
+def _block(cfg: ModelConfig, bp: dict, x, positions):
+    h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+    h = L.multi_head_attention(
+        L.sub(bp, "attn"), h, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+        positions=positions, theta=cfg.rope_theta, causal=True,
+        attn_fn=L.pick_attn_fn(cfg, causal=True, window=0))
+    x = x + h
+    h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    y, aux = apply_moe_ffn(L.sub(bp, "moe"), h, cfg)
+    return x + y, aux
+
+
+def attention_calls(cfg: ModelConfig) -> int:
+    """Attention layers one forward pass runs (one a block)."""
+    return cfg.num_layers
+
+
+def activation_floats(cfg: ModelConfig, seq_len: int) -> int:
+    """The floats one token's forward keeps for the backward pass, about:
+    per layer the attention half of a dense block, the router's logits
+    and probabilities, its k gathered rows, their outputs back and the
+    unsorted copy, and about 1.25 k expert slots (the [E, C, d] buffer,
+    the expert outputs and the three [E, C, d_ff] products), plus the
+    shared expert's four intermediates."""
+    d, e, k = cfg.d_model, cfg.num_experts, cfg.experts_per_token
+    dff = cfg.moe_d_ff or cfg.d_ff
+    slots = math.ceil(CAPACITY_FACTOR * k)
+    per_layer = (dense.attention_block_floats(cfg, 0) + 2 * e + 3 * k * d
+                 + slots * (2 * d + 3 * dff)
+                 + 4 * cfg.num_shared_experts * dff)
+    return cfg.num_layers * per_layer
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+    """tokens [W, B, S] int -> (final hidden states [W, B, S, D], the
+    layers' mean aux loss [W])."""
+    L.check_trainable(cfg)
+    x = L.embed(params["embed"], tokens)
+    positions = torch.arange(tokens.shape[-1], device=tokens.device)
+    auxes = []
+    for i in range(cfg.num_layers):
+        x, aux = _block(cfg, L.layer(params, "blocks", (i,)), x, positions)
+        auxes.append(aux)
+    return (L.rms_norm(x, params["ln_f"], cfg.norm_eps),
+            torch.stack(auxes).mean(dim=0))
+
+
+def head_matrix(cfg: ModelConfig, params: dict) -> torch.Tensor:
+    """The [W, D, V] output projection (the embedding's transpose when
+    tied)."""
+    return (params["embed"].transpose(1, 2) if cfg.tie_embeddings
+            else params["lm_head"])
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+    """Per-worker next-token loss plus 0.01 x the aux loss: batch
+    ``tokens`` and ``labels`` [W, B, S] -> (loss [W], {"tokens": count
+    [W], "aux_loss": [W]})."""
+    h, aux = forward(cfg, params, batch["tokens"])
+    loss, cnt = L.chunked_softmax_xent(h, head_matrix(cfg, params),
+                                       batch["labels"].long(),
+                                       batch.get("loss_mask"))
+    return loss + 0.01 * aux, {"tokens": cnt, "aux_loss": aux}

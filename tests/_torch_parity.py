@@ -45,16 +45,20 @@ CHURN_EVENTS = ((2, "leave", 1, {}), (3, "crash", 6, {}),
                 (6, "join", 1, {}))
 
 
-def jax_churn(churn: bool):
+def jax_churn(churn):
+    """``churn``: True for ``CHURN_EVENTS``, or a tuple of events."""
+    events = CHURN_EVENTS if churn is True else churn
     return JaxChurnSchedule(tuple(JaxChurnEvent(r, k, w, **kw)
-                                  for r, k, w, kw in CHURN_EVENTS)) \
-        if churn else None
+                                  for r, k, w, kw in events)) \
+        if events else None
 
 
-def torch_churn(churn: bool):
+def torch_churn(churn):
+    """``churn``: True for ``CHURN_EVENTS``, or a tuple of events."""
+    events = CHURN_EVENTS if churn is True else churn
     return ChurnSchedule(tuple(ChurnEvent(r, k, w, **kw)
-                               for r, k, w, kw in CHURN_EVENTS)) \
-        if churn else None
+                               for r, k, w, kw in events)) \
+        if events else None
 
 
 def jax_init(seed: int, num_workers: int, dim: int = 32, hidden: int = 64,
@@ -222,3 +226,116 @@ def worst_diffs(a: dict, b: dict) -> dict[str, float]:
 
 def port_config(**kw) -> FedHPConfig:
     return replace(FedHPConfig(**CFG_KW), **kw)
+
+
+# the registry families' loss and gradient parity (tests/test_torch_moe.py,
+# _ssm.py, _xlstm.py): the dense tolerances of tests/test_torch_registry.py
+FAMILY_LOSS_TOL = 2e-4
+FAMILY_GRAD_TOL = 5e-3
+
+
+def family_loss_and_grads(arch: str, fields: dict, *, batch: int = 2,
+                          seq: int = 16, seed: int = 1):
+    """The smoke config of ``arch`` (with ``fields`` over it) through the
+    reference's ``jax.value_and_grad`` of ``registry.loss_fn`` and the
+    port's adapter loss and autograd, from the reference's weights on
+    seeded tokens [batch, seq] (next-token pairs of seq - 1) ->
+    (reference loss, port loss, {leaf: (reference grad, port grad)},
+    the port's ``ops.flash_attention`` calls)."""
+    import jax.numpy as jnp
+    from repro.configs import get_smoke_config as jax_smoke_config
+    from repro.models import registry as jax_registry
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import modelspec
+    from repro_torch.kernels import ops
+    jcfg = replace(jax_smoke_config(arch), **fields)
+    tcfg = replace(get_smoke_config(arch), remat="none", **fields)
+    p = jax_registry.init_params(jcfg, jax.random.PRNGKey(seed))
+    tokens = np.random.default_rng(seed).integers(
+        0, jcfg.vocab_size, (batch, seq)).astype(np.int32)
+    jbatch = {"tokens": jnp.asarray(tokens[:, :-1]),
+              "labels": jnp.asarray(tokens[:, 1:])}
+    loss_j, grads_j = jax.jit(jax.value_and_grad(
+        lambda q: jax_registry.loss_fn(jcfg, q, jbatch)[0]))(p)
+    adapter = modelspec.RegistryAdapter(tcfg, seq, 8, "port")
+    flat = adapter.flatten({k: v[None] for k, v in
+                            params_from_jax(p).items()})
+    flat.requires_grad_(True)
+    before = ops.LAUNCHES["flash_attention"]
+    calls = []
+    real = ops.flash_attention
+
+    def counting(*a, **kw):
+        calls.append(kw)
+        return real(*a, **kw)
+
+    ops.flash_attention = counting
+    try:
+        loss_t = adapter.loss(adapter.views(flat),
+                              torch.from_numpy(tokens[None]), None)
+        (g,) = torch.autograd.grad(loss_t.sum(), flat)
+    finally:
+        ops.flash_attention = real
+    assert ops.LAUNCHES["flash_attention"] == before   # the plain version
+    got = adapter.unflatten(g)
+    grads = {name: (want.numpy(), got[name][0].numpy())
+             for name, want in params_from_jax(grads_j).items()}
+    return float(loss_j), float(loss_t.detach()[0]), grads, len(calls)
+
+
+def assert_family_parity(arch: str, fields: dict, **kw) -> int:
+    """``family_loss_and_grads`` held to loss 2e-4 and every gradient leaf
+    5e-3 (absolute and relative); returns the flash calls."""
+    loss_j, loss_t, grads, calls = family_loss_and_grads(arch, fields, **kw)
+    np.testing.assert_allclose(loss_t, loss_j, rtol=FAMILY_LOSS_TOL,
+                               atol=FAMILY_LOSS_TOL)
+    for name, (want, got) in grads.items():
+        np.testing.assert_allclose(got, want, rtol=FAMILY_GRAD_TOL,
+                                   atol=FAMILY_GRAD_TOL, err_msg=name)
+    return calls
+
+
+# the moe, hybrid and xlstm families' engine tests
+# (tests/test_torch_families_engine*.py say why these sizes and settings)
+FAMILY_SPECS = {
+    "moe": "moe:d=32,layers=2,heads=2,kv=1,ff=32,vocab=32,seq=12,"
+           "experts=4,experts_per_token=2",
+    "hybrid": "hybrid:d=64,layers=2,heads=2,kv=1,ff=64,vocab=32,seq=12,"
+              "ssm_state=8,ssm_every=2",
+    "xlstm": "xlstm:d=64,layers=2,heads=2,vocab=32,seq=12,slstm_every=1"}
+# a ring base: on a complete base FedHP's first round mixes every worker
+# to the same row, and the two packages' consensus metrics are f32 noise
+# there (the reference's 2-4e-6 at this size, past the contract's 1e-6)
+FAMILY_KW = dict(num_workers=4, lr=0.02, tau_init=2, tau_max=2,
+                 base_topology="ring")
+FAMILY_ROUNDS = 3
+# a leave, a crash, a straggler spike and a join inside the 3 rounds of
+# the 4-worker fleet
+FAMILY_CHURN = ((1, "leave", 1, {}), (1, "crash", 3, {}),
+                (1, "straggle", 2, dict(factor=5.0, duration=2)),
+                (2, "join", 1, {}))
+# id -> (algorithm, churn, config fields)
+FAMILY_CASES = {"fedhp-nochurn": ("fedhp", False, {}),
+                "fedhp-churn": ("fedhp", FAMILY_CHURN, {}),
+                "dpsgd-nochurn": ("dpsgd", False, {}),
+                "dpsgd-int8": ("dpsgd", False, dict(compress="int8"))}
+
+
+def check_family_engines(family: str, case: str) -> dict[str, float]:
+    """One ``FAMILY_CASES`` case of ``family``'s tiny spec: the
+    reference's ``engine.run_dfl`` against the port's ``run_dfl`` and
+    ``run_dfl_fused``, held to the parity contract (int8's tolerances
+    under int8) -> the worst device-metric differences."""
+    algo, churn, fields = FAMILY_CASES[case]
+    kw = dict(FAMILY_KW, model=FAMILY_SPECS[family], **fields)
+    h_ref, _ = run_reference(algo, churn, FAMILY_ROUNDS, **kw)
+    worst = {}
+    for engine_name in ("reference", "fused"):
+        h_port = run_port(algo, churn, engine_name, rounds=FAMILY_ROUNDS,
+                          **kw)
+        assert_parity(h_ref, h_port, FAMILY_ROUNDS,
+                      int8="int8" in fields.get("compress", ""))
+        for k, v in worst_diffs(h_ref.as_arrays(),
+                                h_port.as_arrays()).items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    return worst

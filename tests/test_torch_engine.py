@@ -114,15 +114,16 @@ def _remat_block_through_an_adapter(cfg):
 # (algorithm, config fields, what the call does): NotImplementedError
 # naming ROADMAP.md where the port still refuses, the reference's
 # ValueError where the reference refuses too, None where it now runs (the
-# per-leaf codec maps, ported since these cases were written)
+# per-leaf codec maps and the moe and hybrid families, ported since these
+# cases were written)
 @pytest.mark.parametrize("algo,fields,expect", [
     ("dpsgd", dict(compress="leafmap:default=int8"), None),
     ("dpsgd", dict(gossip="sparse", compress="leafmap:default=int8"), None),
     ("dpsgd", dict(gossip="sparse", sharded=True), NotImplementedError),
     ("dpsgd", dict(sharded=True), NotImplementedError),
-    ("dpsgd", dict(model="moe:d=16"), NotImplementedError),
-    ("dpsgd", dict(robust="median", model="hybrid:d=16"),
-     NotImplementedError),
+    ("dpsgd", dict(model="moe:d=16", num_workers=4), None),
+    ("dpsgd", dict(robust="median", model="hybrid:d=32", num_workers=4),
+     None),
     ("dpsgd", None, NotImplementedError),
     ("adpsgd", dict(robust="screen:3", compress="leafmap:default=int8"),
      ValueError),
@@ -133,9 +134,12 @@ def _remat_block_through_an_adapter(cfg):
          "robust-median-model-hybrid", "remat-block-adapter",
          "adpsgd-robust-screen-leafmap", "sharded-compress-leafmap"])
 def test_unported_options_raise(algo, fields, expect):
-    """``fields`` None: remat="block" through an adapter. A leafmap runs
-    on both synchronous engines; AD-PSGD refuses it with the reference's
-    ValueError."""
+    """``fields`` None: remat="block" through an adapter. A leafmap, a moe
+    model and a hybrid one under the median run on both synchronous
+    engines (the two LMs on 4 workers, whose measurement stack is a
+    quarter of 8's; the hybrid at d 32: its Mamba2 heads are 64 wide, and
+    at d 16 the reference cannot reshape its 32 inner channels either);
+    AD-PSGD refuses a leafmap with the reference's ValueError."""
     if expect is None:
         for fused in (False, True):
             h = run_algorithm(algo, port_config(**fields), rounds=2,

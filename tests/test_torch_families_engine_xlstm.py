@@ -1,0 +1,21 @@
+"""The port's synchronous engines training the xlstm family against the
+reference, on the settings of ``tests/test_torch_families_engine.py``
+(the moe family; its docstring says why these sizes and settings).
+
+A tiny spec (``_torch_parity.FAMILY_SPECS["xlstm"]``: d 64, one mLSTM
+block (2 heads) and one sLSTM block, vocabulary 32, sequences of 12
+tokens) trains at W = 4 for 3 rounds through the reference JAX
+``engine.run_dfl`` and the port's ``run_dfl`` and ``run_dfl_fused`` on
+the CPU: FedHP with and without churn, D-PSGD, and D-PSGD under int8,
+held to the parity contract (int8's tolerances under int8).
+"""
+from __future__ import annotations
+
+import pytest
+
+from _torch_parity import FAMILY_CASES, check_family_engines
+
+
+@pytest.mark.parametrize("case", list(FAMILY_CASES))
+def test_xlstm_engines_match_reference(case):
+    check_family_engines("xlstm", case)

@@ -828,7 +828,11 @@ def test_consensus_dist_rejects_bad_shapes():
 # multiple of its block's rows (128 at hd 64 and 128, 64 at hd 192); a
 # window narrower than one key tile (32 keys at hd 64, 16 at hd 128 and
 # 192); and groups whose blocks and warps straddle two heads (S = 72, 90
-# and 100)
+# and 100); at head width 112 (not a power of two: 28 16-byte chunks a
+# row, 14 k-steps) zamba2's local step (32 ungrouped heads), the short
+# kernel's limit and one key past it, a window inside the short kernel's
+# reach on kimi-k2's 64 / 8 heads, those heads over a long causal S, a
+# window narrower than a key tile and a group straddling two heads
 _LIMIT = ops.FLASH_SHORT_MAX_KEYS
 FLASH_CUDA_CASES = [(256, 15, 15, 5, 64, True, 0),
                     (2048, 15, 15, 5, 64, True, 0),
@@ -853,7 +857,14 @@ FLASH_CUDA_CASES = [(256, 15, 15, 5, 64, True, 0),
                     (1, 300, 6, 2, 192, True, 5),
                     (2, 100, 12, 4, 64, True, 0),
                     (1, 72, 4, 1, 128, True, 0),
-                    (1, 90, 6, 2, 192, True, 0)]
+                    (1, 90, 6, 2, 192, True, 0),
+                    (64, 15, 32, 32, 112, True, 0),
+                    (16, _LIMIT[112], 32, 32, 112, True, 0),
+                    (16, _LIMIT[112] + 1, 32, 32, 112, True, 0),
+                    (8, _LIMIT[112], 64, 8, 112, True, 6),
+                    (1, 700, 64, 8, 112, True, 0),
+                    (1, 500, 8, 4, 112, True, 8),
+                    (1, 90, 6, 2, 112, True, 0)]
 
 
 @pytest.mark.cuda

@@ -77,8 +77,9 @@ SHORT_CAPACITY = 64
 # Sk across the short kernel's room and one key past it, per head width
 # (B, Hq, Hkv: the registry models' group shapes at a modest batch)
 LIMIT_CASES = tuple(
-    (f"sk{sk}-hd{hd}", b, sk, hq, hkv, hd, True, 0, None)
-    for hd, b, hq, hkv in ((64, 256, 15, 5), (128, 64, 32, 16),
+    (f"sk{sk}-hd{hd}-{hq}/{hkv}", b, sk, hq, hkv, hd, True, 0, None)
+    for hd, b, hq, hkv in ((64, 256, 15, 5), (112, 64, 32, 32),
+                           (112, 16, 64, 8), (128, 64, 32, 16),
                            (192, 32, 24, 2))
     for sk in (16, 32, 48, SHORT_CAPACITY, SHORT_CAPACITY + 1))
 
