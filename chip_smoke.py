@@ -39,7 +39,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    with the f32-FMA bound
    (operations at 67 TFLOP/s or bytes), the tensor-core bound (3 x the
    operations at 495 TFLOP/s, or bytes) and
-   ``scaled_dot_product_attention``'s time) and
+   ``scaled_dot_product_attention``'s time; its bf16 instances at
+   ``FLASH_BF16_CASES`` within one bf16 ulp, with the share of elements
+   that differ, the bound of bf16 bytes against the operations at bf16's
+   989 TFLOP/s, and bf16 SDPA's time) and
    ``consensus_dist`` (the kernel benchmark's shape and the registry
    path's width; within 1e-6 relative); ``gossip_mix``'s lane-strided
    form (the batched seeds axis: 4 lanes of the MLP path's round, of
@@ -65,6 +68,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    ``run_dfl_fused(adapter=...)``, and FedHP there under the per-leaf
    codec map ``leafmap:embed=randk:0.05,ln=none,default=int8`` (its
    seconds a round, peak memory and wire ratio beside uniform int8's);
+   FedHP on that path as published (``LM_BF16_MODEL``: bf16 leaves and
+   flash instances, remat "block"), its seconds a round and peak memory
+   beside the f32 path's, and on one of its worker groups the loss and
+   gradients under each remat policy (bit-equal) with each one's memory;
    FedHP on the moe, hybrid and xlstm families at published widths
    (``FAMILY_PATHS``: olmoe-1b-7b 1 layer at W = 4, zamba2-7b 6 layers
    at W = 2, xlstm-1.3b 8 layers at W = 4; vocabulary 6,144, the flash
@@ -73,16 +80,19 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    the passes, with P, W and peak memory;
    FedHP and D-PSGD on the MLP under ``leafmap:w1=topk:0.1,b=none,
    default=int8``, dense and sparse; D-PSGD, LD-SGD and AD-PSGD with
-   ``seeds`` of 4 lanes — each after a short warm-up run, with the
-   launch counters zeroed before each timed run and read after it, and
-   held to what the path must launch;
+   ``seeds`` of 4 lanes — each after a short warm-up run (the family
+   paths without one), with the launch counters zeroed before each
+   timed run and read after it, and held to what the path must launch;
 4. the reference engine against the fused engine on the card — FedHP
    uncompressed, under int8 and under top-k, AD-PSGD uncompressed and
    under int8, sparse FedHP uncompressed and under int8, trimmed:6
    sparse and dense, the median, AD-PSGD screening, and the registry
    path's FedHP over an ``erdos:0.5`` base, and the 70-worker trimmed
    FedHP over ``erdos:0.95`` (degrees 65-69), FedHP under the MLP's
-   leafmap and the registry path's FedHP under its leafmap, and FedHP on
+   leafmap and the registry path's FedHP under its leafmap, the path as
+   published in bf16 (loss and consensus within ``BF16_LOSS_RTOL`` and
+   ``BF16_CONSENSUS_RTOL``, twice a one-ulp nudge's effect, and the final
+   parameters bit-equal), and FedHP on
    each of the three families' paths over ``erdos:0.5``: host record
    fields (and screening's rejection counts) equal, device metrics within
    the tests' tolerances (int8's wider wherever a codec quantizes to
@@ -92,7 +102,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    unbatched run).
 
 Then a JSON line describing every kernel, the card line, and the last
-line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
+line ``{"ok": true, "device": {...}}``; ``[timing]`` lines give each
+phase's seconds and phase 2's by check. Exits non-zero, printing no
 result, without a CUDA device or outside a checkout of the repo.
 
     python3 chip_smoke.py --trace
@@ -140,6 +151,9 @@ F32_FLOPS = 67e12
 # product as three TF32 products (3xTF32), so its tensor-core bound is
 # the larger of the bytes and 3 flops at this rate
 TF32_FLOPS = 495e12
+# and bf16 (f32 accumulation) on the tensor cores, dense: the peak that
+# bounds a function of bf16 operands, whatever instructions it issues
+BF16_FLOPS = 989e12
 # the paper's MLP (32 -> 64 -> 64 -> 10): the width of a worker's row
 PAPER_MLP_P = 6922
 
@@ -273,6 +287,32 @@ FAMILY_PATHS = (("olmoe-1b-7b", 1, 444_733_440, 4, LM_CFG.lr),
                 ("zamba2-7b", 6, 922_968_288, 2, 0.01),
                 ("xlstm-1.3b", 8, 474_241_080, 4, 5e-4))
 FAMILY_ROUNDS = 2
+# the registry path as published: smollm-360m at its own dtype (bf16
+# leaves and activations, the flash kernel's bf16 instances) and
+# activation-checkpoint policy ("block"), with LM_MODEL's cuts (depth 4
+# of 32, vocabulary 6,144): the same P, a bf16 value in each f32 slot of
+# the engines' [W, P] matrix
+LM_BF16_MODEL = replace(LM_MODEL, dtype="bfloat16", remat="block")
+LM_BF16_ROUNDS = 2
+# the policies whose loss and gradients phase 3 holds bit-equal on one
+# worker group of the bf16 path
+REMAT_POLICIES = ("none", "dots", "block")
+# phase 4 on the bf16 path: the engines' loss and consensus relative
+# gaps. A bf16 path rounds every weight to 8 significand bits after each
+# SGD step and gossip, so the engines' last-ulp differences in f32 (the
+# reference mixes as sum_j w_ij x_j, the kernel as x_i + sum_j w_ij (x_j
+# - x_i)) move a weight by a whole bf16 ulp where they straddle a
+# rounding boundary. The bounds are the trajectory's own sensitivity:
+# the fused engine from a start nudged by one bf16 ulp per weight parts
+# from itself by 1.29e-5 in loss and 4.08e-4 in consensus (relative)
+# after 2 rounds over erdos:0.5 (tools/family_witness.py
+# smollm-360m-bf16:0.05:ref, on an H100 at 700 W; PERF.md §2), and the
+# engines are held to twice that
+BF16_LOSS_RTOL = 2.6e-5
+BF16_CONSENSUS_RTOL = 8.2e-4
+# Those bounds admit one unrounded write (it moves weights by less than
+# the nudge does), so the engines' final bf16 parameters are also held
+# bit-equal, as every run on the card has found them (PERF.md §2).
 
 # the kernels' agreement with their plain versions where it is not
 # bit-equality: flash attention reassociates the softmax sums (the
@@ -280,6 +320,13 @@ FAMILY_ROUNDS = 2
 # sums in another order
 FLASH_ATOL = FLASH_RTOL = 2e-5
 CONSENSUS_RTOL = 1e-6
+# the bf16 instances: each element within one bf16 ulp of the plain
+# version (which rounds its f32 result once), or within FLASH_ATOL where
+# an element is so near 0 that the two f32 results' own difference
+# passes its ulp (tests/test_torch_kernels.py); at FLASH_CASES' shapes of
+# the paths that run bf16 and the train shapes
+FLASH_BF16_CASES = ("local-step", "measurement-group", "smollm-train",
+                    "gemma3-local", "hd192", "zamba2-step", "zamba2-train")
 # kernels no main path launches
 OFF_PATH = ("consensus_dist",)
 
@@ -358,10 +405,12 @@ def time_ms(fn, cycles_per_ms: float, *, batch: int,
 # phase 2: gossip_mix against its plain version
 # ---------------------------------------------------------------------------
 
-def _bound(nbytes: int, flops: int) -> tuple[float, str]:
+def _bound(nbytes: int, flops: int,
+           peak: float = F32_FLOPS) -> tuple[float, str]:
     """The least time (ms) for ``nbytes`` of device memory traffic and
-    ``flops`` f32 operations, and which of the two bounds it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    ``flops`` operations at ``peak`` FLOP/s (f32 outside the tensor cores
+    unless given), and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
         else "operations"
 
@@ -1029,24 +1078,52 @@ FLASH_CASES = (("local-step", 256, 15, 15, 5, 64, True, 0, False),
                 32, 32, 112, True, 0, False))
 
 
-def check_flash_attention(cycles_per_ms: float) -> dict:
-    gen = torch.Generator(device="cuda").manual_seed(4)
+def check_flash_attention(cycles_per_ms: float,
+                          dtype: torch.dtype = torch.float32) -> dict:
+    """The flash instances of ``dtype`` against the plain version: in f32
+    at every one of ``FLASH_CASES``, each element within ``FLASH_ATOL``
+    + ``FLASH_RTOL`` |y|; in bf16 at ``FLASH_BF16_CASES``, each element
+    within one bf16 ulp (or ``FLASH_ATOL`` near 0), with the share of
+    elements that differ. Each case logs the kernel's, the plain
+    version's and ``scaled_dot_product_attention``'s times in that dtype
+    and the bound: the bytes at the dtype's element size over HBM's rate,
+    against the operations at the dtype's peak (f32 FMAs outside the
+    tensor cores, or bf16's dense tensor-core rate). ``tc_bound_ms`` is a
+    diagnostic beside it: the operations the instance issues on TF32
+    tensor cores (three products per product in f32, 3xTF32; one for q
+    k^T and two for p v in bf16, whose values TF32 holds exactly)."""
+    bf16 = dtype == torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(5 if bf16 else 4)
+    cases = [c for c in FLASH_CASES if not bf16 or c[0] in FLASH_BF16_CASES]
+    elem, peak, tc_products = (2, BF16_FLOPS, 1.5) if bf16 else \
+        (4, F32_FLOPS, 3.0)
+    suffix = "/bf16" if bf16 else ""
     worst, main = 0.0, None
-    for case, b, s, hq, hkv, hd, causal, window, is_main in FLASH_CASES:
-        q = torch.randn(b, s, hq, hd, generator=gen, device="cuda")
-        k = torch.randn(b, s, hkv, hd, generator=gen, device="cuda")
-        v = torch.randn(b, s, hkv, hd, generator=gen, device="cuda")
+    for case, b, s, hq, hkv, hd, causal, window, is_main in cases:
+        q, k, v = (torch.randn(b, s, h, hd, generator=gen, device="cuda")
+                   .to(dtype) for h in (hq, hkv, hkv))
         forced = causal or s % 128 != 0
         y = ops.flash_attention(q, k, v, causal=causal, window=window)
         y_ref = ref.flash_attention_ref(q, k, v, causal=forced,
                                         window=window)
         torch.cuda.synchronize()
-        diff = (y - y_ref).abs()
+        if y.dtype != dtype:
+            raise AssertionError(f"flash_attention[{case}{suffix}] returned "
+                                 f"{y.dtype}")
+        diff = (y.float() - y_ref.float()).abs()
+        tol = ref.bf16_ulp(y_ref).clamp_min(FLASH_ATOL) if bf16 else \
+            FLASH_ATOL + FLASH_RTOL * y_ref.abs()
         err = float(diff.max())
-        if bool((diff > FLASH_ATOL + FLASH_RTOL * y_ref.abs()).any()):
-            raise AssertionError(f"flash_attention[{case}] differs from its "
-                                 f"plain version: max |diff| = {err}")
+        if bool((diff > tol).any()):
+            raise AssertionError(
+                f"flash_attention[{case}{suffix}] differs from its plain "
+                f"version past " + ("one bf16 ulp" if bf16 else "2e-5")
+                + f": max |diff| = {err}")
         worst = max(worst, err)
+        extra = dict(share_differ=f"{float((diff > 0).float().mean()):.6f}")
+        if bf16:
+            extra["share_past_one_ulp"] = \
+                f"{float((diff > ref.bf16_ulp(y_ref)).float().mean()):.2e}"
         mask = ref.attention_mask(s, s, causal=forced, window=window,
                                   device="cuda")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1057,47 +1134,50 @@ def check_flash_attention(cycles_per_ms: float) -> dict:
             return torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask if window else None,
                 is_causal=forced and not window, enable_gqa=True)
-        lib_err = float((library().transpose(1, 2) - y_ref).abs().max())
+        lib_err = float((library().transpose(1, 2).float()
+                         - y_ref.float()).abs().max())
         heavy = s >= 1000
         kernel_ms = time_ms(
             lambda: ops.flash_attention(q, k, v, causal=causal,
                                         window=window), cycles_per_ms,
-            batch=2 if heavy else 5, reps=10 if heavy else 30)
+            batch=2 if heavy else 5, reps=10 if heavy else 20)
         plain_ms = time_ms(
             lambda: ref.flash_attention_ref(q, k, v, causal=forced,
                                             window=window), cycles_per_ms,
-            batch=1, reps=5 if heavy else 10)
+            batch=1, reps=3 if heavy else 5)
         library_ms = time_ms(library, cycles_per_ms, batch=2 if heavy else 5,
-                             reps=10 if heavy else 30)
+                             reps=10 if heavy else 20)
         # q, k and v read once, o written once; two products of 2 hd
         # operations per (query, key in reach) pair and query head
         pairs = int(mask.sum())
-        nbytes = (2 * b * s * hq * hd + 2 * b * s * hkv * hd) * 4
+        nbytes = (2 * b * s * hq * hd + 2 * b * s * hkv * hd) * elem
         flops = 4 * b * hq * hd * pairs
-        bound_ms, bound_by = _bound(nbytes, flops)
-        tc_ms = max(nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS) * 1e3
-        log("phase2", kernel="flash_attention", case=case,
+        bound_ms, bound_by = _bound(nbytes, flops, peak)
+        tc_ms = max(nbytes / HBM_BYTES_PER_S,
+                    tc_products * flops / TF32_FLOPS) * 1e3
+        log("phase2", kernel="flash_attention", case=case + suffix,
             instance=ops.flash_instance(q, k, v), B=b, S=s, Hq=hq,
             Hkv=hkv, hd=hd, causal=forced, window=window,
-            max_abs_err=err, sdpa_max_abs_diff=lib_err,
+            max_abs_err=err, sdpa_max_abs_diff=lib_err, **extra,
             ms=f"{kernel_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
             sdpa_ms=f"{library_ms:.6f}", bound_ms=f"{bound_ms:.6f}",
             bound_by=bound_by, tc_bound_ms=f"{tc_ms:.6f}",
             bound_mb=f"{nbytes / 1e6:.6f}", gflop=f"{flops / 1e9:.6f}",
             tflops=f"{flops / kernel_ms / 1e9:.3f}",
-            share_of="f32_fma_bound",
             share_of_bound=f"{bound_ms / kernel_ms:.4f}",
             share_of_tc_bound=f"{tc_ms / kernel_ms:.4f}")
         if is_main:
             main = dict(ms=kernel_ms, plain_ms=plain_ms,
                         library_ms=library_ms, bound_ms=bound_ms,
                         bound_by=bound_by)
-        del q, k, v, y, y_ref, mask
+        del q, k, v, y, y_ref, mask, diff, tol
         torch.cuda.empty_cache()
-    return dict(name="flash_attention", route="cuda",
+    tag = "bf16" if bf16 else "f32"
+    return dict(name="flash_attention" + ("_bf16" if bf16 else ""),
+                route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:77",
-                max_abs_err=worst, **main)
+                max_abs_err=worst, count_key=f"flash_attention:{tag}", **main)
 
 
 def check_consensus_dist(cycles_per_ms: float) -> dict:
@@ -1381,15 +1461,19 @@ def _lm_forwards(adapter, cfg: FedHPConfig, taus: list[np.ndarray],
     local SGD steps, the fleet metrics' accuracy and loss, and for an
     adaptive strategy the three measurement gradients (the eval stack
     twice, the probe once); a gradient pass on a batch runs in
-    ceil(W / workers_per_pass) groups of workers."""
+    ceil(W / workers_per_pass) groups of workers. Under an
+    activation-checkpoint policy (``cfg.remat`` of the adapter's model
+    other than "none") each gradient pass runs its blocks' forward once
+    more, in the backward pass."""
     w, s = cfg.num_workers, adapter.seq_len
 
     def groups(*shape):
         x = torch.zeros(1, dtype=torch.int32).expand(*shape)
         return -(-w // adapter.workers_per_pass(x))
 
-    local = groups(w, cfg.batch_size, s)
-    measure = 2 * groups(w, w, 256, s) + groups(w, w, 32, s)
+    again = 2 if adapter.cfg.remat != "none" else 1
+    local = again * groups(w, cfg.batch_size, s)
+    measure = again * (2 * groups(w, w, 256, s) + groups(w, w, 32, s))
     caps = ([_pow2(int(max(t.max(), 1))) for t in taus] if adaptive else
             [_pow2(int(max(max(t.max() for t in taus), 1)))] * len(taus))
     return sum(cap * local + 2 + (measure if adaptive else 0)
@@ -1423,23 +1507,41 @@ def _lm_run(adapter, data, algo: str, rounds: int, *, fused_engine: bool,
     return hist, strategy.taus
 
 
-def lm_adapter():
-    adapter = modelspec.RegistryAdapter(LM_MODEL, LM_SEQ, LM_CLASSES,
-                                        spec="smollm-360m:layers=4,"
-                                             "vocab=6144,flash")
+def lm_adapter(model=LM_MODEL):
+    """The registry path's adapter (``model``: LM_MODEL in f32, or
+    LM_BF16_MODEL as published)."""
+    adapter = modelspec.RegistryAdapter(
+        model, LM_SEQ, LM_CLASSES,
+        spec=f"smollm-360m:layers=4,vocab=6144,flash,{model.dtype},"
+             f"remat={model.remat}")
     if adapter.param_count != LM_PARAMS:
         raise AssertionError(f"registry path: P = {adapter.param_count}")
     return adapter
 
 
-def run_lm_path(adapter, data) -> dict[str, int]:
+def _zero_counts() -> None:
+    for counts in (ops.LAUNCHES, ops.INSTANCE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _read_counts() -> dict[str, int]:
+    """The kernel launches and flash_attention's by operand dtype."""
+    return {**ops.LAUNCHES,
+            **{k: v for k, v in ops.INSTANCE_LAUNCHES.items()
+               if k.startswith("flash_attention:")}}
+
+
+def run_lm_path(adapter, data) -> tuple[dict[str, int], dict[str, float]]:
     """Phase 3's registry path: FedHP and D-PSGD through the fused
     engine, and FedHP under the reference's per-leaf codec map, a warm-up
     run and then the timed run, each held to exactly the flash_attention
     launches (layers x forward passes) and the gossip launches
     (communicating rounds: one gossip_mix uncompressed, the map's codec
-    kernels per segment under the leafmap) the path must make."""
-    total = {k: 0 for k in ops.LAUNCHES}
+    kernels per segment under the leafmap) the path must make -> (the
+    launches, uncompressed FedHP's seconds a round and peak memory)."""
+    total = dict.fromkeys(_read_counts(), 0)
+    fedhp = {}
     uniform_int8 = compression.parse_mode("int8").wire_ratio(LM_PARAMS)
     for algo, fields in (("fedhp", {}), ("dpsgd", {}),
                          ("fedhp", dict(compress=LEAFMAP_LM))):
@@ -1447,8 +1549,7 @@ def run_lm_path(adapter, data) -> dict[str, int]:
                 **fields)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for k in ops.LAUNCHES:
-            ops.LAUNCHES[k] = 0
+        _zero_counts()
         t0 = time.perf_counter()
         hist, taus = _lm_run(adapter, data, algo, LM_ROUNDS,
                              fused_engine=True, **fields)
@@ -1472,8 +1573,12 @@ def run_lm_path(adapter, data) -> dict[str, int]:
             raise AssertionError(f"{name}: launched {counts}, the path must "
                                  f"launch {expected}")
         _check_history(name, LM_CFG, LM_ROUNDS, hist)
-        for k in total:
-            total[k] += counts[k]
+        for k, v in _read_counts().items():
+            total[k] += v
+        if algo == "fedhp" and not fields:
+            fedhp.update(
+                seconds_per_round=elapsed / LM_ROUNDS,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         extra = {}
         if fields:
             codec = engine.run_codec(cfg, adapter)
@@ -1501,7 +1606,104 @@ def run_lm_path(adapter, data) -> dict[str, int]:
             num_links=arr["num_links"].tolist(),
             peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
             **extra)
+    return total, fedhp
+
+
+def run_lm_bf16_path(data, f32_fedhp: dict[str, float]) -> dict[str, int]:
+    """Phase 3's registry path as published (``LM_BF16_MODEL``): FedHP
+    through the fused engine, a warm-up round and the timed rounds, held
+    to exactly the flash_attention launches (all bf16: layers x the
+    forward passes, a gradient pass's twice under remat="block") and one
+    gossip_mix a communicating round, with its seconds a round and peak
+    memory beside the f32 path's (``f32_fedhp``, from ``run_lm_path``);
+    bf16 leaves in the final parameters."""
+    adapter = lm_adapter(LM_BF16_MODEL)
+    _lm_run(adapter, data, "fedhp", LM_WARMUP_ROUNDS, fused_engine=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    hist, taus = _lm_run(adapter, data, "fedhp", LM_BF16_ROUNDS,
+                         fused_engine=True)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    arr = hist.as_arrays()
+    forwards = _lm_forwards(adapter, LM_CFG, taus, adaptive=True)
+    expected = {k: 0 for k in ops.LAUNCHES}
+    expected["gossip_mix"] = int((arr["num_links"] > 0).sum())
+    expected["flash_attention"] = LM_BF16_MODEL.num_layers * forwards
+    name = "fedhp/smollm-360m-4l/bf16/remat=block"
+    if counts != expected or \
+            ops.INSTANCE_LAUNCHES["flash_attention:bf16"] != \
+            expected["flash_attention"]:
+        raise AssertionError(f"{name}: launched {counts} "
+                             f"({ops.INSTANCE_LAUNCHES}), the path must "
+                             f"launch {expected}, all flash in bf16")
+    _check_history(name, LM_CFG, LM_BF16_ROUNDS, hist)
+    dtypes = {str(v.dtype) for v in hist.final_params.values()}
+    if dtypes != {"torch.bfloat16"}:
+        raise AssertionError(f"{name}: final leaves in {dtypes}")
+    log("phase3", path=name, rounds=LM_BF16_ROUNDS, P=adapter.param_count,
+        launches={k: v for k, v in counts.items() if v},
+        flash_bf16_launches=ops.INSTANCE_LAUNCHES["flash_attention:bf16"],
+        flash_launches_per_layer=forwards,
+        seconds_per_round=f"{elapsed / LM_BF16_ROUNDS:.4f}",
+        f32_seconds_per_round=f"{f32_fedhp['seconds_per_round']:.4f}",
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        f32_peak_gb=f"{f32_fedhp['peak_gb']:.3f}",
+        first_loss=f"{arr['loss'][0]:.7f}",
+        last_loss=f"{arr['loss'][-1]:.7f}",
+        mean_tau=arr["mean_tau"].tolist(),
+        num_links=arr["num_links"].tolist())
+    total = _read_counts()
+    del hist
+    check_remat_policies(adapter, data)
     return total
+
+
+def check_remat_policies(adapter, data) -> None:
+    """On one worker group of the bf16 path's measurement pass (the
+    workers ``workers_per_pass`` gives the W x 256 eval stack, on that
+    stack), the loss and gradients under each of ``REMAT_POLICIES``, held
+    bit-equal to "none"'s (a policy only chooses what is kept and what
+    is computed again), and each policy's peak memory."""
+    train, _, _, _ = data
+    n = LM_CFG.num_workers
+    seqs = torch.as_tensor(train.x[:n * 256], device="cuda")
+    stack = seqs[None].expand(n, *seqs.shape)
+    group = adapter.workers_per_pass(stack)
+    x = stack[:group]
+    y = torch.zeros(x.shape[:2], dtype=torch.long, device="cuda")
+    p0 = adapter.init(torch.Generator().manual_seed(LM_CFG.seed))
+    flat = adapter.flatten({k: v.expand(group, *v.shape)
+                            for k, v in p0.items()}).to("cuda")
+    del p0
+    results, peaks = {}, {}
+    for policy in REMAT_POLICIES:
+        ad = lm_adapter(replace(LM_BF16_MODEL, remat=policy))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        results[policy] = engine._loss_and_grad(ad, flat, x, y)
+        torch.cuda.synchronize()
+        peaks[policy] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    diffs = {policy: max(float((a - b).abs().max()) for a, b in
+                         zip(results[policy], results["none"]))
+             for policy in REMAT_POLICIES}
+    equal = {p: all(torch.equal(a, b) for a, b in zip(results[p],
+                                                      results["none"]))
+             for p in REMAT_POLICIES}
+    log("phase3", path="remat/smollm-360m-4l/bf16", workers=group,
+        sequences=int(x.shape[1]), max_abs_diff_from_none=diffs,
+        bit_equal=equal,
+        peak_gb_above_params={p: f"{v:.3f}" for p, v in peaks.items()})
+    if not all(equal.values()):
+        raise AssertionError(f"remat policies differ from 'none': {diffs}")
+    del results, flat
+    torch.cuda.empty_cache()
 
 
 def family_adapter(arch: str, layers: int, params: int):
@@ -1530,24 +1732,21 @@ def _fleet_data(data, num_workers: int):
 
 def run_family_paths(data) -> dict[str, int]:
     """Phase 3 for the moe, hybrid and xlstm families: FedHP through the
-    fused engine at each family's published widths (``FAMILY_PATHS``), a
-    warm-up round and then the timed rounds, held to exactly the
+    fused engine at each family's published widths (``FAMILY_PATHS``),
+    the timed rounds with no warm-up run (the first round also pays the
+    family's first use of its shapes), held to exactly the
     flash_attention launches (the family's attention calls a forward x
     forward passes: olmoe one a layer, zamba2 one a group, xlstm none)
     and one gossip_mix a communicating round."""
-    total = {k: 0 for k in ops.LAUNCHES}
+    total = dict.fromkeys(_read_counts(), 0)
     for arch, layers, params, w, lr in FAMILY_PATHS:
         adapter = family_adapter(arch, layers, params)
         fdata = _fleet_data(data, w)
         cfg = replace(LM_CFG, num_workers=w, lr=lr)
-        torch.cuda.empty_cache()
-        _lm_run(adapter, fdata, "fedhp", LM_WARMUP_ROUNDS, fused_engine=True,
-                num_workers=w, lr=lr)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        for k in ops.LAUNCHES:
-            ops.LAUNCHES[k] = 0
+        _zero_counts()
         t0 = time.perf_counter()
         hist, taus = _lm_run(adapter, fdata, "fedhp", FAMILY_ROUNDS,
                              fused_engine=True, num_workers=w, lr=lr)
@@ -1565,8 +1764,8 @@ def run_family_paths(data) -> dict[str, int]:
             raise AssertionError(f"{name}: launched {counts}, the path must "
                                  f"launch {expected}")
         _check_history(name, cfg, FAMILY_ROUNDS, hist)
-        for k in total:
-            total[k] += counts[k]
+        for k, v in _read_counts().items():
+            total[k] += v
         stack = torch.zeros(1, dtype=torch.int32).expand(w, w, 256, LM_SEQ)
         log("phase3", path=name, rounds=FAMILY_ROUNDS, W=w, lr=lr,
             P=adapter.param_count, launches={k: v for k, v in counts.items()
@@ -1636,6 +1835,35 @@ def check_lm_engines_agree(adapter, data) -> None:
         _compare_engines("fedhp/smollm-360m-4l/erdos:0.5"
                          + ("/leafmap" if fields else ""), hists, secs,
                          int8=bool(fields), rounds=LM_ROUNDS)
+
+
+def check_lm_bf16_engines_agree(data) -> None:
+    """Phase 4 on the registry path as published: FedHP through both
+    engines over ``erdos:0.5``, host fields equal, accuracy within one
+    eval sample, loss and consensus within the bf16 bounds
+    (``BF16_LOSS_RTOL``, ``BF16_CONSENSUS_RTOL``), and the final
+    parameters bit-equal: both engines round every bf16 leaf after each
+    SGD step and gossip, so their f32 last-bit differences vanish in the
+    rounding here, and an engine that left one write unrounded parts
+    from the other by a bf16 ulp."""
+    adapter = lm_adapter(LM_BF16_MODEL)
+    hists, secs = {}, {}
+    for fused_engine in (False, True):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        hists[fused_engine], _ = _lm_run(adapter, data, "fedhp",
+                                         LM_BF16_ROUNDS,
+                                         fused_engine=fused_engine,
+                                         **LM_PARITY_FIELDS)
+        torch.cuda.synchronize()
+        secs[fused_engine] = time.perf_counter() - t0
+    name = "fedhp/smollm-360m-4l/bf16/remat=block/erdos:0.5"
+    _compare_engines(name, hists, secs, int8=False, rounds=LM_BF16_ROUNDS,
+                     loss_rtol=BF16_LOSS_RTOL,
+                     consensus_rtol=BF16_CONSENSUS_RTOL)
+    gap = history_gaps(hists[False], hists[True])["params"]
+    if gap != 0.0:
+        raise AssertionError(f"{name}: final parameters differ by {gap}")
 
 
 def check_lanes_agree() -> None:
@@ -1708,10 +1936,16 @@ def history_gaps(ha, hb) -> dict:
 
 
 def _compare_engines(name: str, hists: dict, secs: dict, *, int8: bool,
-                     rounds: int) -> None:
+                     rounds: int, loss_rtol: float | None = None,
+                     consensus_rtol: float | None = None) -> None:
     """Reference (``hists[False]``) against fused (``hists[True]``): host
     fields and rejection counts equal, device metrics within the tests'
-    tolerances; logs the differences."""
+    tolerances (or ``loss_rtol`` / ``consensus_rtol`` where given); logs
+    the differences."""
+    if loss_rtol is None:
+        loss_rtol = INT8_LOSS_RTOL if int8 else REL_TOL
+    if consensus_rtol is None:
+        consensus_rtol = INT8_CONSENSUS_RTOL if int8 else REL_TOL
     a, b = hists[False].as_arrays(), hists[True].as_arrays()
     for k in EXACT:
         if not np.array_equal(a[k], b[k]):
@@ -1726,15 +1960,15 @@ def _compare_engines(name: str, hists: dict, secs: dict, *, int8: bool,
     np.testing.assert_allclose(a["accuracy"], b["accuracy"], rtol=0,
                                atol=ACC_ATOL, err_msg=name)
     np.testing.assert_allclose(a["loss"], b["loss"], err_msg=name,
-                               rtol=INT8_LOSS_RTOL if int8 else REL_TOL)
+                               rtol=loss_rtol)
     np.testing.assert_allclose(
         a["consensus"], b["consensus"], atol=CONSENSUS_ATOL,
-        rtol=INT8_CONSENSUS_RTOL if int8 else REL_TOL, err_msg=name)
+        rtol=consensus_rtol, err_msg=name)
     # the rounds that pass only through the absolute term, with both
     # engines' consensus values there
     cdiff = np.abs(a["consensus"] - b["consensus"])
     worst = int(np.argmax(cdiff))
-    abs_only = np.nonzero(cdiff > REL_TOL * np.abs(b["consensus"]))[0]
+    abs_only = np.nonzero(cdiff > consensus_rtol * np.abs(b["consensus"]))[0]
     extra = ({} if hists[True].screen_rejects is None
              else dict(screen_rejects=hists[True].screen_rejects))
     log("phase4", path=name, rounds=rounds,
@@ -1809,29 +2043,43 @@ def main() -> int:
 
     cycles_per_ms = _sleep_cycles_per_ms()
     marks = [("start", time.perf_counter())]
+    kernels, phase2_s = [], {}
+    checks = [(c.__name__, c) for c in (
+        check_gossip_mix, check_gossip_mix_lanes, check_codecs,
+        check_gossip_edges, check_robust_gossip, check_flash_attention)]
+    checks += [("check_flash_attention_bf16", lambda c: check_flash_attention(
+        c, torch.bfloat16)), ("check_consensus_dist", check_consensus_dist)]
+    t0 = time.perf_counter()
     launch_floor(cycles_per_ms)
-    kernels = [check_gossip_mix(cycles_per_ms),
-               check_gossip_mix_lanes(cycles_per_ms),
-               *check_codecs(cycles_per_ms),
-               check_gossip_edges(cycles_per_ms),
-               check_robust_gossip(cycles_per_ms),
-               check_flash_attention(cycles_per_ms),
-               check_consensus_dist(cycles_per_ms)]
+    phase2_s["launch_floor"] = f"{time.perf_counter() - t0:.1f}"
+    for name, check in checks:
+        t0 = time.perf_counter()
+        out = check(cycles_per_ms)
+        phase2_s[name] = f"{time.perf_counter() - t0:.1f}"
+        kernels += out if isinstance(out, list) else [out]
+    log("timing", phase2_by_check_s=phase2_s)
     marks.append(("phase2", time.perf_counter()))
-    launches = run_main_path()
+    launches = dict.fromkeys(_read_counts(), 0)
+    for k, v in run_main_path().items():
+        launches[k] += v
     marks.append(("phase3_mlp", time.perf_counter()))
     adapter = lm_adapter()
     data, data_s = _lm_data()
     log("phase3", registry_corpus=LM_SPEC, setup_s=f"{data_s:.3f}",
         sequences=len(data[0].x) + len(data[1]))
-    for k, v in run_lm_path(adapter, data).items():
+    lm_launches, f32_fedhp = run_lm_path(adapter, data)
+    for k, v in lm_launches.items():
         launches[k] += v
     marks.append(("phase3_registry", time.perf_counter()))
+    for k, v in run_lm_bf16_path(data, f32_fedhp).items():
+        launches[k] += v
+    marks.append(("phase3_registry_bf16", time.perf_counter()))
     for k, v in run_family_paths(data).items():
         launches[k] += v
     marks.append(("phase3_families", time.perf_counter()))
     for kernel in kernels:
-        kernel["launches"] = launches[kernel["name"]]
+        kernel["launches"] = launches[kernel.get("count_key",
+                                                 kernel["name"])]
         if kernel["name"] in OFF_PATH:
             if kernel["launches"]:
                 raise AssertionError(f"{kernel['name']} launched on the main "
@@ -1844,6 +2092,8 @@ def main() -> int:
     marks.append(("phase4_mlp", time.perf_counter()))
     check_lm_engines_agree(adapter, data)
     marks.append(("phase4_registry", time.perf_counter()))
+    check_lm_bf16_engines_agree(data)
+    marks.append(("phase4_registry_bf16", time.perf_counter()))
     check_family_engines_agree(data)
     marks.append(("phase4_families", time.perf_counter()))
     log("timing", build_s=f"{build_s:.3f}",

@@ -2,14 +2,18 @@
 
 ``params_from_jax`` turns a reference parameter pytree — nested dicts of
 leaf arrays, as ``jax.device_get`` or ``np.asarray`` gives them, for one
-worker or worker-stacked ``[W, ...]`` — into the port's flat dict of f32
+worker or worker-stacked ``[W, ...]`` — into the port's flat dict of
 tensors named by the ``"/"``-joined paths (``"blocks/attn/wq"``; the
 MLP's leaves are top-level, ``"w1"``), in sorted-name order: the
-adapters' leaf order, which is the reference's ``jax.tree`` order.
-``params_to_numpy`` is its inverse, back to nested dicts of numpy
-arrays. The tests hand the reference's ``adapter.init(PRNGKey(seed))``
-to the port's engines (``init_params=``) and compare trajectories from
-identical weights. Nothing here imports JAX.
+adapters' leaf order, which is the reference's ``jax.tree`` order. A
+leaf whose array type is named ``bfloat16`` (the reference's bf16
+leaves) crosses as a bf16 tensor: it is upcast to f32 numpy, which is
+exact, and cast back in torch, also exact — no ``ml_dtypes`` on this
+side. ``params_to_numpy`` is its inverse, back to nested dicts of f32
+numpy arrays (exact for bf16 leaves; the reference casts them back). The
+tests hand the reference's ``adapter.init(PRNGKey(seed))`` to the port's
+engines (``init_params=``) and compare trajectories from identical
+weights. Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -27,11 +31,20 @@ def _flat_items(tree, prefix: str = ""):
             yield name, v
 
 
+_NARROW = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def _leaf_tensor(v) -> torch.Tensor:
+    arr = np.asarray(v)
+    t = torch.tensor(np.asarray(arr, np.float32))
+    return t.to(_NARROW.get(arr.dtype.name, torch.float32))
+
+
 def params_from_jax(tree) -> dict[str, torch.Tensor]:
-    """Nested {name: array-like} -> {"/"-joined name: f32 CPU tensor}
-    (a copy), in sorted-name order."""
-    return {name: torch.tensor(np.asarray(v, np.float32))
-            for name, v in _flat_items(tree)}
+    """Nested {name: array-like} -> {"/"-joined name: CPU tensor} (a
+    copy), in sorted-name order: bf16 for a ``bfloat16`` leaf, f16 for a
+    ``float16`` one, f32 otherwise."""
+    return {name: _leaf_tensor(v) for name, v in _flat_items(tree)}
 
 
 def params_to_numpy(params) -> dict:

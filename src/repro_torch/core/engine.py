@@ -167,7 +167,7 @@ def initial_params(adapter: modelspec.ModelAdapter, num_workers: int,
     if flat.shape[0] != num_workers:
         raise ValueError(f"init_params hold {flat.shape[0]} workers, "
                          f"cfg.num_workers is {num_workers}")
-    return flat.to(device)
+    return adapter.round_leaves(flat.to(device))
 
 
 def _loss_and_grad(adapter, flat, x, y):
@@ -195,11 +195,13 @@ def _local_train(adapter, flat, bx, by, taus, lr, tau_cap: int):
     """tau-masked local SGD (Eq. 3) for the fleet. flat: [W, P]; bx:
     [W, T, B, D]; by: [W, T, B] int64; taus: [W] on the device; lr: 0-d
     f32. Step k updates worker i only while k < tau_i — the mask
-    multiplies the gradient, so masked steps run and are exact no-ops."""
+    multiplies the gradient, so masked steps run and are exact no-ops.
+    Each step's result is rounded to the leaves' dtypes, as the
+    reference casts it back."""
     for k in range(tau_cap):
         mask = (taus > k).to(torch.float32)
         _, g = _loss_and_grad(adapter, flat, bx[:, k], by[:, k])
-        flat = flat - (lr * mask)[:, None] * g
+        flat = adapter.round_leaves(flat - (lr * mask)[:, None] * g)
     return flat
 
 
@@ -524,8 +526,8 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
             donors = alive & ~joined
             if donors.any():
                 keep = torch.as_tensor(joined, device=device)
-                flat = _reinit_joined(flat, keep,
-                                      torch.as_tensor(donors, device=device))
+                flat = adapter.round_leaves(_reinit_joined(
+                    flat, keep, torch.as_tensor(donors, device=device)))
                 if err is not None:
                     err = compression.codec_state_after_join(
                         err, keep[:, None], flat, codec0, cfg.error_feedback)
@@ -595,6 +597,8 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
                     gamma=cfg.sparse_gamma)
             else:
                 flat = _gossip(flat, mix)
+        # the mixed rows back in the leaves' dtypes (a no-op in f32)
+        flat = adapter.round_leaves(flat)
 
         # --- measurements (Alg. 1 lines 4-5, 9-10), over the honest
         # alive workers (byzantine rows are adversaries, not clients) ---
@@ -803,12 +807,14 @@ def adpsgd_schedule(cluster: SimCluster, cfg: FedHPConfig, *,
 def _adpsgd_delta(adapter, snap, bx, by, lr, tau: int) -> torch.Tensor:
     """tau local SGD steps (Eq. 3) of one worker from its SNAPSHOT rows
     ``snap`` [S, P] (one per lane; bx [S, tau, B, *feat], by [S, tau,
-    B]); returns the deltas [S, P]. AD-PSGD's defining staleness: the
-    delta is applied to whatever the live row has become meanwhile."""
+    B]); returns the deltas [S, P], in the leaves' dtypes as the
+    reference's difference of two leaf trees. AD-PSGD's defining
+    staleness: the delta is applied to whatever the live row has become
+    meanwhile."""
     out = _local_train(adapter, snap, bx, by,
                        torch.full((snap.shape[0],), tau, device=snap.device),
                        lr, tau)
-    return out - snap
+    return adapter.round_leaves(out - snap)
 
 
 def _pair_average(xi: torch.Tensor, xj: torch.Tensor) -> torch.Tensor:
@@ -817,14 +823,14 @@ def _pair_average(xi: torch.Tensor, xj: torch.Tensor) -> torch.Tensor:
     return 0.5 * (xi + xj)
 
 
-def adpsgd_join(flat, snaps, err, histn, keep, donor_w, kind: str,
-                ef: bool):
+def adpsgd_join(adapter, flat, snaps, err, histn, keep, donor_w,
+                kind: str, ef: bool):
     """The join re-initialisation before a round's events, on S lanes
     ([S, W, P] rows, [S, W] histories): rows in ``keep`` ([W] bool)
-    adopt their lane's ``donor_w``-weighted fleet average, a fresh
-    snapshot, a reset codec state and a fresh screening history ->
-    (flat, snaps, err, histn)."""
-    flat = _blend_joined(flat, keep, donor_w)
+    adopt their lane's ``donor_w``-weighted fleet average (in the leaves'
+    dtypes), a fresh snapshot, a reset codec state and a fresh screening
+    history -> (flat, snaps, err, histn)."""
+    flat = adapter.round_leaves(_blend_joined(flat, keep, donor_w))
     snaps = torch.where(keep[:, None], flat, snaps)
     if err is not None:
         err = compression.state_after_join(err, keep[:, None], flat, kind,
@@ -844,10 +850,12 @@ def adpsgd_event_lying(adapter, flat, snaps, histn, ev: AdpsgdEvent, bx, by,
     first folds its fresh delta norm into its history, then each
     endpoint keeps its own row if the payload fails its z-test. Returns
     the event's rejections per lane ([S] on the device; None when
-    nothing is screened)."""
+    nothing is screened). Rows land in the leaves' dtypes, as in the
+    reference."""
     i, j = ev.worker, ev.partner
     delta = _adpsgd_delta(adapter, snaps[:, i], bx, by, lr, tau)
-    xi, xj = flat[:, i] + delta, flat[:, j].clone()
+    xi = adapter.round_leaves(flat[:, i] + delta)
+    xj = flat[:, j].clone()
     wire = i != j
     ti = robust.attack_row(xi, wire and scen.byz[i], scen.scale,
                            kind=scen.attack)
@@ -867,7 +875,8 @@ def adpsgd_event_lying(adapter, flat, snaps, histn, ev: AdpsgdEvent, bx, by,
             row_i = torch.where(acc_i[:, None], row_i, xi)
             row_j = torch.where(acc_j[:, None], row_j, xj)
             rejects = (~acc_i).to(torch.int32) + (~acc_j).to(torch.int32)
-    flat[:, i], flat[:, j] = row_i, row_j
+    flat[:, i], flat[:, j] = (adapter.round_leaves(row_i),
+                              adapter.round_leaves(row_j))
     snaps[:, i] = flat[:, i]
     return rejects
 
@@ -882,10 +891,12 @@ def adpsgd_event(adapter, flat, snaps, err, ev: AdpsgdEvent, bx, by, lr,
     exchange — ``average(x_i, x_j)`` on [S, P] rows uncompressed, the
     codec's compensated pairwise update (``scores``: the event's rand-k
     draw) otherwise — and i takes a fresh snapshot. A self-event
-    (i == j) writes j's row last, as the reference does."""
+    (i == j) writes j's row last, as the reference does. Rows land in
+    the leaves' dtypes, as in the reference."""
     i, j = ev.worker, ev.partner
     delta = _adpsgd_delta(adapter, snaps[:, i], bx, by, lr, tau)
-    xi, xj = flat[:, i] + delta, flat[:, j].clone()
+    xi = adapter.round_leaves(flat[:, i] + delta)
+    xj = flat[:, j].clone()
     if codec.kind == "none":
         xi = xj = average(xi, xj)
     else:
@@ -895,7 +906,8 @@ def adpsgd_event(adapter, flat, snaps, err, ev: AdpsgdEvent, bx, by, lr,
             kind=codec.kind, k=k, gamma=gamma, scores=scores)
         if err is not None:
             err[:, i], err[:, j] = ei, ej
-    flat[:, i], flat[:, j] = xi, xj
+    flat[:, i], flat[:, j] = adapter.round_leaves(xi), \
+        adapter.round_leaves(xj)
     snaps[:, i] = flat[:, i]
 
 
@@ -990,7 +1002,7 @@ def run_adpsgd(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
     for rnd_idx, rnd in enumerate(schedule.rounds):
         if rnd.keep.any():
             flat, snaps, err, histn = adpsgd_join(
-                flat, snaps, err, histn,
+                adapter, flat, snaps, err, histn,
                 torch.as_tensor(rnd.keep, device=device),
                 torch.as_tensor(rnd.donor_w, dtype=torch.float32,
                                 device=device),

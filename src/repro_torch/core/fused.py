@@ -476,7 +476,7 @@ def _scan_segment(adapter, flat, err, seg: _Segment, ex, ey, px, py, tx, ty,
         # the joined rows' codec state reset as in the reference engine;
         # the host knows the rounds nobody joins, where both are no-ops ---
         if seg.keep[t].any():
-            flat = _blend_joined(flat, keep[t], rw[t])
+            flat = adapter.round_leaves(_blend_joined(flat, keep[t], rw[t]))
             if err is not None:
                 err = compression.codec_state_after_join(
                     err, keep[t][:, None], flat, seg.codec, ef)
@@ -495,6 +495,7 @@ def _scan_segment(adapter, flat, err, seg: _Segment, ex, ey, px, py, tx, ty,
         if seg.comm[t]:
             flat, err = _gossip_round(flat, err, seg, t, dev_in, scen, k=k,
                                       ef=ef, gamma=gamma)
+            flat = adapter.round_leaves(flat)
 
         emit(**_round_metrics(adapter, flat, tx, ty, ew[t], cw[t]))
         if measure:
@@ -663,8 +664,8 @@ def _adpsgd_segment(adapter, flat, snaps, err, histn, rounds, tx, ty, *,
     for t, rnd in enumerate(rounds):
         if rnd.keep.any():
             flat, snaps, err, histn = adpsgd_join(
-                flat, snaps, err, histn, inp["keep"][t], inp["rw"][t],
-                codec.kind, ef)
+                adapter, flat, snaps, err, histn, inp["keep"][t],
+                inp["rw"][t], codec.kind, ef)
         rejects = torch.zeros(lanes, dtype=torch.int32, device=dev)
         for e_k, e in enumerate(rnd.events):
             if scen.active:

@@ -7,21 +7,29 @@ matrix — the layout gossip runs on — and see the model only through an
 adapter:
 
   - ``init(generator)``: one worker's parameter dict;
-  - ``leaf_offsets()``: the (name, start, size, shape) table of the flat
-    layout. Leaves are in the reference's ``jax.tree`` order — sorted
-    dict keys level by level; a registry model's names are the nested
-    paths joined by ``"/"``, whose sorted order is that order
+  - ``leaf_offsets()``: the (name, start, size, shape, dtype) table of
+    the flat layout. Leaves are in the reference's ``jax.tree`` order —
+    sorted dict keys level by level; a registry model's names are the
+    nested paths joined by ``"/"``, whose sorted order is that order
     (``tests/test_torch_registry.py`` checks it) — so a row of the
     port's ``[W, P]`` matrix is bit-for-bit a row of the reference's;
-  - ``views(flat)``: the leaf tensors ``[W, *shape]`` as views into the
-    flat matrix (no copy; autograd through them lands in the flat
-    gradient);
+  - ``views(flat)``: the leaf tensors ``[W, *shape]`` as f32 views into
+    the flat matrix (no copy; autograd through them lands in the flat
+    gradient). The model reads each leaf in its storage dtype
+    (``LeafInfo.dtype``: a config's ``dtype``, bf16 for the published
+    registry configs): ``loss`` casts the views, a copy for a bf16 leaf;
+  - ``round_leaves(flat)``: the flat matrix with every non-f32 leaf's
+    columns rounded to its dtype. The engines apply it after every write
+    — each SGD step, gossip, join blend and AD-PSGD exchange — where the
+    reference casts its f32 results back to the leaf dtype, so the flat
+    always holds values of the leaves' dtypes, as the reference's does;
   - ``loss`` / ``accuracy``: per-worker values ``[W]`` on per-worker
     batches ``x`` ``[W, *batch, D]`` (features) or ``[W, *batch, S]``
     (tokens);
   - ``workers_per_pass(x)``: how many workers one autograd pass on ``x``
     may hold (the engines compute larger fleets' gradients in groups);
-  - ``flatten`` / ``unflatten``: worker-stacked dict <-> ``[W, P]``;
+  - ``flatten`` / ``unflatten``: worker-stacked dict <-> ``[W, P]``
+    (f32 in, each leaf's storage dtype out);
   - ``param_count`` / ``model_bits``: the payload Eq. 10 charges.
 
 Spec syntax (``FedHPConfig.model``): ``"mlp"`` / ``"mlp:<hidden>"``, or
@@ -79,12 +87,20 @@ ACTIVATION_BUDGET_BYTES = 32 * 2 ** 30
 @dataclass(frozen=True)
 class LeafInfo:
     """One leaf of the flat layout: ``flat[:, start:start+size]`` holds
-    ``name``'s row-major values."""
+    ``name``'s row-major values (f32 on the wire; ``dtype`` is the
+    leaf's storage dtype, by name as the reference's ``str(leaf.dtype)``,
+    which ``unflatten`` casts back to)."""
 
     name: str
     start: int
     size: int
     shape: tuple[int, ...]
+    dtype: str = "float32"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        """``dtype`` as a torch dtype."""
+        return _layers.dtype_of(self.dtype)
 
     @property
     def stop(self) -> int:
@@ -106,6 +122,11 @@ class ModelAdapter:
     def leaf_shapes(self) -> dict[str, tuple[int, ...]]:
         """Per-worker shape of every parameter leaf."""
         raise NotImplementedError
+
+    def leaf_dtypes(self) -> dict[str, torch.dtype]:
+        """Storage dtype of every parameter leaf: f32 unless the model
+        says otherwise."""
+        return {name: torch.float32 for name in self.leaf_shapes()}
 
     def init(self, generator: torch.Generator) -> dict[str, torch.Tensor]:
         """One worker's parameter dict (on the CPU)."""
@@ -131,13 +152,56 @@ class ModelAdapter:
 
     # --- static layout (shared implementation) ---
     def leaf_offsets(self) -> tuple[LeafInfo, ...]:
-        """The flat layout's leaf-offset table, in sorted-name order."""
-        infos, off = [], 0
-        for name, shape in sorted(self.leaf_shapes().items()):
-            size = prod(shape)
-            infos.append(LeafInfo(name, off, size, tuple(shape)))
-            off += size
-        return tuple(infos)
+        """The flat layout's leaf-offset table, in sorted-name order
+        (computed once)."""
+        if not hasattr(self, "_leaves"):
+            infos, off = [], 0
+            dtypes = self.leaf_dtypes()
+            for name, shape in sorted(self.leaf_shapes().items()):
+                size = prod(shape)
+                infos.append(LeafInfo(name, off, size, tuple(shape),
+                                      str(dtypes[name])
+                                      .removeprefix("torch.")))
+                off += size
+            self._leaves = tuple(infos)
+        return self._leaves
+
+    def narrow_spans(self) -> tuple[tuple[int, int, torch.dtype], ...]:
+        """The column spans (start, stop, dtype) of the leaves stored in
+        another dtype than f32, adjacent leaves of one dtype merged: the
+        columns ``round_leaves`` rounds (none for an all-f32 model)."""
+        spans: list[list] = []
+        for l in self.leaf_offsets():
+            if l.dtype == "float32":
+                continue
+            if spans and spans[-1][1] == l.start and \
+                    spans[-1][2] == l.torch_dtype:
+                spans[-1][1] = l.stop
+            else:
+                spans.append([l.start, l.stop, l.torch_dtype])
+        return tuple(tuple(s) for s in spans)
+
+    def round_leaves(self, flat: torch.Tensor) -> torch.Tensor:
+        """``flat`` [..., P] with each non-f32 leaf's columns rounded to
+        its storage dtype (round to nearest even) and back to f32: the
+        reference's cast of an f32 result back to the leaf dtype. Returns
+        ``flat`` itself for an all-f32 model, else a new tensor."""
+        spans = self.narrow_spans()
+        if not spans:
+            return flat
+        if len(spans) == 1 and spans[0][:2] == (0, flat.shape[-1]):
+            return flat.to(spans[0][2]).to(torch.float32)
+        out = flat.clone()
+        for start, stop, dt in spans:
+            cols = out[..., start:stop]
+            cols.copy_(cols.to(dt))
+        return out
+
+    def cast_params(self, params: dict) -> dict:
+        """{name: tensor} -> each leaf in its storage dtype (f32 views
+        pass through as they are)."""
+        dtypes = {l.name: l.torch_dtype for l in self.leaf_offsets()}
+        return {k: v.to(dtypes[k]) for k, v in params.items()}
 
     @property
     def param_count(self) -> int:
@@ -156,7 +220,8 @@ class ModelAdapter:
                 for l in self.leaf_offsets()}
 
     def flatten(self, stacked: dict[str, torch.Tensor]) -> torch.Tensor:
-        """Worker-stacked dict {name: [W, *shape]} -> [W, P] f32."""
+        """Worker-stacked dict {name: [W, *shape]} -> [W, P] f32 (exact
+        for leaves of a narrower dtype)."""
         leaves = self.leaf_offsets()
         if sorted(stacked) != [l.name for l in leaves]:
             raise ValueError(f"parameters {sorted(stacked)} do not match "
@@ -169,8 +234,11 @@ class ModelAdapter:
                           .to(torch.float32) for l in leaves], dim=1)
 
     def unflatten(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
-        """Inverse of ``flatten``: contiguous copies of the leaf views."""
-        return {k: v.contiguous() for k, v in self.views(flat).items()}
+        """Inverse of ``flatten``: contiguous copies of the leaf views,
+        each cast to its storage dtype (the reference's
+        ``unflatten_one``)."""
+        return {k: v.contiguous() for k, v in
+                self.cast_params(self.views(flat)).items()}
 
 
 class MlpAdapter(ModelAdapter):
@@ -233,6 +301,11 @@ class RegistryAdapter(ModelAdapter):
         """The registry family's leaves by ``"/"``-joined path."""
         return _registry.leaf_shapes(self.cfg)
 
+    def leaf_dtypes(self) -> dict[str, torch.dtype]:
+        """The config's ``dtype``, but for the leaves the family keeps in
+        f32 (``registry.leaf_dtypes``)."""
+        return _registry.leaf_dtypes(self.cfg)
+
     def init(self, generator: torch.Generator) -> dict[str, torch.Tensor]:
         """One worker's parameters drawn from ``generator``."""
         return _registry.init_params(self.cfg, generator)
@@ -244,7 +317,7 @@ class RegistryAdapter(ModelAdapter):
         evaluate each worker on the full [W, 256, S] eval stack, and the
         mean token loss is invariant to the reshape."""
         tokens = x.reshape(x.shape[0], -1, x.shape[-1]).long()
-        loss, _ = _registry.loss_fn(self.cfg, params,
+        loss, _ = _registry.loss_fn(self.cfg, self.cast_params(params),
                                     {"tokens": tokens[:, :, :-1],
                                      "labels": tokens[:, :, 1:]})
         return loss

@@ -1,11 +1,12 @@
 // flash_attention: grouped-query attention forward with an online softmax,
-// f32, causal and sliding-window masks.
+// f32 or bf16 operands, causal and sliding-window masks.
 //
 //     o[b, s, h, :] = sum_t softmax_t(q[b, s, h, :] . k[b, t, h / g, :]
 //                                     * hd^-0.5, masked) * v[b, t, h / g, :]
 //
-// q, o [B, S, Hq, hd] and k, v [B, Sk, Hkv, hd], contiguous row-major f32
-// (the registry models' layout, no transposes); g = Hq / Hkv query heads
+// q, o [B, S, Hq, hd] and k, v [B, Sk, Hkv, hd], contiguous row-major, all
+// f32 or all bf16 (the registry models' layout, no transposes; the launchers
+// flash_attention_f32 and flash_attention_bf16); g = Hq / Hkv query heads
 // share a KV head. Key t is in reach of query s when t < Sk, t <= s
 // (causal) and t > s - window (window > 0); out-of-reach scores are -1e30,
 // as in the reference. The wrapper (repro_torch/kernels/ops.py) applies the
@@ -129,6 +130,26 @@
 // each product's terms, so both instances are held to 2e-5 against the
 // plain version, not bit for bit.
 //
+// bf16 instances (both kernels, every head width; templated on the element
+// type T) compute what the reference's Pallas kernel computes on bf16
+// operands: q k^T of the bf16 values accumulated in f32, the scale, mask and
+// online softmax in f32, p kept in f32, p v accumulated in f32 with v read
+// exactly, and the output rounded to bf16 once, at the end (round to
+// nearest even). A bf16 value is exact in TF32 (8 significand bits of TF32's
+// 11), so its fragment is its bits shifted left 16, with no split: q k^T is
+// ONE TF32 mma.sync where f32 takes three, and p v two (p split hi / lo
+// against the exact v). Shared memory holds the bf16 values (half the f32
+// bytes: rows padded by 8 elements, 16 bytes, to HD + 8, where a fragment's
+// lanes read 16 distinct 32-bit words, two lanes a word); the short kernel
+// reads a thread's 4-element chunks as 8 bytes (its quad's 64-byte f32 row
+// slice becomes 32 bytes; 16-byte chunks would not split hd 112's 14 over a
+// quad). The plain version (ref.flash_attention_ref) upcasts, runs the f32
+// composition and rounds once, so a bf16 instance agrees with it to one
+// bf16 ulp per element (the f32 results differ in their last bits and may
+// round apart). Bound: as for f32, with 2 bytes an element and the FLOPs at
+// TF32's 495 TFLOP/s times the products the instance issues (1 for q k^T, 2
+// for p v).
+//
 // Bound: q, k and v read once and o written once; 4 B Hq S Sk_eff hd
 // operations (two products, Sk_eff the keys in reach, about Sk / 2 under
 // a causal mask). At the DFL path's S = 15 a (sequence, KV head) group
@@ -148,6 +169,7 @@
 //   gemma3-local (B 1, S 4,096, 32 / 16 heads of 128, window 1,024,
 //     60.1 GFLOP): 0.897 ms, 0.364 ms.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -157,9 +179,69 @@ namespace {
 constexpr int kThreads = 128;  // four warps
 constexpr float kNegInf = -1e30f;
 
+typedef __nv_bfloat16 bf16;
+
+// an element type's 16-byte chunk, and whether its values are exact TF32
+// operands (bf16: yes, no 3xTF32 split; f32: no)
+template <typename T>
+__host__ __device__ constexpr int chunk_elems() {
+  return 16 / (int)sizeof(T);
+}
+template <typename T>
+__host__ __device__ constexpr bool exact_tf32() {
+  return sizeof(T) == 2;
+}
+
+// the TF32 operand bits of a bf16 value: its f32 bits, exact
+__device__ __forceinline__ uint32_t tf32_bits(bf16 a) {
+  return (uint32_t)__bfloat16_as_ushort(a) << 16;
+}
+
+// four elements as floats: a float4, or four bf16 in 8 bytes
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldg4(const bf16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// stores of the output: four elements, or two; bf16 rounds to nearest even
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 // the tile kernel's shape per head width: each warp owns MT m-tiles of 16
 // query rows (a block 64 MT rows), a key tile is KEYS keys; shared memory
-// holds Q's rows and two stages of K and V, every row padded to hd + 4;
+// holds Q's rows and two stages of K and V, every row padded by 16 bytes
+// (hd + 4 floats, hd + 8 bf16);
 // MIN_BLOCKS blocks an SM bound the registers (65,536 / (128 MIN_BLOCKS))
 template <int HD> struct TileShape;
 template <> struct TileShape<64> {
@@ -180,9 +262,10 @@ __host__ __device__ constexpr int tile_rows() {
   return 64 * TileShape<HD>::kMT;
 }
 
-template <int HD>
-__host__ __device__ constexpr size_t tile_smem_floats() {
-  return ((size_t)tile_rows<HD>() + 4 * TileShape<HD>::kKeys) * (HD + 4);
+template <int HD, typename T>
+__host__ __device__ constexpr size_t tile_smem_bytes() {
+  return ((size_t)tile_rows<HD>() + 4 * TileShape<HD>::kKeys) *
+         (HD + chunk_elems<T>()) * sizeof(T);
 }
 
 // 16 bytes, or 16 zero bytes where `fill` is false (nothing is read)
@@ -247,22 +330,23 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
   mma_tf32(c, ah, bh0, bh1);
 }
 
-template <int HD>
+template <int HD, typename T>
 __global__ void __launch_bounds__(kThreads, TileShape<HD>::kMinBlocks)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int S,
-                 int Sk, int Hq, int Hkv, int tiles, int causal, int window,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int S, int Sk,
+                 int Hq, int Hkv, int tiles, int causal, int window,
                  float scale) {
   constexpr int MT = TileShape<HD>::kMT;
   constexpr int KEYS = TileShape<HD>::kKeys;
   constexpr int ROWS = tile_rows<HD>();
-  constexpr int LD = HD + 4;           // row stride of Q, K, V tiles
+  constexpr int CH = chunk_elems<T>(); // elements a 16-byte chunk
+  constexpr int LD = HD + CH;          // row stride of Q, K, V tiles
   constexpr int KS = HD / 8;           // k-steps of QK^T, n-tiles of PV
   constexpr int NJ = KEYS / 8;         // n-tiles of QK^T, k-steps of PV
-  constexpr int C4 = HD / 4;           // 16-byte chunks a row
+  constexpr int C4 = HD / CH;          // 16-byte chunks a row
   extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);  // [ROWS][LD]
-  float* stages = sq + ROWS * LD;               // [2][K, V][KEYS][LD]
+  T* sq = reinterpret_cast<T*>(smem4);  // [ROWS][LD]
+  T* stages = sq + ROWS * LD;           // [2][K, V][KEYS][LD]
 
   const int g = Hq / Hkv;
   const int rows_total = g * S;
@@ -316,22 +400,22 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int idx = tid; idx < ROWS * C4; idx += kThreads) {
     const int r = idx / C4, c = idx % C4, row = r0 + r;
     const bool in = row < rows_total;
-    cp_async16_zfill(sq + r * LD + 4 * c, q + (in ? q_off(row) + 4 * c : 0),
-                     in);
+    cp_async16_zfill(sq + r * LD + CH * c,
+                     q + (in ? q_off(row) + CH * c : 0), in);
   }
 
   // a key tile's K and V rows into a stage, 16 bytes a copy; keys past
   // Sk are zero-filled
   auto stage_tile = [&](int kt, int st) {
-    float* sk = stages + st * 2 * KEYS * LD;
-    float* sv = sk + KEYS * LD;
+    T* sk = stages + st * 2 * KEYS * LD;
+    T* sv = sk + KEYS * LD;
     for (int idx = tid; idx < KEYS * C4; idx += kThreads) {
       const int j = idx / C4, c = idx % C4, key = kt * KEYS + j;
       const bool in = key < Sk;
       const int64_t off =
-          in ? ((b * Sk + key) * Hkv + kvh) * (int64_t)HD + 4 * c : 0;
-      cp_async16_zfill(sk + j * LD + 4 * c, k + off, in);
-      cp_async16_zfill(sv + j * LD + 4 * c, v + off, in);
+          in ? ((b * Sk + key) * Hkv + kvh) * (int64_t)HD + CH * c : 0;
+      cp_async16_zfill(sk + j * LD + CH * c, k + off, in);
+      cp_async16_zfill(sv + j * LD + CH * c, v + off, in);
     }
     cp_async_commit();
   };
@@ -358,8 +442,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (kt < kt1) stage_tile(kt + 1, st ^ 1);
     const int j0 = kt * KEYS;
     if (!live || j0 > w_hi || j0 + KEYS - 1 < w_lo) continue;
-    const float* sk = stages + st * 2 * KEYS * LD;
-    const float* sv = sk + KEYS * LD;
+    const T* sk = stages + st * 2 * KEYS * LD;
+    const T* sv = sk + KEYS * LD;
     // the n-tiles of keys this warp reaches (a causal diagonal stops
     // early), and whether any of its rows masks a key of the tile
     const int nj = min(NJ, (w_hi - j0) / 8 + 1);
@@ -367,7 +451,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         (causal && j0 + KEYS - 1 > pmin) ||
                         (window && j0 <= pmax - window);
 
-    // s = q k^T in 3xTF32; a split K fragment serves every m-tile
+    // s = q k^T in 3xTF32 (one TF32 product of exact bf16 operands); a
+    // split K fragment serves every m-tile
     float s[MT][NJ][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -375,28 +460,53 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
+    if constexpr (exact_tf32<T>()) {
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t ah[MT][4], al[MT][4];
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[MT][4];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const float* qr = sq + (warp * 16 * MT + 16 * mt + gq) * LD +
-                          8 * ks + tq;
-        split_tf32(qr[0], ah[mt][0], al[mt][0]);
-        split_tf32(qr[8 * LD], ah[mt][1], al[mt][1]);
-        split_tf32(qr[4], ah[mt][2], al[mt][2]);
-        split_tf32(qr[8 * LD + 4], ah[mt][3], al[mt][3]);
+        for (int mt = 0; mt < MT; ++mt) {
+          const T* qr = sq + (warp * 16 * MT + 16 * mt + gq) * LD + 8 * ks +
+                        tq;
+          a[mt][0] = tf32_bits(qr[0]);
+          a[mt][1] = tf32_bits(qr[8 * LD]);
+          a[mt][2] = tf32_bits(qr[4]);
+          a[mt][3] = tf32_bits(qr[8 * LD + 4]);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          if (j < nj) {
+            const T* kr = sk + (8 * j + gq) * LD + 8 * ks + tq;
+            const uint32_t b0 = tf32_bits(kr[0]), b1 = tf32_bits(kr[4]);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) mma_tf32(s[mt][j], a[mt], b0, b1);
+          }
+        }
       }
+    } else {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        if (j < nj) {
-          const float* kr = sk + (8 * j + gq) * LD + 8 * ks + tq;
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(kr[0], bh0, bl0);
-          split_tf32(kr[4], bh1, bl1);
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            mma_3xtf32(s[mt][j], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+        for (int mt = 0; mt < MT; ++mt) {
+          const T* qr = sq + (warp * 16 * MT + 16 * mt + gq) * LD +
+                        8 * ks + tq;
+          split_tf32(qr[0], ah[mt][0], al[mt][0]);
+          split_tf32(qr[8 * LD], ah[mt][1], al[mt][1]);
+          split_tf32(qr[4], ah[mt][2], al[mt][2]);
+          split_tf32(qr[8 * LD + 4], ah[mt][3], al[mt][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          if (j < nj) {
+            const T* kr = sk + (8 * j + gq) * LD + 8 * ks + tq;
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(kr[0], bh0, bl0);
+            split_tf32(kr[4], bh1, bl1);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma_3xtf32(s[mt][j], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+          }
         }
       }
     }
@@ -456,7 +566,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
 
-    // acc += p v in 3xTF32. p's accumulator layout is the A fragment of
+    // acc += p v in 3xTF32 (two TF32 products, p's hi and lo parts,
+    // against an exact bf16 v). p's accumulator layout is the A fragment of
     // the next product once the keys of an 8-key step are taken in the
     // order 0, 2, 4, 6, 1, 3, 5, 7: thread tq holds keys 2 tq and 2 tq + 1
     // of rows gq and gq + 8, which are A's columns tq and tq + 4 -- so B
@@ -473,15 +584,25 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           split_tf32(s[mt][kk][1], ph[mt][2], pl[mt][2]);
           split_tf32(s[mt][kk][3], ph[mt][3], pl[mt][3]);
         }
-        const float* vr = sv + (8 * kk + 2 * tq) * LD + gq;
+        const T* vr = sv + (8 * kk + 2 * tq) * LD + gq;
 #pragma unroll
         for (int n = 0; n < KS; ++n) {
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(vr[8 * n], bh0, bl0);
-          split_tf32(vr[LD + 8 * n], bh1, bl1);
+          if constexpr (exact_tf32<T>()) {
+            const uint32_t b0 = tf32_bits(vr[8 * n]);
+            const uint32_t b1 = tf32_bits(vr[LD + 8 * n]);
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            mma_3xtf32(acc[mt][n], ph[mt], pl[mt], bh0, bh1, bl0, bl1);
+            for (int mt = 0; mt < MT; ++mt) {
+              mma_tf32(acc[mt][n], pl[mt], b0, b1);
+              mma_tf32(acc[mt][n], ph[mt], b0, b1);
+            }
+          } else {
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(vr[8 * n], bh0, bl0);
+            split_tf32(vr[LD + 8 * n], bh1, bl1);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma_3xtf32(acc[mt][n], ph[mt], pl[mt], bh0, bh1, bl0, bl1);
+          }
         }
       }
     }
@@ -497,32 +618,32 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float den = fmaxf(lh, 1e-30f);
       const int row = w0 + 16 * mt + 8 * h + gq;
       if (row >= rows_total) continue;
-      float2* orow = reinterpret_cast<float2*>(o + q_off(row) + 2 * tq);
+      T* orow = o + q_off(row) + 2 * tq;
 #pragma unroll
       for (int n = 0; n < KS; ++n)
-        orow[4 * n] = make_float2(acc[mt][n][2 * h] / den,
-                                  acc[mt][n][2 * h + 1] / den);
+        store2(orow + 8 * n, acc[mt][n][2 * h] / den,
+               acc[mt][n][2 * h + 1] / den);
     }
   }
 }
 
-template <int HD>
-int launch(const float* q, const float* k, const float* v, float* o, int B,
-           int S, int Sk, int Hq, int Hkv, int causal, int window,
-           float scale, cudaStream_t stream) {
-  const size_t smem = tile_smem_floats<HD>() * sizeof(float);
+template <int HD, typename T>
+int launch(const T* q, const T* k, const T* v, T* o, int B, int S, int Sk,
+           int Hq, int Hkv, int causal, int window, float scale,
+           cudaStream_t stream) {
+  const size_t smem = tile_smem_bytes<HD, T>();
   static bool opted_in = false;        // once per instance and process
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        flash_fwd_kernel<HD, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     opted_in = true;
   }
   const int rows = (Hq / Hkv) * S;
   const int tiles = (rows + tile_rows<HD>() - 1) / tile_rows<HD>();
   const unsigned grid = (unsigned)((int64_t)B * Hkv * tiles);
-  flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
       q, k, v, o, S, Sk, Hq, Hkv, tiles, causal, window, scale);
   return (int)cudaGetLastError();
 }
@@ -542,17 +663,18 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-template <int HD>
+template <int HD, typename T>
 __global__ void __launch_bounds__(kShortRows * kQuad)
-flash_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, float* __restrict__ o, int S,
-                   int Sk, int Hq, int Hkv, int chunks, int causal,
-                   int window, float scale) {
-  constexpr int H4 = HD / 4;           // float4s a row
-  constexpr int NC = H4 / kQuad;       // float4s a thread
+flash_short_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, T* __restrict__ o, int S, int Sk,
+                   int Hq, int Hkv, int chunks, int causal, int window,
+                   float scale) {
+  constexpr int H4 = HD / 4;           // 4-element chunks a row
+  constexpr int NC = H4 / kQuad;       // 4-element chunks a thread
+  constexpr int CH = chunk_elems<T>(); // elements a 16-byte copy
   extern __shared__ float4 smem4[];
-  float4* sk = smem4;                  // [Sk][H4]
-  float4* sv = sk + Sk * H4;           // [Sk][H4]
+  T* sk = reinterpret_cast<T*>(smem4);  // [Sk][HD]
+  T* sv = sk + Sk * HD;                 // [Sk][HD]
 
   const int g = Hq / Hkv;
   const int rows_total = g * S;
@@ -564,13 +686,11 @@ flash_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
 
   // the group's K and V rows, 16 bytes a copy, all in flight at once
-  const float4* k4 = reinterpret_cast<const float4*>(k);
-  const float4* v4 = reinterpret_cast<const float4*>(v);
-  for (int i = tid; i < Sk * H4; i += blockDim.x) {
-    const int t = i / H4, c = i % H4;
-    const int64_t off = ((b * Sk + t) * Hkv + kvh) * H4 + c;
-    cp_async16(sk + i, k4 + off);
-    cp_async16(sv + i, v4 + off);
+  for (int i = tid; i < Sk * (HD / CH); i += blockDim.x) {
+    const int t = i / (HD / CH), c = i % (HD / CH);
+    const int64_t off = ((b * Sk + t) * Hkv + kvh) * (int64_t)HD + CH * c;
+    cp_async16(sk + CH * i, k + off);
+    cp_async16(sv + CH * i, v + off);
   }
 
   // this thread's row (position-major) and slice of hd; rows past the
@@ -580,11 +700,11 @@ flash_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int r = r0 + tid / kQuad;
   const int row = min(r, rows_total - 1);
   const int s = row / g;
-  const int64_t qoff = ((b * S + s) * Hq + kvh * g + row % g) * H4 + sub;
-  const float4* qrow = reinterpret_cast<const float4*>(q) + qoff;
+  const int64_t qoff =
+      ((b * S + s) * Hq + kvh * g + row % g) * (int64_t)HD + 4 * sub;
   float4 qv[NC];
 #pragma unroll
-  for (int c = 0; c < NC; ++c) qv[c] = __ldg(qrow + kQuad * c);
+  for (int c = 0; c < NC; ++c) qv[c] = ldg4(q + qoff + 4 * kQuad * c);
   cp_async_wait_all();
   __syncthreads();
 
@@ -601,10 +721,11 @@ flash_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int c = 0; c < NC; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int t = t_lo; t <= t_hi; ++t) {
-    const float4* kr = sk + t * H4 + sub;
+    const T* kr = sk + t * HD + 4 * sub;
     float dot = 0.f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dot = dot4(qv[c], kr[kQuad * c], dot);
+    for (int c = 0; c < NC; ++c)
+      dot = dot4(qv[c], load4(kr + 4 * kQuad * c), dot);
     dot += __shfl_xor_sync(0xffffffffu, dot, 1);
     dot += __shfl_xor_sync(0xffffffffu, dot, 2);
     const bool in_reach = (!causal || t <= s) && (!window || t > s - window);
@@ -626,10 +747,10 @@ flash_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
       p = expf(sc - m);
     }
     l += p;
-    const float4* vr = sv + t * H4 + sub;
+    const T* vr = sv + t * HD + 4 * sub;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      const float4 vv = vr[kQuad * c];
+      const float4 vv = load4(vr + 4 * kQuad * c);
       acc[c].x = fmaf(p, vv.x, acc[c].x);
       acc[c].y = fmaf(p, vv.y, acc[c].y);
       acc[c].z = fmaf(p, vv.z, acc[c].z);
@@ -637,52 +758,42 @@ flash_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   if (r >= rows_total) return;
-  float4* orow = reinterpret_cast<float4*>(o) + qoff;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    orow[kQuad * c] = make_float4(acc[c].x / l, acc[c].y / l, acc[c].z / l,
-                                  acc[c].w / l);
+    store4(o + qoff + 4 * kQuad * c,
+           make_float4(acc[c].x / l, acc[c].y / l, acc[c].z / l,
+                       acc[c].w / l));
   }
 }
 
-template <int HD>
-int launch_short(const float* q, const float* k, const float* v, float* o,
-                 int B, int S, int Sk, int Hq, int Hkv, int causal,
-                 int window, float scale, cudaStream_t stream) {
+template <int HD, typename T>
+int launch_short(const T* q, const T* k, const T* v, T* o, int B, int S,
+                 int Sk, int Hq, int Hkv, int causal, int window, float scale,
+                 cudaStream_t stream) {
   if (Sk > kShortMaxKeys) return (int)cudaErrorInvalidValue;
   static bool opted_in = false;        // once per instance and process
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_short_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(2 * kShortMaxKeys * HD * sizeof(float)));
+        flash_short_kernel<HD, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(2 * kShortMaxKeys * HD * sizeof(T)));
     if (err != cudaSuccess) return (int)err;
     opted_in = true;
   }
   const int rows = (Hq / Hkv) * S;
   const int chunks = (rows + kShortRows - 1) / kShortRows;
   const int threads = (min(rows, kShortRows) * kQuad + 31) / 32 * 32;
-  const size_t smem = 2 * (size_t)Sk * HD * sizeof(float);
+  const size_t smem = 2 * (size_t)Sk * HD * sizeof(T);
   const unsigned grid = (unsigned)((int64_t)B * Hkv * chunks);
-  flash_short_kernel<HD><<<grid, threads, smem, stream>>>(
+  flash_short_kernel<HD, T><<<grid, threads, smem, stream>>>(
       q, k, v, o, S, Sk, Hq, Hkv, chunks, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Launches on `stream`, allocates nothing, and returns a cudaError_t as an
-// int (0 == success; cudaErrorInvalidValue for a head dim without an
-// instance, or the short kernel asked for Sk > 64). The caller picks the
-// instance (`short_path`: Sk within its limit, at most 64, and q, k, v,
-// o 16-byte aligned; the tile kernel also needs q, k, v aligned) and
-// checks shapes, dtypes, devices, Hq % Hkv == 0, S <= Sk and
-// B * Hkv * ceil(g * S / rows) < 2**31 (rows a block: 64 for the short
-// kernel, tile_rows<hd>() for the tile kernel).
-extern "C" int flash_attention_f32(const float* q, const float* k,
-                                   const float* v, float* o, int B, int S,
-                                   int Sk, int Hq, int Hkv, int hd,
-                                   int causal, int window, int short_path,
-                                   float scale, void* stream) {
+template <typename T>
+int dispatch(const T* q, const T* k, const T* v, T* o, int B, int S, int Sk,
+             int Hq, int Hkv, int hd, int causal, int window, int short_path,
+             float scale, void* stream) {
   if (B == 0 || S == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   if (short_path) {
@@ -719,4 +830,36 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// Launches on `stream`, allocates nothing, and returns a cudaError_t as an
+// int (0 == success; cudaErrorInvalidValue for a head dim without an
+// instance, or the short kernel asked for Sk > 64). The caller picks the
+// instance (`short_path`: Sk within its limit, at most 64, and q, k, v,
+// o 16-byte aligned; the tile kernel also needs q, k, v aligned) and
+// checks shapes, dtypes, devices, Hq % Hkv == 0, S <= Sk and
+// B * Hkv * ceil(g * S / rows) < 2**31 (rows a block: 64 for the short
+// kernel, tile_rows<hd>() for the tile kernel). flash_attention_f32 takes
+// f32 operands, flash_attention_bf16 bf16 ones (and writes bf16).
+extern "C" int flash_attention_f32(const float* q, const float* k,
+                                   const float* v, float* o, int B, int S,
+                                   int Sk, int Hq, int Hkv, int hd,
+                                   int causal, int window, int short_path,
+                                   float scale, void* stream) {
+  return dispatch<float>(q, k, v, o, B, S, Sk, Hq, Hkv, hd, causal, window,
+                         short_path, scale, stream);
+}
+
+extern "C" int flash_attention_bf16(const void* q, const void* k,
+                                    const void* v, void* o, int B, int S,
+                                    int Sk, int Hq, int Hkv, int hd,
+                                    int causal, int window, int short_path,
+                                    float scale, void* stream) {
+  return dispatch<bf16>(static_cast<const bf16*>(q),
+                        static_cast<const bf16*>(k),
+                        static_cast<const bf16*>(v), static_cast<bf16*>(o),
+                        B, S, Sk, Hq, Hkv, hd, causal, window, short_path,
+                        scale, stream);
 }

@@ -37,11 +37,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"gossip_mix": 0, "gossip_mix_lanes": 0, "quantize_block": 0,
             "dequantize_block": 0, "sparsify_block": 0, "gossip_edges": 0,
             "robust_gossip": 0, "flash_attention": 0, "consensus_dist": 0}
-# robust_gossip's and gossip_edges' launches by instance (each also
-# counts in LAUNCHES)
+# robust_gossip's and gossip_edges' launches by instance, and
+# flash_attention's by operand dtype (each also counts in LAUNCHES)
 INSTANCE_LAUNCHES = {"robust_gossip:register": 0, "robust_gossip:wide": 0,
                      "robust_gossip:shared": 0, "gossip_edges:staged": 0,
-                     "gossip_edges:gather": 0}
+                     "gossip_edges:gather": 0, "flash_attention:f32": 0,
+                     "flash_attention:bf16": 0}
 
 # gossip_mix stages u and w in chunks of 64 neighbours, so K is not
 # bounded by shared memory; it keeps the limit of its first version, which
@@ -170,13 +171,15 @@ def _library() -> ctypes.CDLL:
                                   ctypes.c_void_p]
         lib.flash_attention_f32.argtypes = [ctypes.c_void_p] * 4 + \
             [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+        lib.flash_attention_bf16.argtypes = lib.flash_attention_f32.argtypes
         lib.consensus_dist_f32.argtypes = [ctypes.c_void_p] * 4 + \
             [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
         for fn in (lib.gossip_mix_f32, lib.gossip_mix_lanes_f32,
                    lib.quantize_block_f32, lib.dequantize_block_f32,
                    lib.sparsify_block_f32,
                    lib.gossip_edges_f32, lib.robust_gossip_f32,
-                   lib.flash_attention_f32, lib.consensus_dist_f32):
+                   lib.flash_attention_f32, lib.flash_attention_bf16,
+                   lib.consensus_dist_f32):
             fn.restype = ctypes.c_int
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
@@ -526,9 +529,21 @@ def flash_block_rows(q: torch.Tensor, k: torch.Tensor,
     return FLASH_TILE_ROWS[q.shape[3]]
 
 
+# flash_attention's launchers by operand dtype (the .cu's instances) and
+# their INSTANCE_LAUNCHES names
+_FLASH_LAUNCHERS = {torch.float32: "flash_attention_f32",
+                    torch.bfloat16: "flash_attention_bf16"}
+_FLASH_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
 def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool, window: int) -> torch.Tensor:
-    _check_cuda("flash_attention", {"q": q, "k": k, "v": v})
+    _check_cuda("flash_attention", {"q": q, "k": k, "v": v},
+                {"q": q.dtype, "k": q.dtype, "v": q.dtype})
+    if q.dtype not in _FLASH_LAUNCHERS:
+        raise TypeError(f"flash_attention has kernel instances for "
+                        f"{sorted(map(str, _FLASH_LAUNCHERS))}; got "
+                        f"{q.dtype}")
     b, s, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -538,17 +553,20 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         # an operand that starts off 16 bytes goes in as a fresh copy
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
                    for t in (q, k, v))
-    _launch("flash_attention", _library().flash_attention_f32, q.device,
+    _launch("flash_attention",
+            getattr(_library(), _FLASH_LAUNCHERS[q.dtype]), q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
-            sk, hq, hkv, hd, int(causal), window, int(short), hd ** -0.5)
+            sk, hq, hkv, hd, int(causal), window, int(short), hd ** -0.5,
+            instance=_FLASH_DTYPES[q.dtype])
     return o
 
 
 class _FlashAttention(torch.autograd.Function):
     """Forward: the kernel on CUDA tensors, the plain version on CPU
-    tensors. Backward: recompute through the plain version under
-    autograd — the reference's custom VJP (``repro/kernels/ops.py``),
-    which has no backward kernel."""
+    tensors. Backward: recompute through the plain composition in the
+    operands' dtype steps (``ref.masked_attention``: bf16 weights before
+    the value product in bf16) under autograd — the reference's custom
+    VJP (``repro/kernels/ops.py``), which has no backward kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
@@ -563,8 +581,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = ref.flash_attention_ref(*inputs, causal=ctx.causal,
-                                          window=ctx.window)
+            out = ref.masked_attention(*inputs, causal=ctx.causal,
+                                       window=ctx.window)
             grads = torch.autograd.grad(out, inputs, g)
         return (*grads, None, None)
 
@@ -572,8 +590,10 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Grouped-query attention forward with an online softmax, in the
-    models' layout: q [B, S, Hq, hd], k and v [B, Sk, Hkv, hd], f32 ->
-    [B, S, Hq, hd]; query head h reads KV head h // (Hq / Hkv).
+    models' layout: q [B, S, Hq, hd], k and v [B, Sk, Hkv, hd], all f32
+    or all bf16 -> [B, S, Hq, hd] of that dtype; query head h reads KV
+    head h // (Hq / Hkv). A bf16 call computes in f32 and rounds the
+    output once (the reference's kernel on bf16 operands).
 
     The mask follows the reference's ``ops._flash_fwd_impl``: causal
     and/or a sliding window, and causal forced whenever Sk is not a
@@ -583,7 +603,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Differentiable: the backward recomputes through the plain version.
     CPU tensors run the plain version (``ref.flash_attention_ref``);
     CUDA tensors launch the kernel instance ``flash_instance`` names (f32
-    only) and count the launch."""
+    or bf16; another dtype raises) and count the launch. Operands of
+    mixed dtypes raise."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or \
             q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
         raise ValueError("flash_attention takes q [B, S, Hq, hd], k and v "
@@ -591,6 +612,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, s, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"flash_attention takes q, k and v of one dtype; "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if hd not in FLASH_HEAD_DIMS:
         raise ValueError(f"flash_attention has kernel instances for head "
                          f"dims {FLASH_HEAD_DIMS}; got hd={hd}")

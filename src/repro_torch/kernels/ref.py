@@ -214,26 +214,54 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """Grouped-query attention, the reference's composition: q [B, S,
     Hq, hd], k and v [B, Sk, Hkv, hd] -> [B, S, Hq, hd]; query head h
-    reads KV head h // (Hq / Hkv). Scores are divided by sqrt(hd), masked
-    to -1e30 outside ``mask`` [S, Sk] and soft-maxed over the keys."""
+    reads KV head h // (Hq / Hkv). Scores are f32 (the operands' products
+    summed in f32), divided by sqrt(hd), masked to -1e30 outside ``mask``
+    [S, Sk] and soft-maxed over the keys in f32; the weights are rounded
+    to v's dtype before the value product, which sums in f32 and rounds
+    to v's dtype once — the reference's dtype steps (a no-op chain in
+    f32)."""
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, s, hkv, hq // hkv, hd)
-    scores = torch.einsum("bshgd,bthd->bhgst", qg, k) / math.sqrt(hd)
+    scores = torch.einsum("bshgd,bthd->bhgst", qg.float(),
+                          k.float()) / math.sqrt(hd)
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhgst,bthd->bshgd", w, v).reshape(b, s, hq, hd)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    o = torch.einsum("bhgst,bthd->bshgd", w.float(), v.float())
+    return o.to(v.dtype).reshape(b, s, hq, hd)
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool, window: int) -> torch.Tensor:
-    """The flash-attention kernel's function: ``gqa_attention`` under the
-    causal / sliding-window mask (no mask when neither is set)."""
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     *, causal: bool, window: int) -> torch.Tensor:
+    """``gqa_attention`` under the causal / sliding-window mask (no mask
+    when neither is set), in the operands' dtype steps: the composition
+    the reference's flash backward recomputes through
+    (``repro/kernels/ops.py: _ref_model_layout``)."""
     mask = (attention_mask(q.shape[1], k.shape[1], causal=causal,
                            window=window, device=q.device)
             if causal or window else None)
     return gqa_attention(q, k, v, mask)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool, window: int) -> torch.Tensor:
+    """The flash-attention kernel's function: ``masked_attention`` in
+    f32. Operands of another dtype (bf16) are upcast and the output
+    rounded to their dtype once — what the kernel computes on them: f32
+    scores, softmax and weights, exact operands."""
+    if q.dtype != torch.float32:
+        return masked_attention(q.float(), k.float(), v.float(),
+                                causal=causal, window=window).to(q.dtype)
+    return masked_attention(q, k, v, causal=causal, window=window)
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each element of ``t``: the spacing of bf16 values
+    at |t| (8 significand bits), at the least normal for 0. The bf16
+    flash instances are held to it against ``flash_attention_ref``."""
+    mag = t.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
 def consensus_dist_ref(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

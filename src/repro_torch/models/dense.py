@@ -12,6 +12,9 @@ layers each followed by one global layer, then the leftover local
 layers). The layers run as a Python loop over those stacks, in the
 reference's scan order.
 
+Leaves are stored in ``cfg.dtype`` (none stays f32) and every block
+runs under ``cfg.remat`` (``remat_block``).
+
 Serving (``prefill``, ``decode_step``, ``init_cache``) waits for
 ROADMAP.md queue 1, item 4.
 """
@@ -21,6 +24,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+
+# leaves stored in f32 whatever cfg.dtype says (registry.leaf_dtypes)
+F32_LEAVES = frozenset()
 
 
 def _group_shape(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -132,6 +138,15 @@ def block(cfg: ModelConfig, bp: dict, x, positions, *, window: int):
     return x + L.apply_mlp(L.sub(bp, "mlp"), h, cfg.act)
 
 
+def remat_block(cfg: ModelConfig, bp: dict, x, positions, *, window: int):
+    """``block`` under the activation-checkpoint policy ``cfg.remat``:
+    the reference wraps each block (a group's local and global blocks,
+    the tail's, the plain stack's, and the hybrid family's shared
+    blocks) this way."""
+    return L.remat(lambda h, p: block(cfg, p, h, positions, window=window),
+                   cfg)(x, bp)
+
+
 def attention_calls(cfg: ModelConfig) -> int:
     """Attention layers one forward pass runs (every layer attends)."""
     return cfg.num_layers
@@ -160,8 +175,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
     x = L.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[-1], device=tokens.device)
     for stack, idx, window in layer_order(cfg):
-        x = block(cfg, L.layer(params, stack, idx), x, positions,
-                   window=window)
+        x = remat_block(cfg, L.layer(params, stack, idx), x, positions,
+                        window=window)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 

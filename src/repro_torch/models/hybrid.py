@@ -11,6 +11,8 @@ blocks are leaves even when one group runs only block A: the unused one
 gets a zero gradient, but it still gossips and counts in P) and
 ``tail/...`` ``[W, tail, ...]``.
 
+Every block, Mamba2 or shared, runs under ``cfg.remat``.
+
 Serving waits for ROADMAP.md queue 1, item 4.
 """
 from __future__ import annotations
@@ -23,6 +25,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm
 
 NUM_SHARED = 2
+# leaves stored in f32 whatever cfg.dtype says: the Mamba2 blocks' decay
+# rates, dt biases and skips (registry.leaf_dtypes)
+F32_LEAVES = ssm.F32_LEAVES
 
 
 def _group_shape(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -113,14 +118,16 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
     x = L.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[-1], device=tokens.device)
     g, mpg, tail = _group_shape(cfg)
+    mamba = L.remat(lambda h, bp: _mamba_apply(cfg, bp, h), cfg)
     for gi in range(g):
         for j in range(mpg):
-            x = _mamba_apply(cfg, L.layer(params, "mamba", (gi, j)), x)
+            x = mamba(x, L.layer(params, "mamba", (gi, j)))
         # the shared attention + MLP block: a dense block (full attention)
-        x = dense.block(cfg, L.layer(params, "shared", (gi % NUM_SHARED,)),
-                        x, positions, window=0)
+        x = dense.remat_block(cfg, L.layer(params, "shared",
+                                           (gi % NUM_SHARED,)),
+                              x, positions, window=0)
     for j in range(tail):
-        x = _mamba_apply(cfg, L.layer(params, "tail", (j,)), x)
+        x = mamba(x, L.layer(params, "tail", (j,)))
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 

@@ -10,33 +10,90 @@ which does not depend on the weights. Initialisers draw ONE worker's
 leaves from a ``torch.Generator`` (not ``jax.random``: the tests carry
 the reference's weights across instead).
 
+Leaves are stored in the config's ``dtype`` (``dtype_of``; a few
+recurrence leaves stay f32, as in the reference) and activations follow
+the leaves' dtype; the norms, RoPE, the softmax of the attention and the
+loss compute in f32 and cast back, as the reference does.
+
 Not ported here: ``decode_attention``, ``layer_norm``, M-RoPE and
 sinusoidal positions (ROADMAP.md queue 1, item 4).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels import ops, ref
 
 
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+REMAT_POLICIES = ("none", "dots", "block", "full")
+
+
+def dtype_of(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``dtype`` name."""
+    return _DTYPES[name]
+
+
 def check_trainable(cfg) -> None:
-    """Raise for what the port's registry models do not run: an
-    activation-checkpoint policy (a memory policy that leaves the numbers
-    as they are) and leaves stored in another type than f32 (the DFL
-    engines' flat path is f32)."""
-    if cfg.remat != "none":
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1, item 2); use remat='none'")
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={cfg.dtype!r} is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1, item 2); the registry models train in "
-            "float32")
+    """Raise ``ValueError`` for a leaf dtype or an activation-checkpoint
+    policy that neither package knows."""
+    if cfg.dtype not in _DTYPES:
+        raise ValueError(f"unknown dtype {cfg.dtype!r}; known: "
+                         f"{sorted(_DTYPES)}")
+    if cfg.remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {cfg.remat!r}; known: "
+                         f"{REMAT_POLICIES}")
+
+
+# ---------------------------------------------------------------------------
+# Activation checkpointing
+# ---------------------------------------------------------------------------
+
+# set while ``matmul`` runs its product, so the "dots" policy can tell a
+# weight product from the other batched products
+_weight_product = False
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    if op is torch.ops.aten.bmm.default and _weight_product:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(f, cfg):
+    """``f`` under the activation-checkpoint policy ``cfg.remat`` (the
+    reference's ``layers.remat``): ``"none"`` keeps every activation;
+    ``"block"`` and ``"full"`` save nothing inside ``f`` and recompute it
+    in the backward pass (``nothing_saveable``); ``"dots"`` saves the
+    outputs of the weight products — ``matmul``'s ``torch.bmm``, x @ W
+    batched over the worker axis only — and recomputes the rest. That is
+    the port's counterpart of ``dots_with_no_batch_dims_saveable``: for
+    one worker, the reference's x @ W has no batch dimension, while the
+    attention's score and value products (batched over sequences and
+    heads) and MoE's expert products (batched over experts) have one
+    there as here, so neither package saves those. Every policy computes
+    the same numbers; they differ in memory and recomputation only. Under
+    ``torch.no_grad`` ``f`` runs as it is."""
+    if cfg.remat == "none":
+        return f
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_weight_products)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return f(*args)
+        return checkpoint(f, *args, use_reentrant=False, **kw)
+
+    return wrapped
 
 
 # ---------------------------------------------------------------------------
@@ -97,9 +154,17 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [W, ..., din] @ w [W, din, dout] -> [W, ..., dout], one batched
-    product over the worker axis."""
+    product over the worker axis, in the promoted type of the two (as
+    ``jnp.matmul``: a bf16 activation by an f32 leaf is an f32
+    product)."""
+    global _weight_product
     wn = x.shape[0]
-    y = torch.bmm(x.reshape(wn, -1, x.shape[-1]), w)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    _weight_product = True
+    try:
+        y = torch.bmm(x.reshape(wn, -1, x.shape[-1]).to(dt), w.to(dt))
+    finally:
+        _weight_product = False
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
@@ -110,9 +175,13 @@ def _per_worker(p: torch.Tensor, ndim: int) -> torch.Tensor:
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
-    """x [W, ..., d], gamma [W, d]: x / rms(x) * (1 + gamma)."""
+    """x [W, ..., d], gamma [W, d]: x / rms(x) * (1 + gamma), in f32,
+    cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
-    return x * torch.rsqrt(var + eps) * (1.0 + _per_worker(gamma, x.dim()))
+    out = x * torch.rsqrt(var + eps)
+    return (out * (1.0 + _per_worker(gamma, x.dim()).float())).to(dt)
 
 
 def act_fn(name: str):
@@ -141,12 +210,14 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: [..., S, H, hd]; positions: [S] int -> x rotated by position
-    (the reference's half-split rotation)."""
+    (the reference's half-split rotation), in f32, cast back to x's
+    dtype."""
     inv = rope_freqs(x.shape[-1], theta, x.device)
     ang = (positions.to(torch.float32)[:, None] * inv)[:, None, :]
     cos, sin = torch.cos(ang), torch.sin(ang)
-    x1, x2 = torch.chunk(x, 2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -242,20 +313,22 @@ def chunked_softmax_xent(h: torch.Tensor, w_emb: torch.Tensor,
     h: [W, B, S, D] final hidden states; w_emb: [W, D, V]; labels: [W, B,
     S] int. The reference's chunking: max(S // chunk, 1) chunks of equal
     length, whose masked sums of logsumexp(z) - z[gold] add in chunk
-    order. Returns (mean loss [W], token count [W])."""
+    order; the logits are cast to f32. Returns (mean loss [W], token
+    count [W]), f32."""
     wn, b, s, _ = h.shape
+    f32 = torch.float32
     if mask is None:
-        mask = torch.ones(wn, b, s, dtype=h.dtype, device=h.device)
+        mask = torch.ones(wn, b, s, dtype=f32, device=h.device)
     n_chunks = max(s // chunk, 1)
     chunk = s // n_chunks
     if n_chunks * chunk != s:
         raise ValueError(f"sequence length {s} is not {n_chunks} chunks of "
                          f"{chunk} (the reference cannot reshape it either)")
-    tot = torch.zeros(wn, dtype=h.dtype, device=h.device)
-    cnt = torch.zeros(wn, dtype=h.dtype, device=h.device)
+    tot = torch.zeros(wn, dtype=f32, device=h.device)
+    cnt = torch.zeros(wn, dtype=f32, device=h.device)
     for c in range(n_chunks):
         part = slice(c * chunk, (c + 1) * chunk)
-        logits = matmul(h[:, :, part], w_emb)
+        logits = matmul(h[:, :, part], w_emb).float()
         logz = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, labels[:, :, part, None]).squeeze(-1)
         mx = mask[:, :, part]

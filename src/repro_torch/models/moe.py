@@ -11,6 +11,10 @@ capacity and is sliced away — and contracted with its own experts
 ``[E, d, d_ff]`` in one batched product over (worker, expert). Overflow
 tokens are dropped and scattered back as zeros.
 
+Leaves are stored in ``cfg.dtype`` but the router (f32); the dispatch
+buffers take the activations' dtype and every block runs under
+``cfg.remat``.
+
 Parameters are the flat dict of ``"/"``-joined leaf names of
 ``models/dense.py``, worker-stacked ``[W, ...]``; ``blocks/...`` carry
 the stacked layer axis ``[W, L, ...]`` and the layers run as a Python
@@ -30,6 +34,9 @@ from repro_torch.models import dense
 from repro_torch.models import layers as L
 
 CAPACITY_FACTOR = 1.25
+# leaves stored in f32 whatever cfg.dtype says: the router, whose product
+# the reference takes in f32 (registry.leaf_dtypes)
+F32_LEAVES = frozenset({"router"})
 
 
 # ---------------------------------------------------------------------------
@@ -234,8 +241,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
     x = L.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[-1], device=tokens.device)
     auxes = []
+    block = L.remat(lambda h, bp: _block(cfg, bp, h, positions), cfg)
     for i in range(cfg.num_layers):
-        x, aux = _block(cfg, L.layer(params, "blocks", (i,)), x, positions)
+        x, aux = block(x, L.layer(params, "blocks", (i,)))
         auxes.append(aux)
     return (L.rms_norm(x, params["ln_f"], cfg.norm_eps),
             torch.stack(auxes).mean(dim=0))

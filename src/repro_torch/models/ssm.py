@@ -24,6 +24,9 @@ from repro_torch.models import layers as L
 HEAD_DIM = 64          # mamba2 default headdim p
 CONV_WIDTH = 4
 
+# leaves of a Mamba2 block stored in f32 whatever cfg.dtype says
+F32_LEAVES = frozenset({"a_log", "dt_bias", "d_skip"})
+
 
 def num_ssm_heads(d_inner: int) -> int:
     """Mamba2 heads of width ``HEAD_DIM`` over the inner width."""

@@ -14,6 +14,8 @@ tail mLSTM blocks. Leaves, worker-stacked as in ``models/dense.py``:
 ``mlstm/...`` ``[W, G, slstm_every, ...]``, ``slstm/...`` ``[W, G,
 ...]``, ``tail/...`` ``[W, tail, ...]``.
 
+Every block runs under ``cfg.remat``.
+
 Serving (the recurrent state cache and the decode steps) waits for
 ROADMAP.md queue 1, item 4.
 """
@@ -28,6 +30,10 @@ from repro_torch.models.ssm import chunked_recurrence, recurrence_floats
 
 QK_DIM_FACTOR = 0.5      # mLSTM qk dim = head_dim / 2
 UP_FACTOR = 2            # mLSTM block up-projection factor
+# leaves stored in f32 whatever cfg.dtype says: the mLSTM gates and the
+# sLSTM recurrence and bias (registry.leaf_dtypes)
+F32_LEAVES = frozenset({"w_igate", "b_igate", "w_fgate", "b_fgate", "r",
+                        "b"})
 
 
 # ---------------------------------------------------------------------------
@@ -290,12 +296,14 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
     L.check_trainable(cfg)
     x = L.embed(params["embed"], tokens)
     g, mpg, tail = _group_shape(cfg)
+    mlstm = L.remat(lambda h, bp: apply_mlstm(bp, h, cfg), cfg)
+    slstm = L.remat(lambda h, bp: apply_slstm(bp, h, cfg)[0], cfg)
     for gi in range(g):
         for j in range(mpg):
-            x = apply_mlstm(L.layer(params, "mlstm", (gi, j)), x, cfg)
-        x, _ = apply_slstm(L.layer(params, "slstm", (gi,)), x, cfg)
+            x = mlstm(x, L.layer(params, "mlstm", (gi, j)))
+        x = slstm(x, L.layer(params, "slstm", (gi,)))
     for j in range(tail):
-        x = apply_mlstm(L.layer(params, "tail", (j,)), x, cfg)
+        x = mlstm(x, L.layer(params, "tail", (j,)))
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 

@@ -278,7 +278,7 @@ def family_loss_and_grads(arch: str, fields: dict, *, batch: int = 2,
         ops.flash_attention = real
     assert ops.LAUNCHES["flash_attention"] == before   # the plain version
     got = adapter.unflatten(g)
-    grads = {name: (want.numpy(), got[name][0].numpy())
+    grads = {name: (want.float().numpy(), got[name][0].float().numpy())
              for name, want in params_from_jax(grads_j).items()}
     return float(loss_j), float(loss_t.detach()[0]), grads, len(calls)
 

@@ -106,16 +106,18 @@ def _remat_block_through_an_adapter(cfg):
     train, tx, ty, shards, cluster = setup_experiment(cfg, device="cpu")
     strategy = make_strategy(cfg, make_base_topology(
         cfg.num_workers, cfg.base_topology, cfg.seed))
-    engine.run_dfl(train, tx, ty, shards, cluster, cfg, strategy, rounds=2,
-                   adapter=modelspec.RegistryAdapter(model, 16, 8, "remat"),
-                   device="cpu")
+    return engine.run_dfl(train, tx, ty, shards, cluster, cfg, strategy,
+                          rounds=2,
+                          adapter=modelspec.RegistryAdapter(model, 16, 8,
+                                                            "remat"),
+                          device="cpu")
 
 
 # (algorithm, config fields, what the call does): NotImplementedError
 # naming ROADMAP.md where the port still refuses, the reference's
 # ValueError where the reference refuses too, None where it now runs (the
-# per-leaf codec maps and the moe and hybrid families, ported since these
-# cases were written)
+# per-leaf codec maps, the moe and hybrid families and remat="block",
+# ported since these cases were written)
 @pytest.mark.parametrize("algo,fields,expect", [
     ("dpsgd", dict(compress="leafmap:default=int8"), None),
     ("dpsgd", dict(gossip="sparse", compress="leafmap:default=int8"), None),
@@ -124,7 +126,7 @@ def _remat_block_through_an_adapter(cfg):
     ("dpsgd", dict(model="moe:d=16", num_workers=4), None),
     ("dpsgd", dict(robust="median", model="hybrid:d=32", num_workers=4),
      None),
-    ("dpsgd", None, NotImplementedError),
+    ("dpsgd", None, None),
     ("adpsgd", dict(robust="screen:3", compress="leafmap:default=int8"),
      ValueError),
     ("dpsgd", dict(sharded=True, compress="leafmap:default=int8"),
@@ -134,12 +136,18 @@ def _remat_block_through_an_adapter(cfg):
          "robust-median-model-hybrid", "remat-block-adapter",
          "adpsgd-robust-screen-leafmap", "sharded-compress-leafmap"])
 def test_unported_options_raise(algo, fields, expect):
-    """``fields`` None: remat="block" through an adapter. A leafmap, a moe
-    model and a hybrid one under the median run on both synchronous
-    engines (the two LMs on 4 workers, whose measurement stack is a
-    quarter of 8's; the hybrid at d 32: its Mamba2 heads are 64 wide, and
-    at d 16 the reference cannot reshape its 32 inner channels either);
-    AD-PSGD refuses a leafmap with the reference's ValueError."""
+    """``fields`` None: remat="block" through an adapter, which runs. A
+    leafmap, a moe model and a hybrid one under the median run on both
+    synchronous engines (the two LMs on 4 workers, whose measurement
+    stack is a quarter of 8's; the hybrid at d 32: its Mamba2 heads are
+    64 wide, and at d 16 the reference cannot reshape its 32 inner
+    channels either); AD-PSGD refuses a leafmap with the reference's
+    ValueError."""
+    if expect is None and fields is None:
+        h = _remat_block_through_an_adapter(port_config())
+        assert len(h.records) == 2
+        assert np.isfinite(h.as_arrays()["loss"]).all()
+        return
     if expect is None:
         for fused in (False, True):
             h = run_algorithm(algo, port_config(**fields), rounds=2,

@@ -762,7 +762,7 @@ def test_cuda_robust_gossip_bit_equal_to_plain_version(d_table, spec, w):
 def test_flash_attention_rejects_bad_calls():
     """The wrapper's rejects, on the CPU as on the card: a head width
     without a kernel instance, Hq not a multiple of Hkv, more queries
-    than keys, mismatched shapes."""
+    than keys, mismatched shapes and dtypes."""
     def qkv(b=1, s=8, hq=4, hkv=2, hd=64, sk=None):
         sk = s if sk is None else sk
         return (torch.zeros(b, s, hq, hd), torch.zeros(b, sk, hkv, hd),
@@ -778,6 +778,11 @@ def test_flash_attention_rejects_bad_calls():
     q, k, v = qkv()
     for args in ((q, k, v[:, :4]), (q[0], k, v), (q, k[..., :32], v)):
         with pytest.raises(ValueError):
+            ops.flash_attention(*args)
+    # operands of mixed dtypes (each alone runs: bf16 is an instance)
+    for args in ((q.bfloat16(), k, v), (q, k.bfloat16(), v.bfloat16()),
+                 (q.bfloat16(), k.bfloat16(), v.half())):
+        with pytest.raises(TypeError, match="one dtype"):
             ops.flash_attention(*args)
     # a grid past the x axis, for each instance: one block per (sequence,
     # KV head, chunk of a block's query rows) — 1 chunk of the short
@@ -894,6 +899,44 @@ def test_cuda_flash_attention_matches_plain_version(b, s, hq, hkv, hd,
     qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
     ref.flash_attention_ref(qr, kr, vr, causal=forced, window=window).sum() \
         .backward()
+    for a, b_ in ((qg, qr), (kg, kr), (vg, vr)):
+        assert torch.equal(a.grad, b_.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hq,hkv,hd,causal,window", FLASH_CUDA_CASES)
+def test_cuda_flash_attention_bf16_matches_plain_version(b, s, hq, hkv, hd,
+                                                         causal, window):
+    """The bf16 instances against the plain version on bf16 operands
+    (upcast, the f32 composition, one rounding): each element within one
+    bf16 ulp, since the two f32 results differ in their last bits and may
+    round apart — or within 2e-5, the f32 instances' tolerance, where an
+    element is so near 0 that the f32 results' own difference passes its
+    ulp (an f64 composition, rounded, misses one ulp on 16 of 3.7 M
+    elements at the first case's shape, at |o| ~ 1e-6). The backward
+    recomputes through the reference's bf16 composition
+    (``ref.masked_attention``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(b * s + hd)
+    q, k, v = (torch.randn(b, s, h, hd, generator=gen, device="cuda")
+               .to(torch.bfloat16) for h in (hq, hkv, hkv))
+    assert ops.flash_instance(q, k, v) == ("short" if s <= _LIMIT[hd]
+                                           else "tile")
+    before = ops.LAUNCHES["flash_attention"]
+    y = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert y.dtype == torch.bfloat16
+    forced = causal or s % 128 != 0
+    want = ref.flash_attention_ref(q, k, v, causal=forced, window=window)
+    assert bool(((y.float() - want.float()).abs()
+                 <= ref.bf16_ulp(want).clamp_min(2e-5)).all())
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ops.flash_attention(qg, kg, vg, causal=causal, window=window).float() \
+        .sum().backward()
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ref.masked_attention(qr, kr, vr, causal=forced, window=window).float() \
+        .sum().backward()
     for a, b_ in ((qg, qr), (kg, kr), (vg, vr)):
         assert torch.equal(a.grad, b_.grad)
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """How far a registry family path's trajectory moves when its start moves
-by about one f32 ulp, on one card: the witness behind the learning rates
-of ``chip_smoke.FAMILY_PATHS``.
+by about one ulp, on one card: the witness behind the learning rates of
+``chip_smoke.FAMILY_PATHS`` and the bf16 bounds of phase 4.
 
     python3 tools/family_witness.py ARCH:LR[:ref] ... [--rounds N]
 
@@ -17,8 +17,13 @@ engine from the fused run, in phase 4's terms (``chip_smoke.history_gaps``:
 loss and consensus relative, accuracy and final parameters absolute).
 Where the perturbed gap is of the order of the engines' gap, the
 engines part at that rate because the trajectory itself amplifies
-last-ulp differences, not through a fault of either engine. Needs a
-CUDA device and ``nvcc``.
+last-ulp differences, not through a fault of either engine.
+
+ARCH ``smollm-360m-bf16`` is the registry path as published
+(``chip_smoke.LM_BF16_MODEL``: bf16 leaves, remat "block", W = 8, its
+``LM_BF16_ROUNDS``): there the nudge moves every nonzero weight by one
+bf16 ulp, up or down by a fixed-seed coin (a bf16 weight cannot move by
+1e-7 relative). Needs a CUDA device and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -35,27 +40,40 @@ sys.path.insert(0, str(REPO))
 sys.path.insert(0, str(REPO / "src"))
 
 import chip_smoke as cs  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 
 NUDGE = 1e-7
 NUDGE_SEED = 11
+BF16_PATH = "smollm-360m-bf16"
 
 
 def _setting(text: str):
     arch, lr, *flag = text.split(":")
     if flag not in ([], ["ref"]):
         raise argparse.ArgumentTypeError(f"bad setting {text!r}")
+    if arch == BF16_PATH:
+        return (arch, 4, cs.LM_PARAMS, cs.LM_CFG.num_workers), float(lr), \
+            bool(flag)
     path = next(p for p in cs.FAMILY_PATHS if p[0] == arch)
     return path[:4], float(lr), bool(flag)
 
 
 def _nudged_start(adapter, num_workers: int, seed: int) -> dict:
     """The seeded weights every worker starts from, each element scaled
-    by (1 + NUDGE z), as the engines' worker-stacked ``init_params``."""
+    by (1 + NUDGE z) — or, for a bf16 leaf, moved by one bf16 ulp up or
+    down — as the engines' worker-stacked ``init_params``."""
     p0 = adapter.init(torch.Generator().manual_seed(seed))
     gen = torch.Generator().manual_seed(NUDGE_SEED)
-    return {k: (v * (1.0 + NUDGE * torch.randn(v.shape, generator=gen)))
-            .expand(num_workers, *v.shape) for k, v in p0.items()}
+    out = {}
+    for k, v in p0.items():
+        if v.dtype == torch.bfloat16:
+            sign = torch.randint(0, 2, v.shape, generator=gen) * 2.0 - 1.0
+            nudged = (v.float() + sign * ref.bf16_ulp(v)).to(torch.bfloat16)
+            nudged = torch.where(v == 0, v, nudged)
+        else:
+            nudged = v * (1.0 + NUDGE * torch.randn(v.shape, generator=gen))
+        out[k] = nudged.expand(num_workers, *v.shape)
+    return out
 
 
 def _run(adapter, fdata, w, lr, rounds, *, fused_engine, init_params=None):
@@ -75,7 +93,9 @@ def _run(adapter, fdata, w, lr, rounds, *, fused_engine, init_params=None):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("settings", nargs="+", type=_setting)
-    parser.add_argument("--rounds", type=int, default=cs.FAMILY_ROUNDS)
+    parser.add_argument("--rounds", type=int, default=None,
+                        help="rounds a run (default: the path's, "
+                             "FAMILY_ROUNDS or LM_BF16_ROUNDS)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("family_witness: no CUDA device", file=sys.stderr)
@@ -85,16 +105,21 @@ def main() -> int:
     ops.build()
     data, _ = cs._lm_data()
     for (arch, layers, params, w), lr, with_ref in args.settings:
-        adapter = cs.family_adapter(arch, layers, params)
+        if arch == BF16_PATH:
+            adapter = cs.lm_adapter(cs.LM_BF16_MODEL)
+            rounds = args.rounds or cs.LM_BF16_ROUNDS
+        else:
+            adapter = cs.family_adapter(arch, layers, params)
+            rounds = args.rounds or cs.FAMILY_ROUNDS
         fdata = cs._fleet_data(data, w)
         start = _nudged_start(adapter, w, cs.LM_CFG.seed)
-        runs = {"fused": _run(adapter, fdata, w, lr, args.rounds,
+        runs = {"fused": _run(adapter, fdata, w, lr, rounds,
                               fused_engine=True),
-                "nudged": _run(adapter, fdata, w, lr, args.rounds,
+                "nudged": _run(adapter, fdata, w, lr, rounds,
                                fused_engine=True, init_params=start)}
         del start
         if with_ref:
-            runs["reference"] = _run(adapter, fdata, w, lr, args.rounds,
+            runs["reference"] = _run(adapter, fdata, w, lr, rounds,
                                      fused_engine=False)
         label = f"{arch}-{layers}l W={w} lr={lr}"
         for what, (hist, secs) in runs.items():
