@@ -35,7 +35,9 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    past it, a non-causal Sk = 128 and a short sliding window, and at
    head width 112 zamba2-7b's attention on its path, zamba2-7b's and
    kimi-k2's train shapes at S = 4,096 and the short kernel's limit and
-   one key past it; each line names the instance that ran; within 2e-5,
+   one key past it, and phase 5's serving prefills (smollm-360m,
+   gemma3-27b's local and global layers, olmoe-1b-7b, zamba2-7b and
+   qwen2-vl-2b); each line names the instance that ran; within 2e-5,
    with the f32-FMA bound
    (operations at 67 TFLOP/s or bytes), the tensor-core bound (3 x the
    operations at 495 TFLOP/s, or bytes) and
@@ -101,10 +103,36 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    equal, device metrics within 1e-5; the cfg.seed lane also against the
    unbatched run).
 
+5. serving (``SERVE_MODELS``, through ``repro_torch.launch.serve``'s
+   ``prompt_batch`` and ``generate``): smollm-360m (B = 8, a 1,024-token
+   prompt, 32 generated), gemma3-27b (B = 2, 2,048, 16: past its 1,024
+   window, so the local caches roll), olmoe-1b-7b, zamba2-7b and
+   xlstm-1.3b (B = 4, 512, 16), whisper-large-v3 (B = 4, 1,504 frames, a
+   23-token prompt, 16) and qwen2-vl-2b (B = 4, 1,024, 16), each at its
+   published config, whole, in bf16 with the flash kernel on, built on
+   the card from a seed: prefill seconds and tokens/s, decode tokens/s,
+   peak memory, and flash's launches held to the attention layers of
+   one prefill (the tile instance), every call of a warm-up prefill
+   held to the plain version within one bf16 ulp; printed, not held:
+   the teacher-forced gap (each step's logits against the training
+   forward's, relative to the largest), the gap of a prefill without
+   the kernel, and their witness, the plain prefill against itself with
+   its input embeddings one bf16 ulp away. In f32, cut to the fewest
+   layers that run every block kind (smollm whole), the teacher-forced
+   gap within 1e-4, and prefill with the kernel against prefill without
+   it: every flash call within 2e-5 + 2e-5 |y| on its own inputs, the
+   logits and every cache leaf within 2e-5 of the leaf's largest
+   magnitude.
+
 Then a JSON line describing every kernel, the card line, and the last
 line ``{"ok": true, "device": {...}}``; ``[timing]`` lines give each
-phase's seconds and phase 2's by check. Exits non-zero, printing no
-result, without a CUDA device or outside a checkout of the repo.
+phase's seconds, phase 2's by check and phase 5's by model. Exits
+non-zero, printing no result, without a CUDA device or outside a
+checkout of the repo.
+
+    python3 chip_smoke.py --serve
+
+builds the kernels and runs phase 5 alone.
 
     python3 chip_smoke.py --trace
 
@@ -114,6 +142,7 @@ the kernels that take the most device time, and the port's own kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import statistics
@@ -139,7 +168,8 @@ from repro_torch.core.experiment import (run_algorithm,  # noqa: E402
                                          setup_experiment)
 from repro_torch.data.partition import pskew_partition  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.models import registry  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import moe, registry  # noqa: E402
 from repro_torch.simulation.cluster import SimCluster  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
@@ -326,7 +356,10 @@ CONSENSUS_RTOL = 1e-6
 # passes its ulp (tests/test_torch_kernels.py); at FLASH_CASES' shapes of
 # the paths that run bf16 and the train shapes
 FLASH_BF16_CASES = ("local-step", "measurement-group", "smollm-train",
-                    "gemma3-local", "hd192", "zamba2-step", "zamba2-train")
+                    "gemma3-local", "hd192", "zamba2-step", "zamba2-train",
+                    "smollm-prefill", "gemma3-prefill-local",
+                    "gemma3-prefill-global", "olmoe-prefill",
+                    "zamba2-prefill", "qwen2-vl-prefill")
 # kernels no main path launches
 OFF_PATH = ("consensus_dist",)
 
@@ -969,7 +1002,7 @@ def check_robust_gossip(cycles_per_ms: float) -> dict:
         instance = f"{kind} D={d}"
         x = torch.randn(w, p, generator=gen, device="cuda")
         t = _lying(x)
-        reps = 50 if kind == "register" else 10
+        reps = 20 if kind == "register" else 5
         for mode, b in ROBUST_MODES:
             name = f"{case}-{mode}:{b:g}"
             y = ops.robust_gossip(x, t, nbr, deg, b=b, mode=mode)
@@ -1009,9 +1042,9 @@ def check_robust_gossip(cycles_per_ms: float) -> dict:
                 cycles_per_ms, batch=10, reps=reps)
             plain_ms = time_ms(
                 lambda mode=mode, b=b: ref.robust_gossip_ref(
-                    x, t, nbr, deg, b=b, mode=mode), cycles_per_ms, batch=2,
-                reps=reps)
-            comp_ms = time_ms(composition, cycles_per_ms, batch=2, reps=reps)
+                    x, t, nbr, deg, b=b, mode=mode), cycles_per_ms, batch=1,
+                reps=3)
+            comp_ms = time_ms(composition, cycles_per_ms, batch=1, reps=3)
             bound_ms, bound_by, nbytes = robust_bound(w, p, d, exchanges)
             log("phase2", kernel="robust_gossip", case=name,
                 instance=repr(instance), W=w, P=p, D=d, bit_equal=True,
@@ -1053,7 +1086,11 @@ def check_robust_gossip(cycles_per_ms: float) -> dict:
 # local step of W = 2 workers x 32 sequences and a measurement pass of one
 # worker on the W x 256 eval stack), zamba2-7b's and kimi-k2's (64 / 8
 # heads) train shape at S = 4,096 (the tile kernel), and the short
-# kernel's dispatch limit at hd 112 and one key past it
+# kernel's dispatch limit at hd 112 and one key past it; then the serving
+# prefills of phase 5 (the tile kernel): smollm-360m (B = 8, S = 1,024),
+# gemma3-27b's local (window 1,024) and global layers (B = 2, S = 2,048),
+# olmoe-1b-7b (16 heads of 128, S = 512), zamba2-7b's shared attention
+# (hd 112, S = 512) and qwen2-vl-2b (12 / 2 heads of 128, S = 1,024)
 FLASH_CASES = (("local-step", 256, 15, 15, 5, 64, True, 0, False),
                ("measurement-group", 4096, 15, 15, 5, 64, True, 0, True),
                ("measurement-stack", 16384, 15, 15, 5, 64, True, 0, False),
@@ -1075,7 +1112,15 @@ FLASH_CASES = (("local-step", 256, 15, 15, 5, 64, True, 0, False),
                ("short-limit-hd112", 64, ops.FLASH_SHORT_MAX_KEYS[112], 32,
                 32, 112, True, 0, False),
                ("short-limit+1-hd112", 64, ops.FLASH_SHORT_MAX_KEYS[112] + 1,
-                32, 32, 112, True, 0, False))
+                32, 32, 112, True, 0, False),
+               ("smollm-prefill", 8, 1024, 15, 5, 64, True, 0, False),
+               ("gemma3-prefill-local", 2, 2048, 32, 16, 128, True, 1024,
+                False),
+               ("gemma3-prefill-global", 2, 2048, 32, 16, 128, True, 0,
+                False),
+               ("olmoe-prefill", 4, 512, 16, 16, 128, True, 0, False),
+               ("zamba2-prefill", 4, 512, 32, 32, 112, True, 0, False),
+               ("qwen2-vl-prefill", 4, 1024, 12, 2, 128, True, 0, False))
 
 
 def check_flash_attention(cycles_per_ms: float,
@@ -1985,6 +2030,291 @@ def _compare_engines(name: str, hists: dict, secs: dict, *, int8: bool,
         num_links=a["num_links"].tolist(), **extra)
 
 
+# ---------------------------------------------------------------------------
+# phase 5: serving
+# ---------------------------------------------------------------------------
+
+# the served models: (arch, B, prompt, generated, the f32 check's cut).
+# Each serves at its published config, whole (every layer, the full
+# vocabulary), in bf16 with the flash kernel on where the family attends
+# (``SERVE_SEED``'s random weights, built on the card); whisper's prompt
+# is the serve rule's: 8 x 188 = 1,504 frames (whisper's 30 s window is
+# 1,500) and a 23-token decoder prompt. The f32 teacher-forced check cuts
+# depth to the fewest layers that run every block kind (fields over the
+# published config; None: the whole model): gemma3 one group of 5 local
+# layers and a global one plus the 2-layer tail, zamba2 one group of 6
+# Mamba2 blocks and shared block A, xlstm 7 mLSTM blocks and an sLSTM one
+SERVE_MODELS = (
+    ("smollm-360m", 8, 1024, 32, None),
+    ("gemma3-27b", 2, 2048, 16, dict(num_layers=8)),
+    ("olmoe-1b-7b", 4, 512, 16, dict(num_layers=1)),
+    ("zamba2-7b", 4, 512, 16, dict(num_layers=6)),
+    ("xlstm-1.3b", 4, 512, 16, dict(num_layers=8)),
+    ("whisper-large-v3", 4, 188, 16, dict(num_layers=2, encoder_layers=2,
+                                          decoder_layers=2)),
+    ("qwen2-vl-2b", 4, 1024, 16, dict(num_layers=2)))
+SERVE_SEED = 11
+# the f32 teacher-forced check: prefill and decode steps fed a fixed
+# sequence, each step's logits against the training forward's at that
+# position, relative to the largest logit magnitude
+TEACHER_RTOL = 1e-4
+TEACHER_STEPS = 8
+
+
+def _serve_cfg(arch: str, dtype: str, fields=None):
+    return replace(get_config(arch), dtype=dtype, use_flash_kernel=True,
+                   **(fields or {}))
+
+
+def _serve_params(cfg, seed: int):
+    """[1, ...] parameters built on the card by ``registry.init_params``,
+    and the generator (for the prompts)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {k: v[None] for k, v in
+            registry.init_params(cfg, gen).items()}, gen
+
+
+def _bf16_bound(y_ref):
+    """One bf16 ulp of each element, FLASH_ATOL near 0 (phase 2's bound)."""
+    return ref.bf16_ulp(y_ref).clamp_min(FLASH_ATOL)
+
+
+def _f32_bound(y_ref):
+    """FLASH_ATOL + FLASH_RTOL |y| of each element (phase 2's bound)."""
+    return FLASH_ATOL + FLASH_RTOL * y_ref.abs()
+
+
+def _flash_call_err(q, k, v, kw, out, bound) -> tuple:
+    """A flash call against its plain version on the same inputs ->
+    (its instance, its q shape, max |diff|, every element within
+    ``bound(y_ref)``)."""
+    y_ref = ref.flash_attention_ref(q, k, v, causal=True,
+                                    window=kw.get("window", 0))
+    diff = (out.float() - y_ref.float()).abs()
+    return (ops.flash_instance(q, k, v), tuple(q.shape),
+            float(diff.max()), bool((diff <= bound(y_ref)).all()))
+
+
+@contextlib.contextmanager
+def _flash_held(bound):
+    """Hold every ``ops.flash_attention`` call to its plain version as it
+    runs (``_flash_call_err``); yields the list of the calls' results.
+    Each call launches and counts as it does unheld."""
+    held, orig = [], ops.flash_attention
+
+    def holding(q, k, v, **kw):
+        out = orig(q, k, v, **kw)
+        held.append(_flash_call_err(q, k, v, kw, out, bound))
+        return out
+
+    ops.flash_attention = holding
+    try:
+        yield held
+    finally:
+        ops.flash_attention = orig
+
+
+def _held_failures(arch: str, held) -> list[str]:
+    return [f"{arch} flash call {shape}: max |diff| {err} past the bound"
+            for _, shape, err, ok in held if not ok]
+
+
+def _no_drops(cfg):
+    """For MoE the capacity factor E / k, where no expert drops a token
+    (``moe.capacity_factor`` says why the checks need it)."""
+    if cfg.family != "moe":
+        return contextlib.nullcontext()
+    return moe.capacity_factor(cfg.num_experts / cfg.experts_per_token)
+
+
+def _ulp_nudged(cfg, params):
+    """``cfg`` and ``params`` with the input embedding table moved one
+    bf16 ulp away from 0 (each element's bit pattern plus one) and the
+    output head left as it was (untied, the same tensor, where ``cfg``
+    ties it): the witness of how far one ulp at the input carries."""
+    embed = params["embed"]
+    nudged = dict(params, embed=(embed.view(torch.int16) + 1).view(
+        embed.dtype))
+    if cfg.tie_embeddings:
+        nudged["lm_head"] = embed.transpose(-1, -2)
+        cfg = replace(cfg, tie_embeddings=False)
+    return cfg, nudged
+
+
+def _logits_gap(got, want) -> float:
+    """max |got - want| / max |want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _teacher_gap(cfg, params, batch, cap: int, fed) -> float:
+    """Prefill into a cache of capacity ``cap`` and decode steps fed
+    ``fed`` [1, B, N - 1], their logits against the training forward's
+    over the prompt followed by ``fed`` at the same positions: max |diff|
+    / max |forward|. MoE at a capacity where no token drops."""
+    with _no_drops(cfg):
+        logits, cache = registry.run_prefill(cfg, params, batch, max_len=cap)
+        seen = [logits]
+        for i in range(fed.shape[-1]):
+            logits, cache = registry.decode_step(cfg, params, cache,
+                                                 fed[..., i:i + 1])
+            seen.append(logits)
+        full = dict(batch, tokens=torch.cat([batch["tokens"], fed], dim=-1))
+        want = registry.forward_logits(cfg, params, full,
+                                       start=batch["tokens"].shape[-1] - 1)
+    return _logits_gap(torch.stack(seen, dim=2), want)
+
+
+def serve_published(arch: str, b: int, prompt: int,
+                    gen: int) -> tuple[dict[str, int], list[str]]:
+    """One model served whole at its published config in bf16: built on
+    the card, a warm-up generation of 2 tokens whose prefill's flash
+    calls are each held to the plain version within one bf16 ulp, then
+    the timed generation of ``gen`` with the launch counters zeroed
+    before it and read after it: flash_attention's bf16 instance exactly
+    once a prefill attention layer, nothing else. Printed, not held: the
+    teacher-forced figure, the prefill's logits without the kernel, and
+    the witness of both: the plain prefill against itself with its input
+    embeddings one bf16 ulp away. The teacher-forced decode is fed the
+    tokens the timed run generated (MoE at a capacity where no token
+    drops, as in f32). Returns the timed run's launches and the
+    failures."""
+    cfg = _serve_cfg(arch, "bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, g = _serve_params(cfg, SERVE_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch, cap = serve.prompt_batch(cfg, b, prompt, gen, g)
+    with _flash_held(_bf16_bound) as held:
+        serve.generate(cfg, params, batch, 2, cap)
+    _zero_counts()
+    run = serve.generate(cfg, params, batch, gen, cap)
+    counts = _read_counts()
+    n_attn = registry.attention_calls(cfg)
+    expected = dict.fromkeys(ops.LAUNCHES, 0)
+    expected["flash_attention"] = n_attn
+    if {k: counts[k] for k in ops.LAUNCHES} != expected or \
+            counts["flash_attention:bf16"] != n_attn:
+        raise AssertionError(f"serving {arch}: launched {counts}, the path "
+                             f"must launch {expected} (bf16)")
+    failures = _held_failures(arch, held)
+    if len(held) != n_attn:
+        failures.append(f"{arch}: held {len(held)} flash calls of a "
+                        f"prefill, not {n_attn}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gap = _teacher_gap(cfg, params, batch, cap, run["tokens"][..., :-1])
+    plain_cfg = replace(cfg, use_flash_kernel=False)
+    plain, _ = registry.run_prefill(plain_cfg, params, batch, max_len=cap)
+    nudged, _ = registry.run_prefill(*_ulp_nudged(plain_cfg, params), batch,
+                                     max_len=cap)
+    tokens = batch["tokens"].shape[-1]
+    extra = {}
+    if cfg.family == "encdec":
+        frames = batch["frames"].shape[2]
+        extra = dict(frames=frames,
+                     frames_per_s=f"{b * frames / run['prefill_s']:.1f}")
+    log("phase5", model=arch, dtype="bfloat16", layers=cfg.num_layers,
+        vocab=cfg.vocab_size,
+        params_b=f"{sum(v.numel() for v in params.values()) / 1e9:.4f}",
+        B=b, prompt_tokens=tokens, generated=gen, cache_capacity=cap,
+        **extra, init_s=f"{init_s:.3f}",
+        prefill_s=f"{run['prefill_s']:.4f}",
+        prefill_tokens_per_s=f"{b * tokens / run['prefill_s']:.1f}",
+        decode_s=f"{run['decode_s']:.4f}",
+        decode_tokens_per_s=f"{b * (gen - 1) / run['decode_s']:.1f}",
+        peak_gb=f"{peak_gb:.3f}", flash_launches=counts["flash_attention"],
+        attention_layers=n_attn,
+        instance=sorted({h[0] for h in held}),
+        flash_calls_held=len(held),
+        flash_call_max_abs_err=max((h[2] for h in held), default=0.0),
+        teacher_forced_gap=f"{gap:.3e}",
+        flash_vs_plain_prefill_logits=
+        f"{_logits_gap(run['prefill_logits'], plain):.3e}",
+        ulp_nudge_prefill_logits=f"{_logits_gap(nudged, plain):.3e}",
+        first_row=run["tokens"][0, 0, :8].tolist())
+    del params, run, plain, nudged
+    torch.cuda.empty_cache()
+    return counts, failures
+
+
+def check_serving_f32(arch: str, b: int, prompt: int, fields) -> list[str]:
+    """The f32 self-checks of one model at its published widths, cut by
+    ``fields``: the teacher-forced gap within TEACHER_RTOL; and where it
+    attends, its prefill with the flash kernel against its prefill
+    without it, the same weights: every flash call of the prefill on its
+    own inputs within FLASH_ATOL + FLASH_RTOL |y| elementwise, as phase
+    2 holds it, and the logits and every cache leaf within FLASH_RTOL of
+    the leaf's largest magnitude (through the layers the calls'
+    differences add up: elementwise, near-zero entries of a deep
+    prefill pass 2e-5 absolute). Returns the failures."""
+    cfg = _serve_cfg(arch, "float32", fields)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, g = _serve_params(cfg, SERVE_SEED)
+    batch, cap = serve.prompt_batch(cfg, b, prompt, TEACHER_STEPS, g)
+    fed = torch.randint(0, cfg.vocab_size, (1, b, TEACHER_STEPS - 1),
+                        generator=g, device="cuda")
+    gap = _teacher_gap(cfg, params, batch, cap, fed)
+    failures = []
+    if not gap <= TEACHER_RTOL:
+        failures.append(f"{arch} teacher-forced gap {gap:.3e}")
+    fields_out = {}
+    n_attn = registry.attention_calls(cfg)
+    if n_attn:
+        with _flash_held(_f32_bound) as held:
+            fl, fc = registry.run_prefill(cfg, params, batch, max_len=cap)
+        pl, pc = registry.run_prefill(replace(cfg, use_flash_kernel=False),
+                                      params, batch, max_len=cap)
+        failures += _held_failures(arch, held)
+        if len(held) != n_attn:
+            failures.append(f"{arch}: held {len(held)} flash calls of a "
+                            f"prefill, not {n_attn}")
+        worst, worst_leaf = 0.0, None
+        for name, y, y_ref in [("logits", fl, pl)] + [
+                (k, fc[k], pc[k]) for k in fc if k != "len"]:
+            rel = _logits_gap(y, y_ref)
+            if rel >= worst:
+                worst, worst_leaf = rel, name
+        if worst > FLASH_RTOL:
+            failures.append(f"{arch} prefill with flash against without: "
+                            f"{worst:.3e} of {worst_leaf}'s magnitude")
+        fields_out = dict(flash_calls_held=len(held),
+                          flash_call_max_abs_err=max(h[2] for h in held),
+                          flash_vs_plain_prefill=f"{worst:.3e}",
+                          flash_vs_plain_worst_leaf=worst_leaf,
+                          flash_vs_plain_logits_abs=float(
+                              (fl - pl).abs().max()))
+    log("phase5", check="f32", model=arch, layers=cfg.num_layers,
+        vocab=cfg.vocab_size, B=b, prompt_tokens=batch["tokens"].shape[-1],
+        steps=TEACHER_STEPS, teacher_forced_gap=f"{gap:.3e}",
+        bound=TEACHER_RTOL, **fields_out,
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    del params
+    torch.cuda.empty_cache()
+    return failures
+
+
+def run_serving() -> dict[str, int]:
+    """Phase 5: every served model's f32 checks, then its bf16 serving
+    run; raises after all lines are printed if a check failed. Returns
+    the serving runs' launches."""
+    total = dict.fromkeys(_read_counts(), 0)
+    failures, secs = [], {}
+    for arch, b, prompt, gen, fields in SERVE_MODELS:
+        t0 = time.perf_counter()
+        failures += check_serving_f32(arch, b, prompt, fields)
+        counts, served = serve_published(arch, b, prompt, gen)
+        failures += served
+        for k, v in counts.items():
+            total[k] += v
+        secs[arch] = f"{time.perf_counter() - t0:.1f}"
+    log("timing", phase5_by_model_s=secs)
+    if failures:
+        raise AssertionError("phase 5: " + "; ".join(failures))
+    return total
+
+
 def trace_lm_rounds(adapter, data) -> None:
     """One traced round of each registry-path algorithm: the device's
     busy time (the sum of its kernels' times; one stream, so they do not
@@ -2035,6 +2365,10 @@ def main() -> int:
         data, _ = _lm_data()
         trace_lm_rounds(adapter, data)
         return 0
+    if sys.argv[1:] == ["--serve"]:
+        log("serve", card=repr(card), build_s=f"{build_s:.3f}")
+        run_serving()
+        return 0
     ptxas = [ln.strip() for ln in nvcc_log.splitlines()
              if "registers" in ln or "spill" in ln]
     log("phase1", card=repr(card), torch=torch.__version__,
@@ -2077,6 +2411,20 @@ def main() -> int:
     for k, v in run_family_paths(data).items():
         launches[k] += v
     marks.append(("phase3_families", time.perf_counter()))
+    check_engines_agree()
+    check_lanes_agree()
+    marks.append(("phase4_mlp", time.perf_counter()))
+    check_lm_engines_agree(adapter, data)
+    marks.append(("phase4_registry", time.perf_counter()))
+    check_lm_bf16_engines_agree(data)
+    marks.append(("phase4_registry_bf16", time.perf_counter()))
+    check_family_engines_agree(data)
+    marks.append(("phase4_families", time.perf_counter()))
+    del adapter, data
+    torch.cuda.empty_cache()
+    for k, v in run_serving().items():
+        launches[k] += v
+    marks.append(("phase5_serving", time.perf_counter()))
     for kernel in kernels:
         kernel["launches"] = launches[kernel.get("count_key",
                                                  kernel["name"])]
@@ -2087,15 +2435,6 @@ def main() -> int:
         elif kernel["launches"] == 0:
             raise AssertionError(f"{kernel['name']} never launched on the "
                                  "main path")
-    check_engines_agree()
-    check_lanes_agree()
-    marks.append(("phase4_mlp", time.perf_counter()))
-    check_lm_engines_agree(adapter, data)
-    marks.append(("phase4_registry", time.perf_counter()))
-    check_lm_bf16_engines_agree(data)
-    marks.append(("phase4_registry_bf16", time.perf_counter()))
-    check_family_engines_agree(data)
-    marks.append(("phase4_families", time.perf_counter()))
     log("timing", build_s=f"{build_s:.3f}",
         **{f"{name}_s": f"{t - marks[i][1]:.3f}"
            for i, (name, t) in enumerate(marks[1:])})

@@ -1,13 +1,15 @@
 """Architecture registry: ``arch`` id -> (CONFIG, smoke_config), the
-port of ``repro.configs``. The dense, moe, hybrid and xlstm architectures
-are ported; whisper-large-v3 (encdec) and qwen2-vl-2b (vlm) raise
-``NotImplementedError`` naming the ROADMAP.md item that brings their
-family."""
+port of ``repro.configs``."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import FedHPConfig, ModelConfig  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
+    FedHPConfig,
+    InputShape,
+    ModelConfig,
+)
 
 _ARCH_MODULES: dict[str, str] = {
     "internlm2-20b": "repro_torch.configs.internlm2_20b",
@@ -16,26 +18,19 @@ _ARCH_MODULES: dict[str, str] = {
     "smollm-360m": "repro_torch.configs.smollm_360m",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
-}
-
-# the reference's other architectures, by the family that is not ported
-_UNPORTED: dict[str, str] = {
-    "whisper-large-v3": "encdec", "qwen2-vl-2b": "vlm",
+    "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
 }
 
 ARCH_IDS: tuple[str, ...] = tuple(_ARCH_MODULES)
 
 
 def _module(arch: str):
-    if arch in _UNPORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} ({_UNPORTED[arch]} family) is not ported to "
-            "repro_torch yet (ROADMAP.md queue 1, item 4)")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; available: "
-                       f"{sorted(_ARCH_MODULES) + sorted(_UNPORTED)}")
+                       f"{sorted(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[arch])
 
 

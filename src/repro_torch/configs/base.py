@@ -1,12 +1,30 @@
-"""Configs: the run configuration of the FedHP technique (Alg. 1-3) and
-the model-architecture description of the registry models — field-for-
-field copies of ``repro.configs.base.FedHPConfig`` and ``ModelConfig``
-with the same defaults, so one config value drives either package. The
-input-shape table (``SHAPES``) and ``RunConfig`` arrive with the launch
-and serving slice (ROADMAP.md queue 1, item 4)."""
+"""Configs: the run configuration of the FedHP technique (Alg. 1-3), the
+model-architecture description of the registry models and the input-shape
+table — field-for-field copies of ``repro.configs.base.FedHPConfig``,
+``ModelConfig``, ``InputShape`` and ``SHAPES`` with the same defaults, so
+one config value drives either package. ``RunConfig`` waits for the
+launcher (ROADMAP.md queue 1, item 4)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One input shape of the registry models' cells."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -15,7 +33,7 @@ class ModelConfig:
 
     ``family`` selects the model implementation in
     ``repro_torch.models.registry``: dense | moe | encdec | hybrid |
-    xlstm | vlm (encdec and vlm are not ported)."""
+    xlstm | vlm."""
 
     name: str
     family: str

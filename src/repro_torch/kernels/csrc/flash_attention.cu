@@ -67,7 +67,13 @@
 //   lo = rna_tf32(a - hi), a b ~ lo hi + hi lo + hi hi, small terms first
 //   (lo lo, about 2^-22 relative, dropped). One TF32 product keeps about
 //   3 digits and would miss the 2e-5 tolerance, so P v is split as q k^T
-//   is. The rounding is cvt.rna.tf32.f32's, written as two integer adds
+//   is. The tensor cores' f32 accumulation truncates, so P v is not
+//   chained into the output accumulator across key tiles: each tile's
+//   products for an n-tile are summed from zero and added on the CUDA
+//   cores, in the FFMA that applies the online softmax's rescale (on a
+//   deep layer's inputs the chained form drifted 5.9e-5 from f64 where
+//   the plain f32 version stays within 6e-6; the f32 tile takes
+//   1.03-1.34x its chained time, tools/kernel_ab.py). The rounding is cvt.rna.tf32.f32's, written as two integer adds
 //   and a mask (split_tf32): nvcc's cvt adds a compare and a select per
 //   value to keep infinities, and with every fragment split by every warp
 //   those were a tenth of the kernel's time (tools/kernel_ab.py). The
@@ -511,6 +517,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
+    float rescale[MT][2];       // acc's factor exp(m_old - m_new) a row
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       // scale, mask, and the rows' running max
@@ -556,13 +563,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
 #pragma unroll
-      for (int h = 0; h < 2; ++h) l[mt][h] = l[mt][h] * alpha[h] + sum[h];
-#pragma unroll
-      for (int n = 0; n < KS; ++n) {
-        acc[mt][n][0] *= alpha[0];
-        acc[mt][n][1] *= alpha[0];
-        acc[mt][n][2] *= alpha[1];
-        acc[mt][n][3] *= alpha[1];
+      for (int h = 0; h < 2; ++h) {
+        l[mt][h] = l[mt][h] * alpha[h] + sum[h];
+        rescale[mt][h] = alpha[h];
       }
     }
 
@@ -572,38 +575,68 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // order 0, 2, 4, 6, 1, 3, 5, 7: thread tq holds keys 2 tq and 2 tq + 1
     // of rows gq and gq + 8, which are A's columns tq and tq + 4 -- so B
     // (v) reads its rows in the same order and no shuffle is needed; a
-    // split V fragment serves every m-tile
+    // split V fragment serves every m-tile. The products of KC k-steps
+    // for an n-tile are summed in a zeroed fragment and added to acc on
+    // the CUDA cores (the first KC with acc's rescale, one FFMA): the
+    // tensor cores' f32 accumulation truncates, and chained into acc over
+    // every key tile of a long row (768 products at 2,048 keys, hd 128) it
+    // drifted toward zero by up to 1.5e-5 of |y| where a deep layer's v
+    // share a large component (tools/flash_serving_calls.py). KC is 2 so
+    // that a chunk's P fragments fit in registers at hd 64 (NJ 4).
+    constexpr int KC = NJ < 2 ? NJ : 2;
 #pragma unroll
-    for (int kk = 0; kk < NJ; ++kk) {
-      if (kk < nj) {
-        uint32_t ph[MT][4], pl[MT][4];
+    for (int c0 = 0; c0 < NJ; c0 += KC) {
+      uint32_t ph[KC][MT][4], pl[KC][MT][4];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          split_tf32(s[mt][kk][0], ph[mt][0], pl[mt][0]);
-          split_tf32(s[mt][kk][2], ph[mt][1], pl[mt][1]);
-          split_tf32(s[mt][kk][1], ph[mt][2], pl[mt][2]);
-          split_tf32(s[mt][kk][3], ph[mt][3], pl[mt][3]);
-        }
-        const T* vr = sv + (8 * kk + 2 * tq) * LD + gq;
+      for (int c = 0; c < KC; ++c) {
+        if (c0 + c < nj) {
 #pragma unroll
-        for (int n = 0; n < KS; ++n) {
-          if constexpr (exact_tf32<T>()) {
-            const uint32_t b0 = tf32_bits(vr[8 * n]);
-            const uint32_t b1 = tf32_bits(vr[LD + 8 * n]);
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              mma_tf32(acc[mt][n], pl[mt], b0, b1);
-              mma_tf32(acc[mt][n], ph[mt], b0, b1);
-            }
-          } else {
-            uint32_t bh0, bl0, bh1, bl1;
-            split_tf32(vr[8 * n], bh0, bl0);
-            split_tf32(vr[LD + 8 * n], bh1, bl1);
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-              mma_3xtf32(acc[mt][n], ph[mt], pl[mt], bh0, bh1, bl0, bl1);
+          for (int mt = 0; mt < MT; ++mt) {
+            const float* pr = s[mt][c0 + c];
+            split_tf32(pr[0], ph[c][mt][0], pl[c][mt][0]);
+            split_tf32(pr[2], ph[c][mt][1], pl[c][mt][1]);
+            split_tf32(pr[1], ph[c][mt][2], pl[c][mt][2]);
+            split_tf32(pr[3], ph[c][mt][3], pl[c][mt][3]);
           }
         }
+      }
+#pragma unroll
+      for (int n = 0; n < KS; ++n) {
+        float part[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[mt][e] = 0.f;
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          if (c0 + c < nj) {
+            const T* vr = sv + (8 * (c0 + c) + 2 * tq) * LD + gq + 8 * n;
+            if constexpr (exact_tf32<T>()) {
+              const uint32_t b0 = tf32_bits(vr[0]);
+              const uint32_t b1 = tf32_bits(vr[LD]);
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt) {
+                mma_tf32(part[mt], pl[c][mt], b0, b1);
+                mma_tf32(part[mt], ph[c][mt], b0, b1);
+              }
+            } else {
+              uint32_t bh0, bl0, bh1, bl1;
+              split_tf32(vr[0], bh0, bl0);
+              split_tf32(vr[LD], bh1, bl1);
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt)
+                mma_3xtf32(part[mt], ph[c][mt], pl[c][mt], bh0, bh1, bl0,
+                           bl1);
+            }
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[mt][n][e] = c0 == 0 ? fmaf(acc[mt][n][e],
+                                           rescale[mt][e >> 1], part[mt][e])
+                                    : acc[mt][n][e] + part[mt][e];
       }
     }
   }

@@ -1,6 +1,6 @@
 """Dense decoder-only GQA transformer (internlm2, nemotron-4, smollm,
-gemma3): the port of ``repro.models.dense``'s training forward, for a
-fleet of W workers at once.
+gemma3, and qwen2-vl's text backbone): the port of
+``repro.models.dense``, for a fleet of W workers at once.
 
 Parameters are a flat dict of ``"/"``-joined leaf names — the
 reference's nested pytree paths, e.g. ``"blocks/attn/wq"`` — each leaf
@@ -13,10 +13,22 @@ layers). The layers run as a Python loop over those stacks, in the
 reference's scan order.
 
 Leaves are stored in ``cfg.dtype`` (none stays f32) and every block
-runs under ``cfg.remat`` (``remat_block``).
+runs under ``cfg.remat`` (``remat_block``). The vlm family's training
+forward prepends patch embeddings (``extra_embeds``) and rotates by
+M-RoPE; its loss counts the text positions only.
 
-Serving (``prefill``, ``decode_step``, ``init_cache``) waits for
-ROADMAP.md queue 1, item 4.
+Serving: ``prefill`` fills a KV cache — ``k`` / ``v`` ``[W, L, B, cap,
+Hkv, hd]``, or for gemma3's groups rolling ``local_k`` / ``local_v``
+``[W, G, L_local, B, window, ...]`` and ``tail_k`` / ``tail_v`` of the
+window and full ``global_k`` / ``global_v`` ``[W, G, B, cap, ...]`` —
+plus ``len`` (a 0-d int32 tensor), named as the reference's cache tree.
+Its self-attention takes ``layers.pick_attn_fn`` where the training
+forward does (the flash kernel with ``use_flash_kernel``; the
+reference's prefill always runs the plain composition, the same function
+within the kernel's tolerance). ``decode_step`` writes each layer's new
+K / V into the cache in place and returns the same dict (the reference
+returns a new tree); it reads ``len`` as a Python int, one host sync a
+step. Serving runs under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -92,18 +104,21 @@ def init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return blk
 
 
-def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
+def init(cfg: ModelConfig, generator: torch.Generator,
+         dtypes: dict) -> dict:
     """One worker's parameters, drawn from ``generator`` (the
     reference's init laws: normal / sqrt(fan_in) weights, 0.02 normal
-    embeddings, zero norm gains)."""
+    embeddings, zero norm gains), each cast to ``dtypes[name]``
+    as it is drawn."""
     d = cfg.d_model
     p = {"embed": L.embed_init(generator, (cfg.vocab_size, d)),
          "ln_f": torch.zeros(d)}
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(generator, (d, cfg.vocab_size))
+    p = L.cast_leaves(p, dtypes)
     for stack, axes in _stacks(cfg).items():
         p.update(L.stack_blocks(stack, axes,
-                                lambda: init_block(generator, cfg)))
+                                lambda: init_block(generator, cfg), dtypes))
     return p
 
 
@@ -123,27 +138,39 @@ def layer_order(cfg: ModelConfig):
         yield "tail", (j,), cfg.sliding_window
 
 
-def block(cfg: ModelConfig, bp: dict, x, positions, *, window: int):
+def block_kv(cfg: ModelConfig, bp: dict, x, positions, *, window: int,
+             mrope_positions=None):
     """x + attn(norm(x)), then + mlp(norm(.)), with one block's
-    worker-stacked leaves ``bp``."""
+    worker-stacked leaves ``bp``; also returns the attention's
+    post-rotation k and v [W * B, S, Hkv, hd] (what prefill caches)."""
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
-    h = L.multi_head_attention(
+    h, k, v = L.multi_head_attention(
         L.sub(bp, "attn"), h, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
         positions=positions, theta=cfg.rope_theta, causal=True,
-        window=window,
-        attn_fn=L.pick_attn_fn(cfg, causal=True, window=window))
+        window=window, mrope_positions=mrope_positions,
+        attn_fn=L.pick_attn_fn(cfg, causal=True, window=window),
+        return_kv=True)
     x = x + h
     h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + L.apply_mlp(L.sub(bp, "mlp"), h, cfg.act)
+    return x + L.apply_mlp(L.sub(bp, "mlp"), h, cfg.act), k, v
 
 
-def remat_block(cfg: ModelConfig, bp: dict, x, positions, *, window: int):
+def block(cfg: ModelConfig, bp: dict, x, positions, *, window: int,
+          mrope_positions=None):
+    """``block_kv``'s output alone."""
+    return block_kv(cfg, bp, x, positions, window=window,
+                    mrope_positions=mrope_positions)[0]
+
+
+def remat_block(cfg: ModelConfig, bp: dict, x, positions, *, window: int,
+                mrope_positions=None):
     """``block`` under the activation-checkpoint policy ``cfg.remat``:
     the reference wraps each block (a group's local and global blocks,
     the tail's, the plain stack's, and the hybrid family's shared
     blocks) this way."""
-    return L.remat(lambda h, p: block(cfg, p, h, positions, window=window),
+    return L.remat(lambda h, p: block(cfg, p, h, positions, window=window,
+                                      mrope_positions=mrope_positions),
                    cfg)(x, bp)
 
 
@@ -168,15 +195,25 @@ def attention_block_floats(cfg: ModelConfig, d_ff: int) -> int:
     return 8 * cfg.d_model + 3 * qd + 3 * kvd + 4 * d_ff
 
 
-def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            mrope_positions=None, extra_embeds=None):
     """Full forward to final hidden states: tokens [W, B, S] int ->
-    [W, B, S, D]."""
+    [W, B, S', D]. The vlm inputs: ``extra_embeds`` [W, B, S_vis, D]
+    (patch embeddings, prepended: S' = S_vis + S) and
+    ``mrope_positions`` [3, W, B, S'] (M-RoPE in place of RoPE; the
+    reference passes them to the ungrouped stack only)."""
     L.check_trainable(cfg)
     x = L.embed(params["embed"], tokens)
-    positions = torch.arange(tokens.shape[-1], device=tokens.device)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=2)
+    wn, b, s = x.shape[:3]
+    positions = torch.arange(s, device=tokens.device)
+    mp = None
+    if mrope_positions is not None and not cfg.global_every:
+        mp = mrope_positions.reshape(3, wn * b, s)
     for stack, idx, window in layer_order(cfg):
         x = remat_block(cfg, L.layer(params, stack, idx), x, positions,
-                        window=window)
+                        window=window, mrope_positions=mp)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 
@@ -189,9 +226,136 @@ def head_matrix(cfg: ModelConfig, params: dict) -> torch.Tensor:
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
     """Per-worker next-token loss: batch ``tokens`` and ``labels`` [W, B,
-    S] (optional ``loss_mask``) -> (loss [W], {"tokens": count [W]})."""
-    h = forward(cfg, params, batch["tokens"])
+    S] (optional ``loss_mask``) -> (loss [W], {"tokens": count [W]}).
+    A vlm batch adds ``vision_embeds`` [W, B, S_vis, D] and
+    ``mrope_positions`` [W, B, 3, S_vis + S]; the loss reads the text
+    positions only."""
+    mp = batch.get("mrope_positions")
+    if mp is not None:                    # stored batch-leading [.., 3, S]
+        mp = torch.movedim(mp, -2, 0)
+    h = forward(cfg, params, batch["tokens"], mrope_positions=mp,
+                extra_embeds=batch.get("vision_embeds"))
+    if "vision_embeds" in batch:
+        h = h[:, :, batch["vision_embeds"].shape[2]:]
     loss, cnt = L.chunked_softmax_xent(h, head_matrix(cfg, params),
                                        batch["labels"].long(),
                                        batch.get("loss_mask"))
     return loss, {"tokens": cnt}
+
+
+def logits_at(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+    """f32 logits of final hidden states h [W, B, S, D] -> [W, B, S, V]
+    (every family's head: the embedding's transpose when tied, else
+    ``lm_head``)."""
+    return L.matmul(h, head_matrix(cfg, params)).float()
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill and single-token decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               num_workers: int = 1, device=None) -> dict:
+    """A zero cache of capacity ``max_len`` (the window for sliding-window
+    layers) in ``cfg.dtype``, ``len`` 0."""
+    dt = L.dtype_of(cfg.dtype)
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    w = cfg.sliding_window or max_len
+
+    def kv(*axes):
+        return torch.zeros((num_workers, *axes, hkv, hd), dtype=dt,
+                           device=device)
+
+    if cfg.global_every:
+        g, lpg, tail = _group_shape(cfg)
+        cache = {"local_k": kv(g, lpg, batch, w),
+                 "local_v": kv(g, lpg, batch, w),
+                 "global_k": kv(g, batch, max_len),
+                 "global_v": kv(g, batch, max_len)}
+        if tail:
+            cache["tail_k"] = kv(tail, batch, w)
+            cache["tail_v"] = kv(tail, batch, w)
+    else:
+        cache = {"k": kv(cfg.num_layers, batch, w),
+                 "v": kv(cfg.num_layers, batch, w)}
+    cache["len"] = torch.zeros((), dtype=torch.int32, device=device)
+    return cache
+
+
+def layer_cache(cache: dict, stack: str, idx: tuple[int, ...]):
+    """One layer's (k, v) cache views [W, B, C, Hkv, hd]."""
+    pre = "" if stack == "blocks" else f"{stack}_"
+    at = (slice(None),) + idx
+    return cache[pre + "k"][at], cache[pre + "v"][at]
+
+
+def fill_cache(dst: torch.Tensor, kv: torch.Tensor, rolling: bool) -> None:
+    """Write a prompt's k or v [W, B, S, ...] into one layer's cache view
+    ``dst`` [W, B, C, ...] in place: a full cache takes positions 0..S-1
+    in its first S slots; a rolling one (C the window) the last C
+    positions, position p in slot p mod C (the reference's
+    ``_to_window_cache``), or all S in the first slots while S < C."""
+    s, c = kv.shape[2], dst.shape[2]
+    if rolling and s >= c:
+        dst.copy_(torch.roll(kv[:, :, s - c:], shifts=s % c, dims=2))
+    else:
+        dst[:, :, :s] = kv
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            max_len: int = 0):
+    """Prefill: tokens [W, B, S] -> (the last position's logits [W, B, V]
+    f32, the cache filled for S positions, of capacity ``max_len``, S
+    when 0; pass S + the tokens to generate)."""
+    wn, b, s = tokens.shape
+    cache = init_cache(cfg, b, max_len or s, num_workers=wn,
+                       device=tokens.device)
+    positions = torch.arange(s, device=tokens.device)
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    x = L.embed(params["embed"], tokens)
+    for stack, idx, window in layer_order(cfg):
+        x, k, v = block_kv(cfg, L.layer(params, stack, idx), x, positions,
+                           window=window)
+        for dst, src in zip(layer_cache(cache, stack, idx), (k, v)):
+            fill_cache(dst, src.reshape(wn, b, s, hkv, hd), bool(window))
+    x = L.rms_norm(x[:, :, -1:], params["ln_f"], cfg.norm_eps)
+    cache["len"].fill_(s)
+    return logits_at(cfg, params, x)[:, :, 0], cache
+
+
+def decode_attention_half(cfg: ModelConfig, bp: dict, x, ck, cv, n: int,
+                          pos, window: int = 0):
+    """One token's x + attn(norm(x)) against one layer's cache views
+    (``layers.decode_attention``, written in place) — the part a dense,
+    a MoE and a shared hybrid block share."""
+    a = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+    return x + L.decode_attention(
+        L.sub(bp, "attn"), a, ck, cv, n, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+        positions=pos, theta=cfg.rope_theta, window=window)
+
+
+def decode_block(cfg: ModelConfig, bp: dict, x, ck, cv, n: int, pos,
+                 window: int = 0):
+    """``decode_attention_half``, then + mlp(norm(.))."""
+    x = decode_attention_half(cfg, bp, x, ck, cv, n, pos, window)
+    m = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    return x + L.apply_mlp(L.sub(bp, "mlp"), m, cfg.act)
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                tokens: torch.Tensor):
+    """One-token decode: tokens [W, B, 1] -> (logits [W, B, V] f32, the
+    cache), the new K / V written into ``cache`` in place and ``len``
+    advanced by one."""
+    n = int(cache["len"])
+    x = L.embed(params["embed"], tokens)
+    pos = torch.tensor([n], device=x.device)
+    for stack, idx, window in layer_order(cfg):
+        x = decode_block(cfg, L.layer(params, stack, idx), x,
+                         *layer_cache(cache, stack, idx), n, pos, window)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    cache["len"] += 1
+    return logits_at(cfg, params, x)[:, :, 0], cache

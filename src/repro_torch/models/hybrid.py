@@ -1,6 +1,5 @@
 """Zamba2-style hybrid: a Mamba2 backbone with shared attention blocks —
-the port of ``repro.models.hybrid``'s training forward, for a fleet of W
-workers at once.
+the port of ``repro.models.hybrid``, for a fleet of W workers at once.
 
 ``num_layers`` Mamba2 blocks; after every ``ssm_every`` of them one of
 TWO shared attention + MLP blocks fires (parameters reused across
@@ -13,7 +12,12 @@ gets a zero gradient, but it still gossips and counts in P) and
 
 Every block, Mamba2 or shared, runs under ``cfg.remat``.
 
-Serving waits for ROADMAP.md queue 1, item 4.
+Serving's cache, named as the reference's tree: ``mamba/state`` ``[W,
+G, ssm_every, B, H, n, p]`` (f32) and ``mamba/conv`` ``[W, G, ssm_every,
+B, 3, C]``, ``tail/state`` and ``tail/conv`` ``[W, tail, ...]``, a full
+KV cache ``attn_k`` / ``attn_v`` ``[W, G, B, cap, Hkv, hd]`` per shared
+block invocation (parameters shared, caches not) and ``len``; updated
+in place (``models/dense.py``).
 """
 from __future__ import annotations
 
@@ -75,19 +79,21 @@ def _init_mamba_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return blk
 
 
-def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
+def init(cfg: ModelConfig, generator: torch.Generator,
+         dtypes: dict) -> dict:
     """One worker's parameters, drawn from ``generator`` (the reference's
-    init laws)."""
+    init laws), each cast to ``dtypes[name]``."""
     d = cfg.d_model
     p = {"embed": L.embed_init(generator, (cfg.vocab_size, d)),
          "ln_f": torch.zeros(d)}
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(generator, (d, cfg.vocab_size))
+    p = L.cast_leaves(p, dtypes)
     make = {"mamba": _init_mamba_block, "shared": dense.init_block,
             "tail": _init_mamba_block}
     for stack, (axes, _) in _stacks(cfg).items():
         p.update(L.stack_blocks(stack, axes,
-                                lambda: make[stack](generator, cfg)))
+                                lambda: make[stack](generator, cfg), dtypes))
     return p
 
 
@@ -146,3 +152,100 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
                                        batch["labels"].long(),
                                        batch.get("loss_mask"))
     return loss, {"tokens": cnt}
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill and single-token decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               num_workers: int = 1, device=None) -> dict:
+    """A zero cache: Mamba2 states and contexts for every block, a KV
+    cache of capacity ``max_len`` for every shared-block invocation,
+    ``len`` 0."""
+    dt = L.dtype_of(cfg.dtype)
+    g, mpg, tail = _group_shape(cfg)
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    cache = {}
+    for stack, lead in (("mamba", (g, mpg)), ("tail", (tail,))):
+        if lead[0]:
+            m = ssm.init_mamba2_cache(batch, cfg.d_model, cfg.ssm_state, dt,
+                                      lead=(num_workers, *lead),
+                                      device=device)
+            cache.update({f"{stack}/{k}": v for k, v in m.items()})
+    if g:
+        for kv in ("attn_k", "attn_v"):
+            cache[kv] = torch.zeros((num_workers, g, batch, max_len, hkv,
+                                     hd), dtype=dt, device=device)
+    cache["len"] = torch.zeros((), dtype=torch.int32, device=device)
+    return cache
+
+
+def _mamba_layers(cfg: ModelConfig):
+    """The Mamba2 blocks in the reference's order, each with the shared
+    block invocation that follows it (its group index, else None):
+    (stack, index, group after)."""
+    g, mpg, tail = _group_shape(cfg)
+    for gi in range(g):
+        for j in range(mpg):
+            yield "mamba", (gi, j), (gi if j == mpg - 1 else None)
+    for j in range(tail):
+        yield "tail", (j,), None
+
+
+def _mamba_cache(cache: dict, stack: str, idx: tuple[int, ...]):
+    at = (slice(None),) + idx
+    return cache[f"{stack}/state"][at], cache[f"{stack}/conv"][at]
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            max_len: int = 0):
+    """Prefill: tokens [W, B, S] -> (the last position's logits [W, B, V]
+    f32, the cache: every Mamba2 block's final state and context, and
+    the shared blocks' K / V for S positions, of capacity ``max_len``, S
+    when 0)."""
+    wn, b, s = tokens.shape
+    cache = init_cache(cfg, b, max_len or s, num_workers=wn,
+                       device=tokens.device)
+    positions = torch.arange(s, device=tokens.device)
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    x = L.embed(params["embed"], tokens)
+    for stack, idx, gi in _mamba_layers(cfg):
+        bp = L.layer(params, stack, idx)
+        a = L.rms_norm(x, bp["ln"], cfg.norm_eps)
+        x = x + ssm.prefill_mamba2(L.sub(bp, "mamba"), a, cfg.ssm_state,
+                                   *_mamba_cache(cache, stack, idx))
+        if gi is not None:
+            x, k, v = dense.block_kv(
+                cfg, L.layer(params, "shared", (gi % NUM_SHARED,)), x,
+                positions, window=0)
+            for kv, src in (("attn_k", k), ("attn_v", v)):
+                dense.fill_cache(cache[kv][:, gi],
+                                 src.reshape(wn, b, s, hkv, hd), False)
+    x = L.rms_norm(x[:, :, -1:], params["ln_f"], cfg.norm_eps)
+    cache["len"].fill_(s)
+    return dense.logits_at(cfg, params, x)[:, :, 0], cache
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                tokens: torch.Tensor):
+    """One-token decode: tokens [W, B, 1] -> (logits [W, B, V] f32, the
+    cache advanced in place)."""
+    n = int(cache["len"])
+    x = L.embed(params["embed"], tokens)
+    pos = torch.tensor([n], device=x.device)
+    for stack, idx, gi in _mamba_layers(cfg):
+        bp = L.layer(params, stack, idx)
+        a = L.rms_norm(x, bp["ln"], cfg.norm_eps)
+        x = x + ssm.decode_mamba2(L.sub(bp, "mamba"), a,
+                                  *_mamba_cache(cache, stack, idx),
+                                  cfg.ssm_state)
+        if gi is not None:
+            x = dense.decode_block(
+                cfg, L.layer(params, "shared", (gi % NUM_SHARED,)), x,
+                cache["attn_k"][:, gi], cache["attn_v"][:, gi], n, pos)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    cache["len"] += 1
+    return dense.logits_at(cfg, params, x)[:, :, 0], cache

@@ -1,22 +1,22 @@
 """Building blocks of the registry models (the port of
-``repro.models.layers``' training-forward subset), written for a whole
-fleet at once.
+``repro.models.layers``), written for a whole fleet at once.
 
 Every parameter carries a leading worker axis ``[W, ...]`` — they are
 views into the engines' flat ``[W, P]`` matrix — and activations carry
 it too, ``[W, B, S, ...]``. The worker axis is the batch of every matrix
 product (``torch.bmm``) and is folded into the batch of the attention,
 which does not depend on the weights. Initialisers draw ONE worker's
-leaves from a ``torch.Generator`` (not ``jax.random``: the tests carry
-the reference's weights across instead).
+leaves from a ``torch.Generator`` on its device (not ``jax.random``:
+the tests carry the reference's weights across instead).
 
 Leaves are stored in the config's ``dtype`` (``dtype_of``; a few
 recurrence leaves stay f32, as in the reference) and activations follow
 the leaves' dtype; the norms, RoPE, the softmax of the attention and the
 loss compute in f32 and cast back, as the reference does.
 
-Not ported here: ``decode_attention``, ``layer_norm``, M-RoPE and
-sinusoidal positions (ROADMAP.md queue 1, item 4).
+Serving's single-token ``decode_attention`` writes the new token's K / V
+into the cache tensors in place (the reference's functional update
+copies the cache; see its docstring).
 """
 from __future__ import annotations
 
@@ -112,14 +112,29 @@ def embed_init(gen: torch.Generator, shape):
     return torch.randn(*shape, generator=gen) * 0.02
 
 
-def stack_blocks(stack: str, axes: tuple[int, ...], make) -> dict:
+def cast_leaves(p: dict, dtypes: dict) -> dict:
+    """Each leaf cast to its storage dtype ``dtypes[name]``."""
+    return {k: v.to(dtypes[k]) for k, v in p.items()}
+
+
+def stack_blocks(stack: str, axes: tuple[int, ...], make,
+                 dtypes: dict) -> dict:
     """prod(axes) blocks drawn by ``make()`` (one worker's ``{leaf:
     tensor}``), in order, stacked along the stack's layer axes:
-    ``{"<stack>/<leaf>": [*axes, ...]}``."""
-    blocks = [make() for _ in range(math.prod(axes))]
-    return {f"{stack}/{leaf}": torch.stack([blk[leaf] for blk in blocks])
-            .reshape(axes + tuple(blocks[0][leaf].shape))
-            for leaf in blocks[0]}
+    ``{"<stack>/<leaf>": [*axes, ...]}``. Each block is written into
+    stacked leaves allocated once, in the leaf's storage dtype
+    ``dtypes["<stack>/<leaf>"]``, so the peak is the stack plus one
+    block as drawn."""
+    n = math.prod(axes)
+    out = {}
+    for i in range(n):
+        for leaf, v in make().items():
+            name = f"{stack}/{leaf}"
+            if i == 0:
+                out[name] = torch.empty((n,) + tuple(v.shape),
+                                        dtype=dtypes[name], device=v.device)
+            out[name][i] = v
+    return {k: v.reshape(axes + v.shape[1:]) for k, v in out.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +199,20 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     return (out * (1.0 + _per_worker(gamma, x.dim()).float())).to(dt)
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """x [W, ..., d], gamma and beta [W, d]: (x - mean) / sqrt(var + eps)
+    * gamma + beta (the population variance), in f32, cast back to x's
+    dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * _per_worker(gamma, x.dim()).float()
+            + _per_worker(beta, x.dim()).float()).to(dt)
+
+
 def act_fn(name: str):
     """silu, gelu (the tanh form, as ``jax.nn.gelu``) or relu2."""
     if name == "silu":
@@ -218,6 +247,40 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: tuple[int, int, int] = (2, 1, 1)) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: x [..., S, H, hd]; positions3 [3, ...,
+    S] int, the (t, h, w) position streams. The hd / 2 frequency slots
+    split into (t, h, w) sections in the ratio ``sections``, each rotated
+    by its own stream (the reference's half-split rotation), in f32, cast
+    back to x's dtype."""
+    hd = x.shape[-1]
+    half = hd // 2
+    tot = sum(sections)
+    b0 = half * sections[0] // tot
+    b1 = half * (sections[0] + sections[1]) // tot
+    inv = rope_freqs(hd, theta, x.device)
+    sect = torch.zeros(half, dtype=torch.long, device=x.device)
+    sect[b0:b1] = 1
+    sect[b1:] = 2
+    pos = torch.movedim(positions3, 0, -1)[..., sect]      # [..., S, half]
+    ang = (pos.to(torch.float32) * inv)[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoidal embeddings [seq_len, dim], f32: sin then
+    cos of pos / 10000^(i / max(dim / 2 - 1, 1))."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    idx = torch.arange(dim // 2, dtype=torch.float32, device=device)[None]
+    ang = pos / torch.pow(torch.tensor(10_000.0, device=device),
+                          idx / max(dim // 2 - 1, 1))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -257,25 +320,76 @@ def pick_attn_fn(cfg, *, causal: bool, window: int):
 
 def multi_head_attention(p: dict, x: torch.Tensor, *, num_heads: int,
                          num_kv_heads: int, head_dim: int,
-                         positions: torch.Tensor, theta: float = 1e4,
-                         causal: bool = True, window: int = 0,
-                         attn_fn=None) -> torch.Tensor:
-    """Full-sequence GQA self-attention of a fleet: x [W, B, S, D] with
-    one layer's worker-stacked wq / wk / wv / wo -> [W, B, S, D]. The
-    attention sees the W * B sequences as one batch."""
+                         positions: torch.Tensor | None = None,
+                         theta: float = 1e4, causal: bool = True,
+                         window: int = 0, mrope_positions=None, kv_x=None,
+                         attn_fn=None, return_kv: bool = False):
+    """Full-sequence GQA attention of a fleet: x [W, B, S, D] with one
+    layer's worker-stacked wq / wk / wv / wo -> [W, B, S, D]. The
+    attention sees the W * B sequences as one batch.
+
+    ``positions`` [S] rotates q and k (RoPE; none when None);
+    ``mrope_positions`` [3, W * B, S] rotates both by M-RoPE instead.
+    ``kv_x`` [W, B, Sk, D] is a cross-attention source: k and v come
+    from it, only q is rotated, and no mask applies. ``return_kv`` also
+    returns the post-rotation k and v [W * B, Sk, Hkv, hd] (what
+    serving's prefill caches)."""
     wn, b, s, _ = x.shape
+    src = x if kv_x is None else kv_x
+    sk = src.shape[2]
     q = matmul(x, p["wq"]).reshape(wn * b, s, num_heads, head_dim)
-    k = matmul(x, p["wk"]).reshape(wn * b, s, num_kv_heads, head_dim)
-    v = matmul(x, p["wv"]).reshape(wn * b, s, num_kv_heads, head_dim)
-    q = apply_rope(q, positions, theta)
-    k = apply_rope(k, positions, theta)
+    k = matmul(src, p["wk"]).reshape(wn * b, sk, num_kv_heads, head_dim)
+    v = matmul(src, p["wv"]).reshape(wn * b, sk, num_kv_heads, head_dim)
+    if mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, theta)
+        k = apply_mrope(k, mrope_positions, theta)
+    elif positions is not None:
+        q = apply_rope(q, positions, theta)
+        if kv_x is None:
+            k = apply_rope(k, positions, theta)
     mask = None
-    if causal or window:
-        mask = gqa_scores_mask(s, s, causal=causal, window=window,
+    if kv_x is None and (causal or window):
+        mask = gqa_scores_mask(s, sk, causal=causal, window=window,
                                device=x.device)
     o = (attn_fn(q, k, v, mask) if attn_fn is not None
          else gqa_attention_ref(q, k, v, mask))
-    return matmul(o.reshape(wn, b, s, num_heads * head_dim), p["wo"])
+    out = matmul(o.reshape(wn, b, s, num_heads * head_dim), p["wo"])
+    return (out, k, v) if return_kv else out
+
+
+def decode_attention(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, cache_len: int, *,
+                     num_heads: int, num_kv_heads: int, head_dim: int,
+                     positions: torch.Tensor | None = None,
+                     theta: float = 1e4, window: int = 0) -> torch.Tensor:
+    """Single-token decode of a fleet against a KV cache: x [W, B, 1, D];
+    cache_k / cache_v [W, B, C, Hkv, hd] (C the window of a rolling
+    cache, else the capacity), views into the stacked cache;
+    ``cache_len`` the current length, which is the new token's absolute
+    position (``positions`` [1] rotates its q and k). The new K / V go
+    IN PLACE into slot ``cache_len mod C`` (rolling) or ``min(cache_len,
+    C - 1)`` (full: past the capacity the last slot is overwritten), and
+    the query attends to the valid slots — the first min(len + 1, C)
+    (rolling) or those up to the slot (full) — by the plain composition
+    (``gqa_attention_ref``), as the reference's decode step. Returns
+    [W, B, 1, D]."""
+    wn, b = x.shape[:2]
+    cap = cache_k.shape[2]
+    q = matmul(x, p["wq"]).reshape(wn * b, 1, num_heads, head_dim)
+    k = matmul(x, p["wk"]).reshape(wn * b, 1, num_kv_heads, head_dim)
+    v = matmul(x, p["wv"]).reshape(wn * b, 1, num_kv_heads, head_dim)
+    if positions is not None:
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
+    slot = cache_len % cap if window else min(cache_len, cap - 1)
+    cache_k[:, :, slot] = k.reshape(wn, b, num_kv_heads, head_dim)
+    cache_v[:, :, slot] = v.reshape(wn, b, num_kv_heads, head_dim)
+    idx = torch.arange(cap, device=x.device)
+    valid = idx < min(cache_len + 1, cap) if window else idx <= slot
+    kv_shape = (wn * b, cap, num_kv_heads, head_dim)
+    o = gqa_attention_ref(q, cache_k.reshape(kv_shape),
+                          cache_v.reshape(kv_shape), valid[None, :])
+    return matmul(o.reshape(wn, b, 1, num_heads * head_dim), p["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,5 @@
 """Mixture-of-Experts decoder (olmoe-1b-7b, kimi-k2-1t-a32b): the port of
-``repro.models.moe``'s training forward, for a fleet of W workers at
-once.
+``repro.models.moe``, for a fleet of W workers at once.
 
 Routing is the reference's sort-based "dropped" capacity MoE, per
 worker: each worker routes its own T = B * S tokens (capacity C =
@@ -20,11 +19,14 @@ Parameters are the flat dict of ``"/"``-joined leaf names of
 the stacked layer axis ``[W, L, ...]`` and the layers run as a Python
 loop in the reference's scan order.
 
-Serving (``prefill``, ``decode_step``, ``init_cache``) waits for
-ROADMAP.md queue 1, item 4.
+Serving keeps the dense family's cache (``k`` / ``v`` ``[W, L, B, cap,
+Hkv, hd]`` and ``len``, written in place, ``models/dense.py``); a decode
+step routes its B tokens with capacity ``capacity(B, E, k)``, as the
+reference does.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -69,6 +71,22 @@ def init_moe_ffn(gen: torch.Generator, cfg: ModelConfig) -> dict:
         mlp = L.init_mlp(gen, d, cfg.num_shared_experts * dff, cfg.act)
         p.update({f"shared/{k}": v for k, v in mlp.items()})
     return p
+
+
+@contextlib.contextmanager
+def capacity_factor(factor: float):
+    """Route with ``factor`` in place of ``CAPACITY_FACTOR`` while the
+    block runs. At E / k no expert drops a token: what a check needs
+    that compares two routings of the same tokens, since a decode step
+    routes its B tokens with C(B) and the training forward all B S with
+    C(B S), so at 1.25 the two drop different tokens by design (the
+    reference's)."""
+    global CAPACITY_FACTOR
+    old, CAPACITY_FACTOR = CAPACITY_FACTOR, factor
+    try:
+        yield
+    finally:
+        CAPACITY_FACTOR = old
 
 
 def capacity(tokens: int, num_experts: int, k: int) -> int:
@@ -187,30 +205,38 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return blk
 
 
-def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
+def init(cfg: ModelConfig, generator: torch.Generator,
+         dtypes: dict) -> dict:
     """One worker's parameters, drawn from ``generator`` (the reference's
-    init laws)."""
+    init laws), each cast to ``dtypes[name]``."""
     d = cfg.d_model
     p = {"embed": L.embed_init(generator, (cfg.vocab_size, d)),
          "ln_f": torch.zeros(d)}
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(generator, (d, cfg.vocab_size))
+    p = L.cast_leaves(p, dtypes)
     p.update(L.stack_blocks("blocks", (cfg.num_layers,),
-                            lambda: _block_init(generator, cfg)))
+                            lambda: _block_init(generator, cfg), dtypes))
     return p
 
 
-def _block(cfg: ModelConfig, bp: dict, x, positions):
+def _block_kv(cfg: ModelConfig, bp: dict, x, positions):
+    """(x + attn + moe, the aux loss, the attention's post-RoPE k and
+    v [W * B, S, Hkv, hd])."""
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
-    h = L.multi_head_attention(
+    h, k, v = L.multi_head_attention(
         L.sub(bp, "attn"), h, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
         positions=positions, theta=cfg.rope_theta, causal=True,
-        attn_fn=L.pick_attn_fn(cfg, causal=True, window=0))
+        attn_fn=L.pick_attn_fn(cfg, causal=True, window=0), return_kv=True)
     x = x + h
     h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
     y, aux = apply_moe_ffn(L.sub(bp, "moe"), h, cfg)
-    return x + y, aux
+    return x + y, aux, k, v
+
+
+def _block(cfg: ModelConfig, bp: dict, x, positions):
+    return _block_kv(cfg, bp, x, positions)[:2]
 
 
 def attention_calls(cfg: ModelConfig) -> int:
@@ -265,3 +291,52 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
                                        batch["labels"].long(),
                                        batch.get("loss_mask"))
     return loss + 0.01 * aux, {"tokens": cnt, "aux_loss": aux}
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill and single-token decode
+# ---------------------------------------------------------------------------
+
+init_cache = dense.init_cache
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            max_len: int = 0):
+    """Prefill: tokens [W, B, S] -> (the last position's logits [W, B, V]
+    f32, the cache filled for S positions, of capacity ``max_len``, S
+    when 0)."""
+    wn, b, s = tokens.shape
+    cache = init_cache(cfg, b, max_len or s, num_workers=wn,
+                       device=tokens.device)
+    positions = torch.arange(s, device=tokens.device)
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    x = L.embed(params["embed"], tokens)
+    for i in range(cfg.num_layers):
+        x, _, k, v = _block_kv(cfg, L.layer(params, "blocks", (i,)), x,
+                               positions)
+        for dst, src in zip(dense.layer_cache(cache, "blocks", (i,)),
+                            (k, v)):
+            dense.fill_cache(dst, src.reshape(wn, b, s, hkv, hd), False)
+    x = L.rms_norm(x[:, :, -1:], params["ln_f"], cfg.norm_eps)
+    cache["len"].fill_(s)
+    return dense.logits_at(cfg, params, x)[:, :, 0], cache
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                tokens: torch.Tensor):
+    """One-token decode: tokens [W, B, 1] -> (logits [W, B, V] f32, the
+    cache written in place)."""
+    n = int(cache["len"])
+    x = L.embed(params["embed"], tokens)
+    pos = torch.tensor([n], device=x.device)
+    for i in range(cfg.num_layers):
+        bp = L.layer(params, "blocks", (i,))
+        x = dense.decode_attention_half(
+            cfg, bp, x, *dense.layer_cache(cache, "blocks", (i,)), n, pos)
+        m = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+        x = x + apply_moe_ffn(L.sub(bp, "moe"), m, cfg)[0]
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    cache["len"] += 1
+    return dense.logits_at(cfg, params, x)[:, :, 0], cache

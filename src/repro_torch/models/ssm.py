@@ -1,5 +1,5 @@
 """Mamba2 / SSD blocks (zamba2's backbone): the port of
-``repro.models.ssm``'s training half.
+``repro.models.ssm``.
 
 The selective state-space layer is the reference's chunked SSD
 algorithm: intra-chunk terms are attention-like einsums, and a loop over
@@ -9,8 +9,9 @@ sequential-scan oracle the tests hold it against.
 The recurrence has no weights, so it takes the fleet's sequences as one
 batch (``[W * B, ...]``, as the attention does); ``apply_mamba2`` runs a
 block of worker-stacked parameters ``[W, ...]`` on activations ``[W, B,
-S, d]``. The decode half (``init_mamba2_cache``, ``decode_mamba2``)
-waits for ROADMAP.md queue 1, item 4.
+S, d]``. Serving: ``prefill_mamba2`` also returns the block's final
+state and convolution context, and ``decode_mamba2`` is the O(1)
+recurrent step, updating that cache in place.
 """
 from __future__ import annotations
 
@@ -248,26 +249,89 @@ def mamba2_floats(d_model: int, ssm_state: int, seq_len: int) -> int:
             + recurrence_floats(h, ssm_state, HEAD_DIM, seq_len))
 
 
-def apply_mamba2(p: dict, x: torch.Tensor, ssm_state_dim: int, *,
-                 chunk: int = 256) -> torch.Tensor:
-    """Full-sequence Mamba2 block body of a fleet: x [W, B, S, d] with one
-    block's worker-stacked leaves -> [W, B, S, d]."""
+def _mamba2(p: dict, x: torch.Tensor, ssm_state_dim: int, chunk: int,
+            final: bool):
+    """A Mamba2 block body of a fleet: x [W, B, S, d] -> (out [W, B, S,
+    d], the final state [W * B, H, n, p] or None, the trailing
+    convolution context [W, B, 3, C])."""
     wn, bsz, s, d = x.shape
     n = ssm_state_dim
     z, xbc, dt, d_in, h = _split_proj(p, x, d, n)
-    xbc, _ = _causal_conv(p, xbc)
+    xbc, conv_state = _causal_conv(p, xbc)
     xs, b, c = torch.split(xbc, [d_in, n, n], dim=-1)
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"][:, None, None])
     xh = xs.reshape(wn, bsz, s, h, HEAD_DIM)
     # the sequences of all workers as one batch, each with its worker's
     # decay rates
     a_log = p["a_log"][:, None].expand(wn, bsz, h).reshape(wn * bsz, h)
-    y, _ = ssd_chunked(xh.reshape(wn * bsz, s, h, HEAD_DIM),
-                       dt.reshape(wn * bsz, s, h), a_log,
-                       b.reshape(wn * bsz, s, n), c.reshape(wn * bsz, s, n),
-                       chunk=chunk, final=False)
+    y, st = ssd_chunked(xh.reshape(wn * bsz, s, h, HEAD_DIM),
+                        dt.reshape(wn * bsz, s, h), a_log,
+                        b.reshape(wn * bsz, s, n), c.reshape(wn * bsz, s, n),
+                        chunk=chunk, final=final)
     y = y.reshape(wn, bsz, s, h, HEAD_DIM) \
         + xh.to(torch.float32) * p["d_skip"][:, None, None, :, None]
     y = y.reshape(wn, bsz, s, d_in).to(x.dtype)
+    y = L.rms_norm(y * F.silu(z), p["norm"])
+    return L.matmul(y, p["out_proj"]), st, conv_state
+
+
+def apply_mamba2(p: dict, x: torch.Tensor, ssm_state_dim: int, *,
+                 chunk: int = 256) -> torch.Tensor:
+    """Full-sequence Mamba2 block body of a fleet: x [W, B, S, d] with one
+    block's worker-stacked leaves -> [W, B, S, d]."""
+    return _mamba2(p, x, ssm_state_dim, chunk, final=False)[0]
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def init_mamba2_cache(batch: int, d_model: int, ssm_state: int, dtype,
+                      *, lead: tuple[int, ...] = (1,), device=None) -> dict:
+    """A zero cache of Mamba2 blocks stacked on ``lead`` axes (the worker
+    axis first): ``state`` [*lead, B, H, n, p] f32 and ``conv`` [*lead,
+    B, 3, C] in ``dtype``."""
+    d_in = 2 * d_model
+    h = num_ssm_heads(d_in)
+    return {
+        "state": torch.zeros((*lead, batch, h, ssm_state, HEAD_DIM),
+                             dtype=torch.float32, device=device),
+        "conv": torch.zeros((*lead, batch, CONV_WIDTH - 1,
+                             d_in + 2 * ssm_state), dtype=dtype,
+                            device=device),
+    }
+
+
+def prefill_mamba2(p: dict, x: torch.Tensor, ssm_state_dim: int,
+                   state: torch.Tensor, conv: torch.Tensor) -> torch.Tensor:
+    """``apply_mamba2`` that also writes the block's final state into
+    ``state`` [W, B, H, n, p] and its trailing convolution context into
+    ``conv`` [W, B, 3, C] (cache views), in place."""
+    out, st, conv_state = _mamba2(p, x, ssm_state_dim, 256, final=True)
+    state.copy_(st.reshape(state.shape))
+    conv.copy_(conv_state)
+    return out
+
+
+def decode_mamba2(p: dict, x: torch.Tensor, state: torch.Tensor,
+                  conv: torch.Tensor, ssm_state_dim: int) -> torch.Tensor:
+    """Single-token Mamba2 step: x [W, B, 1, d] with one block's
+    worker-stacked leaves; ``state`` [W, B, H, n, p] f32 and ``conv``
+    [W, B, 3, C] (cache views) advanced in place. Returns [W, B, 1, d]."""
+    wn, bsz, _, d = x.shape
+    n = ssm_state_dim
+    f32 = torch.float32
+    z, xbc, dt, d_in, h = _split_proj(p, x, d, n)
+    xbc, conv_state = _causal_conv(p, xbc, conv)
+    xs, b, c = torch.split(xbc, [d_in, n, n], dim=-1)
+    dt = F.softplus(dt.to(f32) + p["dt_bias"][:, None, None])[:, :, 0]
+    xh = xs.reshape(wn, bsz, h, HEAD_DIM).to(f32)
+    dec = torch.exp(dt * -torch.exp(p["a_log"])[:, None])       # [W,B,H]
+    upd = torch.einsum("wbh,wbn,wbhp->wbhnp", dt, b[:, :, 0].to(f32), xh)
+    state.mul_(dec[..., None, None]).add_(upd)
+    conv.copy_(conv_state)
+    y = torch.einsum("wbn,wbhnp->wbhp", c[:, :, 0].to(f32), state)
+    y = y + xh * p["d_skip"][:, None, :, None]
+    y = y.reshape(wn, bsz, 1, d_in).to(x.dtype)
     y = L.rms_norm(y * F.silu(z), p["norm"])
     return L.matmul(y, p["out_proj"])

@@ -1,7 +1,7 @@
 """xLSTM blocks (xlstm-1.3b): mLSTM (matrix memory, parallel over
 tokens) and sLSTM (scalar memory with recurrent memory mixing,
-sequential) — the port of ``repro.models.xlstm``'s training forward, for
-a fleet of W workers at once.
+sequential) — the port of ``repro.models.xlstm``, for a fleet of W
+workers at once.
 
 The mLSTM recurrence
     C_t = f_t C_{t-1} + i_t v_t k_t^T,  n_t = f_t n_{t-1} + i_t k_t
@@ -16,8 +16,12 @@ tail mLSTM blocks. Leaves, worker-stacked as in ``models/dense.py``:
 
 Every block runs under ``cfg.remat``.
 
-Serving (the recurrent state cache and the decode steps) waits for
-ROADMAP.md queue 1, item 4.
+Serving keeps constant-size recurrent states, named as the reference's
+cache tree: ``mlstm/C`` ``[W, G, slstm_every, B, H, n_qk, hd + 1]`` and
+``tail/C`` (the chunked recurrence's state over the ones-augmented v,
+the normaliser in the last column), ``slstm/c``, ``/n``, ``/h`` ``[W, G,
+B, H, dh]`` and ``slstm/m`` ``[W, G, B, H]``, all f32, and ``len``;
+updated in place (``models/dense.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import dense
 from repro_torch.models import layers as L
 from repro_torch.models.ssm import chunked_recurrence, recurrence_floats
 
@@ -93,10 +98,29 @@ def _mlstm_qkv_gates(p: dict, a: torch.Tensor):
     return q, k, v, igate, fgate
 
 
-def apply_mlstm(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                chunk: int = 256) -> torch.Tensor:
-    """Full-sequence mLSTM block of a fleet: x [W, B, S, d] -> [W, B, S,
-    d]."""
+def _v_aug(v: torch.Tensor) -> torch.Tensor:
+    """v in f32 with a ones column appended (the normaliser's)."""
+    return torch.cat([v.to(torch.float32),
+                      torch.ones(*v.shape[:-1], 1, dtype=torch.float32,
+                                 device=v.device)], dim=-1)
+
+
+def _mlstm_out(p: dict, h_res, y_aug, gate, cfg: ModelConfig):
+    """The block's output from the recurrence's y_aug [..., H, hd + 1]:
+    the numerator over max(|normaliser|, 1), normed, gated, projected
+    down, plus the residual."""
+    num, den = y_aug[..., :-1], y_aug[..., -1:]
+    # torch.maximum splits the gradient of a tie in half, as jnp.maximum
+    hid = num / torch.maximum(torch.abs(den), den.new_ones(()))
+    hid = hid.reshape(*h_res.shape[:-1], -1).to(h_res.dtype)
+    hid = L.rms_norm(hid, p["ln_inner"], cfg.norm_eps)
+    return h_res + L.matmul(hid * F.silu(gate), p["w_down"])
+
+
+def _mlstm(p: dict, x: torch.Tensor, cfg: ModelConfig, chunk: int,
+           final: bool):
+    """Full-sequence mLSTM block of a fleet: x [W, B, S, d] -> ([W, B, S,
+    d], the final state [W * B, H, n_qk, hd + 1] or None)."""
     wn, bsz, s, d = x.shape
     h_res = x
     x = L.rms_norm(x, p["ln"], cfg.norm_eps)
@@ -105,21 +129,22 @@ def apply_mlstm(p: dict, x: torch.Tensor, cfg: ModelConfig,
     log_f = F.logsigmoid(fgate)                              # [W,B,S,H]
     i_mult = torch.exp(igate)                                # update gate
     # the normaliser: the same recurrence on an extra ones column of v
-    v_aug = torch.cat([v.to(torch.float32),
-                       torch.ones(*v.shape[:-1], 1, dtype=torch.float32,
-                                  device=v.device)], dim=-1)
+    v_aug = _v_aug(v)
     h, hd = v.shape[-2], v.shape[-1]
     nb = wn * bsz
-    y_aug, _ = chunked_recurrence(
+    y_aug, st = chunked_recurrence(
         v_aug.reshape(nb, s, h, hd + 1), gate=i_mult.reshape(nb, s, h),
         log_decay=log_f.reshape(nb, s, h), b=k.reshape(nb, s, h, -1),
-        c=q.reshape(nb, s, h, -1), chunk=chunk, final=False)
-    num, den = y_aug[..., :-1], y_aug[..., -1:]
-    # torch.maximum splits the gradient of a tie in half, as jnp.maximum
-    hid = num / torch.maximum(torch.abs(den), den.new_ones(()))
-    hid = hid.reshape(wn, bsz, s, h * hd).to(x.dtype)
-    hid = L.rms_norm(hid, p["ln_inner"], cfg.norm_eps)
-    return h_res + L.matmul(hid * F.silu(gate), p["w_down"])
+        c=q.reshape(nb, s, h, -1), chunk=chunk, final=final)
+    return _mlstm_out(p, h_res, y_aug.reshape(wn, bsz, s, h, hd + 1), gate,
+                      cfg), st
+
+
+def apply_mlstm(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                chunk: int = 256) -> torch.Tensor:
+    """Full-sequence mLSTM block of a fleet: x [W, B, S, d] -> [W, B, S,
+    d]."""
+    return _mlstm(p, x, cfg, chunk, final=False)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -252,19 +277,21 @@ def leaf_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     return out
 
 
-def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
+def init(cfg: ModelConfig, generator: torch.Generator,
+         dtypes: dict) -> dict:
     """One worker's parameters, drawn from ``generator`` (the reference's
-    init laws)."""
+    init laws), each cast to ``dtypes[name]``."""
     d = cfg.d_model
     p = {"embed": L.embed_init(generator, (cfg.vocab_size, d)),
          "ln_f": torch.zeros(d)}
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(generator, (d, cfg.vocab_size))
+    p = L.cast_leaves(p, dtypes)
     make = {"mlstm": init_mlstm_block, "slstm": init_slstm_block,
             "tail": init_mlstm_block}
     for stack, (axes, _) in _stacks(cfg).items():
         p.update(L.stack_blocks(stack, axes,
-                                lambda: make[stack](generator, cfg)))
+                                lambda: make[stack](generator, cfg), dtypes))
     return p
 
 
@@ -322,3 +349,130 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
                                        batch["labels"].long(),
                                        batch.get("loss_mask"))
     return loss, {"tokens": cnt}
+
+
+# ---------------------------------------------------------------------------
+# Serving: recurrent state cache (constant size)
+# ---------------------------------------------------------------------------
+
+SLSTM_STATE = ("c", "n", "h", "m")
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0, *,
+               num_workers: int = 1, device=None) -> dict:
+    """The zero recurrent states of every block (``max_len`` is unused:
+    the states do not grow), ``len`` 0."""
+    g, mpg, tail = _group_shape(cfg)
+    _, h, hd, nqk = _mlstm_dims(cfg)
+    hs, dh = _slstm_dims(cfg)
+    cache = {}
+
+    def zeros(*shape):
+        return torch.zeros((num_workers, *shape), dtype=torch.float32,
+                           device=device)
+
+    if g:
+        cache["mlstm/C"] = zeros(g, mpg, batch, h, nqk, hd + 1)
+        for name in SLSTM_STATE:
+            cache[f"slstm/{name}"] = (zeros(g, batch, hs) if name == "m"
+                                      else zeros(g, batch, hs, dh))
+    if tail:
+        cache["tail/C"] = zeros(tail, batch, h, nqk, hd + 1)
+    cache["len"] = torch.zeros((), dtype=torch.int32, device=device)
+    return cache
+
+
+def decode_mlstm(p: dict, x: torch.Tensor, C: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Single-token mLSTM step: x [W, B, 1, d]; the state ``C`` [W, B, H,
+    n_qk, hd + 1] (a cache view) advanced in place, C = f C + i k (x)
+    v_aug. Returns [W, B, 1, d]."""
+    h_res = x
+    x = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    a, gate = torch.chunk(L.matmul(x, p["w_up"]), 2, dim=-1)
+    q, k, v, igate, fgate = _mlstm_qkv_gates(p, a)
+    q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]           # [W,B,H,*]
+    f = torch.exp(F.logsigmoid(fgate[:, :, 0]))             # [W,B,H]
+    i = torch.exp(igate[:, :, 0])
+    C.mul_(f[..., None, None]).add_(
+        i[..., None, None] * torch.einsum("wbhn,wbhp->wbhnp",
+                                          k.to(torch.float32), _v_aug(v)))
+    y_aug = torch.einsum("wbhn,wbhnp->wbhp", q.to(torch.float32), C)
+    return _mlstm_out(p, h_res, y_aug[:, :, None], gate, cfg)
+
+
+def decode_slstm(p: dict, x: torch.Tensor, state: dict,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Single-token sLSTM step: x [W, B, 1, d]; ``state`` the {c, n, h,
+    m} cache views, advanced in place. Returns [W, B, 1, d]."""
+    wn, bsz, _, d = x.shape
+    h_res = x
+    xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    x_proj = (L.matmul(xn, p["w_in"])
+              + p["b"][:, None, None].to(xn.dtype))[:, :, 0]
+    st = _slstm_step(p, state, x_proj)
+    for name in SLSTM_STATE:
+        state[name].copy_(st[name])
+    hid = st["h"].reshape(wn, bsz, 1, d).to(x.dtype)
+    x = h_res + L.rms_norm(hid, p["ln_inner"], cfg.norm_eps)
+    m = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.matmul(F.silu(L.matmul(m, p["w_ffn_gate"]))
+                        * L.matmul(m, p["w_ffn_up"]), p["w_ffn_down"])
+
+
+def _cache_layers(cfg: ModelConfig):
+    """The blocks in the reference's order: (stack, index, is sLSTM)."""
+    g, mpg, tail = _group_shape(cfg)
+    for gi in range(g):
+        for j in range(mpg):
+            yield "mlstm", (gi, j), False
+        yield "slstm", (gi,), True
+    for j in range(tail):
+        yield "tail", (j,), False
+
+
+def _slstm_cache(cache: dict, idx: tuple[int, ...]) -> dict:
+    at = (slice(None),) + idx
+    return {name: cache[f"slstm/{name}"][at] for name in SLSTM_STATE}
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            max_len: int = 0):
+    """Prefill (chunked-parallel mLSTM, token-loop sLSTM): tokens [W, B,
+    S] -> (the last position's logits [W, B, V] f32, every block's final
+    state)."""
+    wn, b, s = tokens.shape
+    cache = init_cache(cfg, b, num_workers=wn, device=tokens.device)
+    x = L.embed(params["embed"], tokens)
+    for stack, idx, is_slstm in _cache_layers(cfg):
+        bp = L.layer(params, stack, idx)
+        if is_slstm:
+            x, st = apply_slstm(bp, x, cfg)
+            for name, dst in _slstm_cache(cache, idx).items():
+                dst.copy_(st[name])
+        else:
+            x, st = _mlstm(bp, x, cfg, 256, final=True)
+            dst = cache[f"{stack}/C"][(slice(None),) + idx]
+            dst.copy_(st.reshape(dst.shape))
+    x = L.rms_norm(x[:, :, -1:], params["ln_f"], cfg.norm_eps)
+    cache["len"].fill_(s)
+    return dense.logits_at(cfg, params, x)[:, :, 0], cache
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                tokens: torch.Tensor):
+    """One-token decode: tokens [W, B, 1] -> (logits [W, B, V] f32, the
+    states advanced in place)."""
+    x = L.embed(params["embed"], tokens)
+    for stack, idx, is_slstm in _cache_layers(cfg):
+        bp = L.layer(params, stack, idx)
+        if is_slstm:
+            x = decode_slstm(bp, x, _slstm_cache(cache, idx), cfg)
+        else:
+            x = decode_mlstm(bp, x, cache[f"{stack}/C"][(slice(None),)
+                                                        + idx], cfg)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    cache["len"] += 1
+    return dense.logits_at(cfg, params, x)[:, :, 0], cache

@@ -303,21 +303,22 @@ def test_consensus_dist_ref_matches_reference(k, length):
 
 
 def test_registry_reports_unported_families():
-    """encdec and vlm still raise, naming ROADMAP.md; the moe, hybrid and
-    xlstm families (ported since this test was written) return the
-    reference's configs and adapters."""
+    """Every family of the reference is ported: the encdec and vlm
+    architectures (whisper-large-v3, qwen2-vl-2b; ported with serving)
+    and the moe, hybrid and xlstm ones return the reference's configs,
+    and the registry maps encdec to its module and vlm to the dense one.
+    The DFL adapters still refuse encdec and vlm, with the reference's
+    ValueError."""
     from repro.configs import get_config as jax_config
-    for arch in ("whisper-large-v3", "qwen2-vl-2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_smoke_config(arch)
+    from repro_torch.configs import get_config
     for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            registry.get_model(family)
         with pytest.raises(ValueError):
             modelspec.get_adapter(f"{family}:d=16")
-    from repro_torch.configs import get_config
+    assert registry.get_model("encdec").__name__ == \
+        "repro_torch.models.encdec"
+    assert registry.get_model("vlm") is dense
     for arch in ("olmoe-1b-7b", "kimi-k2-1t-a32b", "zamba2-7b",
-                 "xlstm-1.3b"):
+                 "xlstm-1.3b", "whisper-large-v3", "qwen2-vl-2b"):
         assert dataclasses.asdict(get_config(arch)) == \
             dataclasses.asdict(jax_config(arch))
         assert dataclasses.asdict(get_smoke_config(arch)) == \

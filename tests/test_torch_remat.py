@@ -139,7 +139,12 @@ def test_unknown_policies_and_dtypes_raise():
     assert dtypes["mamba/mamba/in_proj"] == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+# the architectures the DFL engines train (encdec and vlm serve only)
+TRAINED_ARCHS = [a for a in ARCH_IDS
+                 if get_config(a).family in modelspec.DFL_FAMILIES]
+
+
+@pytest.mark.parametrize("arch", TRAINED_ARCHS)
 def test_published_configs_run_as_published(arch):
     import jax
     from repro.configs import get_config as jax_config
