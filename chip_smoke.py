@@ -124,6 +124,31 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    logits and every cache leaf within 2e-5 of the leaf's largest
    magnitude.
 
+6. sharded execution (``run_sharded``; it runs between phases 4 and 5,
+   on the registry corpus phase 3 built), each sharded run's launches
+   counted from zero and held to gossip_edges alone for its gossip (one
+   launch a shard and offset with edges, of the instance a block's rows
+   take; never gossip_mix), and every gossip_edges call of a sharded
+   run held bit-equal to its plain version on the same inputs as it
+   runs (``_edges_held``: the shards' own and received blocks, at
+   every shape the path gives the kernel; a run's seconds include
+   that check): (a) D-PSGD at W = 8 on a sparse ring, 30
+   fused rounds over ``make_worker_mesh(4, devices=["cuda:0"] * 4)``,
+   against the unsharded run (final accuracy within 1e-3, host fields
+   equal, the launches exactly 30 rounds of the ring's), FedHP with
+   and without churn at the paper's fleet, 10 rounds over 2 shards on
+   both engines, within the reference's ``DEVICE_TOL``, and D-PSGD
+   there under int8, top-k and rand-k (fused; the codec kernels once a
+   shard a round, held exactly) within ``SHARDED_COMPRESSED_TOL``; (b) the
+   reference bench's big leg at full size, D-PSGD on a W = 4,096 sparse
+   ring, 3 fused rounds over 4 shards, once held and once unheld for
+   its rounds/s and peak memory: a shard's block bytes against the whole
+   [4096, 6922], final accuracy (at least 0.5, the reference's gate, and
+   within 1e-3 of the 0.946586 it reaches at these seeds) and the
+   gossip_edges launches by instance, at most 120 s a round; (c) the registry path as published
+   (``LM_BF16_MODEL``, W = 8), 2 FedHP rounds over 2 shards against the
+   unsharded run over ``erdos:0.5``, within phase 4's bf16 bounds.
+
 Then a JSON line describing every kernel, the card line, and the last
 line ``{"ok": true, "device": {...}}``; ``[timing]`` lines give each
 phase's seconds, phase 2's by check and phase 5's by model. Exits
@@ -132,7 +157,11 @@ checkout of the repo.
 
     python3 chip_smoke.py --serve
 
-builds the kernels and runs phase 5 alone.
+builds the kernels and runs phase 5 alone;
+
+    python3 chip_smoke.py --sharded
+
+phase 6 alone (after building the registry corpus).
 
     python3 chip_smoke.py --trace
 
@@ -169,7 +198,9 @@ from repro_torch.core.experiment import (run_algorithm,  # noqa: E402
 from repro_torch.data.partition import pskew_partition  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.mesh import make_worker_mesh  # noqa: E402
 from repro_torch.models import moe, registry  # noqa: E402
+from repro_torch.runtime import shardexec  # noqa: E402
 from repro_torch.simulation.cluster import SimCluster  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
@@ -312,7 +343,8 @@ LM_PARITY_FIELDS = dict(base_topology="erdos:0.5")
 # (attention at head width 112); xlstm-1.3b: one group of 7 mLSTM blocks
 # and an sLSTM block (no attention). kimi-k2-1t-a32b holds 17.16 G
 # parameters in one layer, 68.6 GB in f32 for one worker: it waits for
-# sharded execution (ROADMAP.md queue 1, item 3)
+# the model axis of launch/train's mesh (ROADMAP.md queue 1, item 4; the
+# sharded path splits workers, not a worker's layers)
 FAMILY_PATHS = (("olmoe-1b-7b", 1, 444_733_440, 4, LM_CFG.lr),
                 ("zamba2-7b", 6, 922_968_288, 2, 0.01),
                 ("xlstm-1.3b", 8, 474_241_080, 4, 5e-4))
@@ -1535,11 +1567,12 @@ def _lm_data():
 
 
 def _lm_run(adapter, data, algo: str, rounds: int, *, fused_engine: bool,
-            init_params=None, **fields):
+            init_params=None, mesh=None, **fields):
     """One registry-path run from a fresh cluster (which prices a model
     transfer at the trained model's size) and strategy, from
-    ``init_params`` (the engines' ``init_params``) or the seed's weights
-    -> (history, the recorded taus)."""
+    ``init_params`` (the engines' ``init_params``) or the seed's weights,
+    sharded over ``mesh`` when one is given -> (history, the recorded
+    taus)."""
     cfg = replace(LM_CFG, algorithm=algo, **fields)
     train, tx, ty, shards = data
     cluster = SimCluster(cfg.num_workers, model_bits=adapter.model_bits,
@@ -1548,7 +1581,8 @@ def _lm_run(adapter, data, algo: str, rounds: int, *, fused_engine: bool,
         cfg.num_workers, cfg.base_topology, cfg.seed)), cfg.tau_max)
     run = fused.run_dfl_fused if fused_engine else engine.run_dfl
     hist = run(train, tx, ty, shards, cluster, cfg, strategy, rounds=rounds,
-               adapter=adapter, init_params=init_params, device="cuda")
+               adapter=adapter, init_params=init_params, mesh=mesh,
+               device="cuda")
     return hist, strategy.taus
 
 
@@ -2315,6 +2349,306 @@ def run_serving() -> dict[str, int]:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 6: sharded execution
+# ---------------------------------------------------------------------------
+
+# the shards of a one-card mesh: four on the one card (the contract's
+# count is 1), which hand their blocks to each other without a copy
+SHARD_DEVICES = ("cuda:0",) * 4
+# (a) the reference bench's parity leg (benchmarks/run.py:498-513, its
+# smoke fleet): D-PSGD, W = 8, a sparse ring, 30 fused rounds over 4
+# shards against the unsharded run: final accuracy within 1e-3
+SHARD_PARITY_CFG = FedHPConfig(num_workers=8, tau_init=8, tau_max=30,
+                               lr=0.15, lr_decay=0.993, batch_size=32,
+                               seed=5, base_topology="ring", gossip="sparse")
+SHARD_PARITY_ROUNDS = 30
+SHARD_PARITY_ACC = 1e-3
+# and FedHP with and without churn at the paper's fleet, 10 rounds over 2
+# shards on both engines, within the reference's DEVICE_TOL
+# (tests/test_sharded_engine.py), over the sparse edge list as there
+SHARD_FEDHP_CFG = replace(PAPER_CFG, gossip="sparse")
+SHARD_CHURN = dict(churn_rate=0.1)
+SHARD_FEDHP_ROUNDS = 10
+SHARD_DEVICE_TOL = {"accuracy": 1e-6, "loss": 1e-4, "consensus": 1e-4}
+# and D-PSGD at the paper's fleet under each codec, 10 fused rounds over
+# 2 shards: the codec kernels on each shard's own rows, within the
+# reference's SHARDED_COMPRESSED_TOL (int8's buckets turn the sums'
+# order noise into whole quanta)
+SHARD_CODECS = ("int8", "topk:0.1", "randk:0.1")
+SHARD_COMPRESSED_TOL = {"accuracy": 5e-3, "loss": 1e-2, "consensus": 1e-2}
+# (b) the reference bench's big leg at full size (benchmarks/run.py:
+# 515-570): a W = 4,096 sparse ring, run only sharded, over 4 shards; its
+# gates: at most 120 s a round and a final accuracy of at least 0.5
+SHARD_BIG_CFG = FedHPConfig(num_workers=4096, rounds=3, tau_init=2,
+                            tau_max=4, lr=0.1, batch_size=16, seed=5,
+                            base_topology="ring", gossip="sparse")
+SHARD_BIG_KW = dict(non_iid_p=0.1, num_samples=32 * 4096)
+SHARD_BIG_ROUNDS = 3
+SHARD_BIG_ROUND_S = 120.0
+SHARD_BIG_ACC = 0.5
+# and the final accuracy the leg reaches at these seeds, the same on the
+# card and on the CPU (PERF.md), held within the parity leg's 1e-3
+SHARD_BIG_ACC_SEEN = 0.946586
+# (c) the dense registry path as published (LM_BF16_MODEL, W = 8): FedHP
+# over 2 shards against the unsharded run over phase 4's erdos:0.5 base,
+# within phase 4's bf16 bounds
+SHARD_LM_ROUNDS = 2
+
+
+def _shard_mesh(shards: int):
+    return make_worker_mesh(shards, devices=SHARD_DEVICES[:shards])
+
+
+def _edges_launched(name: str, counts: dict, rows: int) -> dict[str, int]:
+    """A sharded run's launches: gossip_edges one a (shard, offset) a
+    communicating round — all of the instance a block of ``rows`` rows
+    takes —, never gossip_mix (sharded gossip is always the edge form);
+    -> the gossip_edges launches by instance."""
+    inst = {k.split(":")[1]: v for k, v in ops.INSTANCE_LAUNCHES.items()
+            if k.startswith("gossip_edges:")}
+    if counts["gossip_mix"] or not counts["gossip_edges"] or \
+            inst[ops.edges_instance(rows)] != counts["gossip_edges"]:
+        raise AssertionError(f"{name}: launched {counts}, gossip_edges "
+                             f"instances {inst}")
+    return inst
+
+
+def _base_edge_launches(cfg: FedHPConfig, mesh) -> int:
+    """The gossip_edges launches of one D-PSGD round over ``cfg``'s base
+    topology, routed over ``mesh``: one a shard and offset with edges."""
+    plan = shardexec.WorkerShardPlan(mesh, cfg.num_workers)
+    adj = topo.make_base_topology(cfg.num_workers, cfg.base_topology,
+                                  cfg.seed)
+    (routed,) = plan.route([engine.round_edge_list(adj, "uniform")])
+    return routed.launches()
+
+
+@contextlib.contextmanager
+def _edges_held():
+    """Hold every ``ops.gossip_edges`` call to its plain version as it
+    runs: bit-equal on the same (x, t, CSR) (``_require_equal``); yields
+    the list of the calls' (instance, x's shape, whether t is x). Each
+    call launches and counts as it does unheld."""
+    held, orig = [], ops.gossip_edges
+
+    def holding(x, t, *csr):
+        y = orig(x, t, *csr)
+        inst = ops.edges_instance(x.shape[0])
+        _require_equal("gossip_edges", f"{inst}{tuple(x.shape)}",
+                       [(y, ref.gossip_edges_ref(x, t, *csr))])
+        held.append((inst, tuple(x.shape), t is x))
+        return y
+
+    ops.gossip_edges = holding
+    try:
+        yield held
+    finally:
+        ops.gossip_edges = orig
+
+
+def _held_summary(held) -> dict[str, int]:
+    """The held gossip_edges calls counted by instance, shape and wire."""
+    out: dict[str, int] = {}
+    for inst, shape, t_is_x in held:
+        key = f"{inst}{list(shape)}:{'t=x' if t_is_x else 't=recv'}"
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def _hold_sharded(name: str, ha, hb, tol: dict) -> dict:
+    """Host fields of the unsharded run ``ha`` and the sharded ``hb``
+    equal, each device metric within ``tol`` (a ``(atol, rtol)`` pair);
+    -> history_gaps."""
+    a, b = ha.as_arrays(), hb.as_arrays()
+    for k in EXACT:
+        if not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"{name}: host field {k} differs: "
+                                 f"{a[k]} vs {b[k]}")
+    for k, (atol, rtol) in tol.items():
+        np.testing.assert_allclose(b[k], a[k], atol=atol, rtol=rtol,
+                                   err_msg=f"{name}: {k}")
+    return history_gaps(ha, hb)
+
+
+def run_sharded(data) -> dict[str, int]:
+    """Phase 6: (a) the sharded engines against the unsharded ones on the
+    card, (b) the W = 4,096 ring at full size, (c) the registry path as
+    published over 2 shards. Returns the sharded runs' launches, each
+    counted from zero just before the run."""
+    total = dict.fromkeys(_read_counts(), 0)
+
+    def sharded(fn, hold: bool = True):
+        """Run ``fn`` with the counts zeroed, every gossip_edges call held
+        to its plain version unless ``hold`` is False -> (its result, its
+        seconds, its launches, the held calls' summary)."""
+        torch.cuda.synchronize()
+        _zero_counts()
+        with _edges_held() if hold else contextlib.nullcontext() as held:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        counts = _read_counts()
+        if hold and len(held) != counts["gossip_edges"]:
+            raise AssertionError(f"{len(held)} gossip_edges calls held of "
+                                 f"{counts['gossip_edges']} launched")
+        for k, v in counts.items():
+            total[k] += v
+        return out, secs, counts, _held_summary(held or [])
+
+    # (a) D-PSGD's parity leg, every round a ring over 4 shards
+    mesh = _shard_mesh(4)
+    cfg = SHARD_PARITY_CFG
+    kw = dict(PAPER_KW, rounds=SHARD_PARITY_ROUNDS, fused=True)
+    h_o = run_algorithm("dpsgd", cfg, **kw)
+    h_s, secs, counts, held = sharded(
+        lambda: run_algorithm("dpsgd", cfg, mesh=mesh, **kw))
+    name = "dpsgd/ring/W=8/shards=4"
+    per_round = _base_edge_launches(cfg, mesh)
+    inst = _edges_launched(name, counts, cfg.num_workers // 4)
+    if counts["gossip_edges"] != SHARD_PARITY_ROUNDS * per_round:
+        raise AssertionError(f"{name}: {counts['gossip_edges']} "
+                             f"gossip_edges, not {SHARD_PARITY_ROUNDS} x "
+                             f"{per_round}")
+    drift = abs(h_s.final_accuracy - h_o.final_accuracy)
+    if drift > SHARD_PARITY_ACC:
+        raise AssertionError(f"{name}: final accuracy drifts {drift}")
+    gaps = _hold_sharded(name, h_o, h_s, {})
+    log("phase6", path=name, rounds=SHARD_PARITY_ROUNDS,
+        final_accuracy=[h_o.final_accuracy, h_s.final_accuracy],
+        acc_drift=drift, bound=SHARD_PARITY_ACC, host_fields_equal=True,
+        loss_max_rel_diff=gaps["loss"], param_max_abs_diff=gaps["params"],
+        edges_per_round=per_round, edges_instances=inst, edges_held=held,
+        sharded_s=f"{secs:.3f}")
+
+    # (a) FedHP with and without churn at the paper's fleet, both engines
+    mesh = _shard_mesh(2)
+    tol = {k: (v, v) for k, v in SHARD_DEVICE_TOL.items()}
+    for churn in ({}, SHARD_CHURN):
+        cfg = replace(SHARD_FEDHP_CFG, **churn)
+        for fused_engine in (False, True):
+            kw = dict(PAPER_KW, rounds=SHARD_FEDHP_ROUNDS,
+                      fused=fused_engine)
+            h_o = run_algorithm("fedhp", cfg, **kw)
+            h_s, secs, counts, held = sharded(lambda: run_algorithm(
+                "fedhp", cfg, mesh=mesh, **kw))
+            name = ("fedhp/W=30/shards=2" + ("/churn" if churn else "")
+                    + ("/fused" if fused_engine else "/reference"))
+            inst = _edges_launched(name, counts, 15)
+            gaps = _hold_sharded(name, h_o, h_s, tol)
+            log("phase6", path=name, rounds=SHARD_FEDHP_ROUNDS,
+                host_fields_equal=True, acc_max_abs_diff=gaps["acc"],
+                loss_max_rel_diff=gaps["loss"],
+                consensus_max_rel_diff=gaps["consensus"],
+                param_max_abs_diff=gaps["params"], tol=SHARD_DEVICE_TOL,
+                edges_instances=inst, edges_held=held,
+                sharded_s=f"{secs:.3f}", num_links=h_s.as_arrays()["num_links"].tolist())
+
+    # (a) D-PSGD under each codec at the paper's fleet, fused
+    tol = {k: (v, v) for k, v in SHARD_COMPRESSED_TOL.items()}
+    for codec in SHARD_CODECS:
+        cfg = replace(SHARD_FEDHP_CFG, compress=codec)
+        kw = dict(PAPER_KW, rounds=SHARD_FEDHP_ROUNDS, fused=True)
+        h_o = run_algorithm("dpsgd", cfg, **kw)
+        h_s, secs, counts, held = sharded(lambda: run_algorithm(
+            "dpsgd", cfg, mesh=mesh, **kw))
+        name = f"dpsgd/W=30/shards=2/{codec}"
+        inst = _edges_launched(name, counts, 15)
+        # the codec kernels once a shard, gossip_edges once a shard and
+        # offset, each communicating round (every round: a full base)
+        per_round = {k: len(mesh.devices) * v for k, v in _codec_launches(
+            cfg, modelspec.adapter_for(cfg)).items()}
+        per_round["gossip_edges"] = _base_edge_launches(cfg, mesh)
+        want = {k: SHARD_FEDHP_ROUNDS * per_round.get(k, 0)
+                for k in ops.LAUNCHES}
+        if dict(ops.LAUNCHES) != want:
+            raise AssertionError(f"{name}: launched {dict(ops.LAUNCHES)}, "
+                                 f"the path must launch {want}")
+        gaps = _hold_sharded(name, h_o, h_s, tol)
+        log("phase6", path=name, rounds=SHARD_FEDHP_ROUNDS,
+            host_fields_equal=True, acc_max_abs_diff=gaps["acc"],
+            loss_max_rel_diff=gaps["loss"],
+            consensus_max_rel_diff=gaps["consensus"],
+            param_max_abs_diff=gaps["params"], tol=SHARD_COMPRESSED_TOL,
+            launches={k: v for k, v in want.items() if v},
+            edges_instances=inst, edges_held=held, sharded_s=f"{secs:.3f}")
+
+    # (b) the W = 4,096 ring at full size, only sharded: once with every
+    # gossip_edges call held to its plain version, once unheld for the
+    # rounds/s and the peak memory
+    mesh = _shard_mesh(4)
+    cfg = SHARD_BIG_CFG
+    name = "dpsgd/ring/W=4096/shards=4"
+    plan = shardexec.WorkerShardPlan(mesh, cfg.num_workers)
+    per_round = _base_edge_launches(cfg, mesh)
+    runs = []
+    for hold in (True, False):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        h, wall, counts, held = sharded(lambda: run_algorithm(
+            "dpsgd", cfg, rounds=SHARD_BIG_ROUNDS, fused=True, mesh=mesh,
+            **SHARD_BIG_KW), hold=hold)
+        inst = _edges_launched(name, counts, plan.rows)
+        if counts["gossip_edges"] != SHARD_BIG_ROUNDS * per_round:
+            raise AssertionError(f"{name}: {counts['gossip_edges']} "
+                                 f"gossip_edges, not {SHARD_BIG_ROUNDS} x "
+                                 f"{per_round}")
+        _check_history(name, cfg, SHARD_BIG_ROUNDS, h)
+        runs.append((h.as_arrays()["accuracy"], held))
+        del h
+    acc, held = runs[0]
+    log("phase6", path=name, rounds=SHARD_BIG_ROUNDS,
+        rounds_per_s=f"{SHARD_BIG_ROUNDS / wall:.4f}",
+        seconds_per_round=f"{wall / SHARD_BIG_ROUNDS:.3f}",
+        seconds=f"{wall:.3f}",
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        block_bytes=plan.rows * PAPER_MLP_P * 4,
+        whole_bytes=cfg.num_workers * PAPER_MLP_P * 4,
+        final_accuracy=f"{acc[-1]:.6f}",
+        accuracy=[f"{a:.6f}" for a in acc],
+        timed_run_accuracy=[f"{a:.6f}" for a in runs[1][0]],
+        seen=SHARD_BIG_ACC_SEEN, edges_per_shard_round=per_round /
+        plan.n_shards, edges_instances=inst, edges_held=held)
+    if wall / SHARD_BIG_ROUNDS > SHARD_BIG_ROUND_S:
+        raise AssertionError(f"{name}: {wall / SHARD_BIG_ROUNDS:.1f} s a "
+                             f"round > {SHARD_BIG_ROUND_S}")
+    for a, _ in runs:
+        if a[-1] < SHARD_BIG_ACC or \
+                abs(a[-1] - SHARD_BIG_ACC_SEEN) > SHARD_PARITY_ACC:
+            raise AssertionError(
+                f"{name}: final accuracy {a[-1]} < {SHARD_BIG_ACC} or "
+                f"more than {SHARD_PARITY_ACC} from {SHARD_BIG_ACC_SEEN}")
+
+    # (c) the registry path as published, over 2 shards
+    mesh = _shard_mesh(2)
+    adapter = lm_adapter(LM_BF16_MODEL)
+    torch.cuda.empty_cache()
+    h_o, _ = _lm_run(adapter, data, "fedhp", SHARD_LM_ROUNDS,
+                     fused_engine=True, **LM_PARITY_FIELDS)
+    (h_s, _), secs, counts, held = sharded(lambda: _lm_run(
+        adapter, data, "fedhp", SHARD_LM_ROUNDS, fused_engine=True,
+        mesh=mesh, **LM_PARITY_FIELDS))
+    name = "fedhp/smollm-360m-4l/bf16/remat=block/erdos:0.5/shards=2"
+    inst = _edges_launched(name, counts, LM_CFG.num_workers // 2)
+    if counts["flash_attention:bf16"] != counts["flash_attention"] or \
+            not counts["flash_attention"]:
+        raise AssertionError(f"{name}: flash launches {counts}")
+    gaps = _hold_sharded(name, h_o, h_s, {
+        "accuracy": (ACC_ATOL, 0.0), "loss": (0.0, BF16_LOSS_RTOL),
+        "consensus": (CONSENSUS_ATOL, BF16_CONSENSUS_RTOL)})
+    log("phase6", path=name, rounds=SHARD_LM_ROUNDS, P=adapter.param_count,
+        host_fields_equal=True, acc_max_abs_diff=gaps["acc"],
+        loss_max_rel_diff=gaps["loss"],
+        consensus_max_rel_diff=gaps["consensus"],
+        param_max_abs_diff=gaps["params"],
+        bounds=dict(loss=BF16_LOSS_RTOL, consensus=BF16_CONSENSUS_RTOL),
+        launches={k: v for k, v in counts.items() if v},
+        edges_instances=inst, edges_held=held, sharded_s=f"{secs:.3f}",
+        seconds_per_round=f"{secs / SHARD_LM_ROUNDS:.3f}")
+    return total
+
+
 def trace_lm_rounds(adapter, data) -> None:
     """One traced round of each registry-path algorithm: the device's
     busy time (the sum of its kernels' times; one stream, so they do not
@@ -2369,6 +2703,12 @@ def main() -> int:
         log("serve", card=repr(card), build_s=f"{build_s:.3f}")
         run_serving()
         return 0
+    if sys.argv[1:] == ["--sharded"]:
+        log("sharded", card=repr(card), build_s=f"{build_s:.3f}")
+        t0 = time.perf_counter()
+        run_sharded(_lm_data()[0])
+        log("timing", phase6_s=f"{time.perf_counter() - t0:.3f}")
+        return 0
     ptxas = [ln.strip() for ln in nvcc_log.splitlines()
              if "registers" in ln or "spill" in ln]
     log("phase1", card=repr(card), torch=torch.__version__,
@@ -2420,6 +2760,9 @@ def main() -> int:
     marks.append(("phase4_registry_bf16", time.perf_counter()))
     check_family_engines_agree(data)
     marks.append(("phase4_families", time.perf_counter()))
+    for k, v in run_sharded(data).items():
+        launches[k] += v
+    marks.append(("phase6_sharded", time.perf_counter()))
     del adapter, data
     torch.cuda.empty_cache()
     for k, v in run_serving().items():

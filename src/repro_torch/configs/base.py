@@ -131,13 +131,14 @@ class FedHPConfig:
     # trajectories agree to summation-order float drift (<= 1e-5).
     gossip: str = "dense"     # "dense" | "sparse"
     # sharded execution (runtime/shardexec.py): split the flat [W, P]
-    # worker matrix row-wise over the worker axis of a device mesh
-    # (launch/mesh.make_worker_mesh by default, or run_dfl(mesh=...)).
-    # Local SGD and the join blend run per-slice under shard_map; gossip
-    # always takes the edge-list form, routed cross-shard by one
-    # lax.ppermute per distinct shard offset. Host control plane (and so
-    # every host-side record field) is identical to the single-device
-    # path; device trajectories agree to summation-order float drift.
+    # worker matrix row-wise over the shards of a worker mesh
+    # (shardexec.default_worker_mesh, or run_dfl(mesh=...) with a
+    # launch/mesh.make_worker_mesh mesh). Local SGD and the join blend run
+    # per block; gossip always takes the edge-list form, routed
+    # cross-shard by shard offset through the gossip_edges kernel. Host
+    # control plane (and so every host-side record field) is identical to
+    # the single-device path; device trajectories agree to
+    # summation-order float drift.
     # Excludes: pens, cfg.byzantine/robust, leafmap codecs, AD-PSGD.
     sharded: bool = False
     # error feedback: carry the per-worker compression residual into the

@@ -475,6 +475,29 @@ def edge_mix_delta(v: torch.Tensor, edges) -> torch.Tensor:
     return robust.segment_mix_delta(v, v, edges)
 
 
+def compressed_payload(flat, err, *, error_feedback: bool = True,
+                       kind: str = "int8", k: int = 0, scores=None):
+    """The first half of the compensated update, row-local: (x [W, P],
+    state) -> (payload, state'), what each worker ships and carries —
+    int8 / rand-k / naive top-k the round trip ŷ (``compress_decompress``),
+    top-k with error feedback its tracked public copy x̂' = x̂ +
+    topk(x - x̂), which is also its new state."""
+    if kind == "topk" and error_feedback:
+        xhat = err + sparsify_rows(flat - err, "topk", k)
+        return xhat, xhat
+    return compress_decompress(flat, err, error_feedback=error_feedback,
+                               kind=kind, k=k, scores=scores)
+
+
+def compressed_update(flat, delta, *, kind: str = "int8",
+                      error_feedback: bool = True, gamma: float = 1.0):
+    """The second half: x' = x + delta, the payload's mixing delta
+    ``W v - v``, damped by ``gamma`` for top-k with error feedback."""
+    if kind == "topk" and error_feedback:
+        return flat + gamma * delta
+    return flat + delta
+
+
 def compressed_gossip_ref(flat, err, mix, *, error_feedback: bool = True,
                           kind: str = "int8", k: int = 0, scores=None,
                           gamma: float = 1.0, edges=None, mix_delta_fn=None):
@@ -491,7 +514,10 @@ def compressed_gossip_ref(flat, err, mix, *, error_feedback: bool = True,
     round's rand-k mask draw on the device. ``edges`` (a CSR edge list;
     pass ``mix=None``) takes the mixing delta from the edges
     (``edge_mix_delta``); ``mix_delta_fn`` replaces it outright (the
-    fused engine's ``gossip_edges(v) - v``)."""
+    fused engine's ``gossip_edges(v) - v``). The payload and the update
+    are ``compressed_payload`` and ``compressed_update``, which the
+    sharded path runs with every shard's payload before any routed
+    delta."""
     def mix_delta(v):
         if mix_delta_fn is not None:
             return mix_delta_fn(v)
@@ -499,13 +525,12 @@ def compressed_gossip_ref(flat, err, mix, *, error_feedback: bool = True,
             return edge_mix_delta(v, edges)
         return torch.matmul(mix, v) - v
 
-    if kind == "topk" and error_feedback:
-        xhat = err + sparsify_rows(flat - err, "topk", k)
-        return flat + gamma * mix_delta(xhat), xhat
-    yhat, new_err = compress_decompress(flat, err,
-                                        error_feedback=error_feedback,
-                                        kind=kind, k=k, scores=scores)
-    return flat + mix_delta(yhat), new_err
+    payload, new_err = compressed_payload(flat, err,
+                                          error_feedback=error_feedback,
+                                          kind=kind, k=k, scores=scores)
+    return compressed_update(flat, mix_delta(payload), kind=kind,
+                             error_feedback=error_feedback,
+                             gamma=gamma), new_err
 
 
 def compressed_pair_ref(xi, xj, ei, ej, *, error_feedback: bool = True,

@@ -45,6 +45,7 @@ from repro_torch.core import robust
 from repro_torch.core import topology as topo
 from repro_torch.core.algorithms import Strategy
 from repro_torch.data.synthetic import Dataset
+from repro_torch.runtime import collectives
 from repro_torch.simulation.cluster import SimCluster
 
 
@@ -126,12 +127,12 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def check_ported(cfg: FedHPConfig, *, mesh=None, seeds=None) -> None:
-    """Raise ``NotImplementedError`` for a feature the port does not run
-    yet, naming the ROADMAP.md item (queue 1) that brings it — after the
-    ``ValueError``s the reference raises on the sharded path for what does
-    not compose with it: the Byzantine scenario axis and, in the fused
-    engines, a batched ``seeds`` axis."""
+def check_ported(cfg: FedHPConfig, *, mesh=None, seeds=None,
+                 asynchronous: bool = False) -> None:
+    """Raise the ``ValueError``s the reference raises on the sharded path
+    (``mesh=`` or ``cfg.sharded``) for what does not compose with it: the
+    Byzantine scenario axis, a batched ``seeds`` axis in the fused
+    engines, and AD-PSGD (``asynchronous``)."""
     sharded = cfg.sharded or mesh is not None
     if sharded and (cfg.byzantine or cfg.robust != "none"):
         raise ValueError(
@@ -142,10 +143,40 @@ def check_ported(cfg: FedHPConfig, *, mesh=None, seeds=None) -> None:
             "the sharded fused scan runs one lane (S=1); a batched "
             "seeds axis would stack S copies of the sharded fleet — "
             "run seeds sequentially or drop the mesh")
-    if sharded:
-        raise NotImplementedError(
-            "not ported to repro_torch yet (ROADMAP.md queue 1): sharded "
-            "execution / mesh= (item 3)")
+    if sharded and asynchronous:
+        raise ValueError("the sharded path covers the synchronous "
+                         "engines only (AD-PSGD's event loop scatters "
+                         "single rows — shard-hostile by design)")
+
+
+def shard_plan(cfg: FedHPConfig, mesh, device):
+    """The run's ``runtime/shardexec.WorkerShardPlan`` — over ``mesh``,
+    or ``default_worker_mesh(device)`` under ``cfg.sharded`` — with every
+    shard's device resolved; None for an unsharded run."""
+    if mesh is None and not cfg.sharded:
+        return None
+    from repro_torch.runtime import shardexec
+    plan = shardexec.WorkerShardPlan(
+        mesh if mesh is not None else shardexec.default_worker_mesh(device),
+        cfg.num_workers)
+    for dev in set(plan.devices):
+        resolve_device(dev)
+    return plan
+
+
+def sharded_start(plan, adapter, seed: int, init_params, codec0,
+                  error_feedback: bool, stacks):
+    """A sharded run's start: the initial [W, P] matrix (built on the
+    host) as one block of rows a shard (``plan.put_stacked``), the codec
+    state a block (None for a codec that carries none), and each tuple of
+    tensors in ``stacks`` (the eval stacks, the holdout set) on every
+    shard's device -> (blocks, states, [per-shard tuples per stack])."""
+    blocks = plan.put_stacked(initial_params(
+        adapter, plan.num_workers, seed, init_params, "cpu"))
+    err = [compression.codec_state_init(b, codec0, error_feedback)
+           for b in blocks]
+    return (blocks, None if err[0] is None else err,
+            [list(zip(*(plan.replicate(t) for t in ts))) for ts in stacks])
 
 
 # ---------------------------------------------------------------------------
@@ -210,14 +241,19 @@ def _gossip(flat, mix):
     return torch.matmul(mix, flat)
 
 
-def round_edges(adj: np.ndarray, mixing: str):
-    """The round's directed edge list in CSR form (``topology.
-    edges_to_csr``) with the per-edge mixing weights, bit-identical to
-    the dense matrix's off-diagonals: (row_ptr, col, w) as numpy."""
+def round_edge_list(adj: np.ndarray, mixing: str):
+    """The round's directed edge list (src, dst, w) as numpy, the
+    per-edge mixing weights bit-identical to the dense matrix's
+    off-diagonals."""
     e = topo.edges_from_adj(adj)
-    src, dst, w = topo.directed_edges(
+    return topo.directed_edges(
         e, topo.edge_mixing_weights(e, adj.shape[0], mixing))
-    return topo.edges_to_csr(src, dst, w, adj.shape[0])
+
+
+def round_edges(adj: np.ndarray, mixing: str):
+    """``round_edge_list`` in CSR form (``topology.edges_to_csr``):
+    (row_ptr, col, w) as numpy."""
+    return topo.edges_to_csr(*round_edge_list(adj, mixing), adj.shape[0])
 
 
 def _on(arrays, device):
@@ -352,9 +388,14 @@ def _mean_accuracy(adapter, flat, tx, ty,
                    alive: np.ndarray | None = None) -> tuple[float, float]:
     """Fleet-average test accuracy/loss over the alive workers (departed
     workers' frozen models are not part of the deployment)."""
-    accs, losses = _fleet_metrics(adapter, flat, tx, ty)
+    return _alive_means(*_fleet_metrics(adapter, flat, tx, ty), alive)
+
+
+def _alive_means(accs, losses,
+                 alive: np.ndarray | None = None) -> tuple[float, float]:
+    """The alive workers' mean of per-worker accuracies and losses [W]."""
     if alive is not None and not alive.all() and alive.any():
-        w = torch.as_tensor(alive, dtype=torch.float32, device=flat.device)
+        w = torch.as_tensor(alive, dtype=torch.float32, device=accs.device)
         w = w / w.sum()
         return float(torch.dot(w, accs)), float(torch.dot(w, losses))
     return float(accs.mean()), float(losses.mean())
@@ -488,16 +529,26 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
     ``init_params`` starts from a worker-stacked dict ``{name: [W, ...]}``
     (e.g. the reference's init through ``convert.params_from_jax``)
     instead of broadcasting ``adapter.init``. ``device``: ``None`` means
-    the GPU (raises without one); ``"cpu"`` runs on the CPU."""
-    device = resolve_device(device)
+    the GPU (raises without one); ``"cpu"`` runs on the CPU.
+
+    ``mesh`` (a ``launch/mesh.WorkerMesh``) or ``cfg.sharded`` runs the
+    sharded path (``runtime/shardexec``): the [W, P] matrix splits into
+    one block of rows a shard on the shard's device, local SGD and the
+    join blend run per block, and gossip always takes the edge-list form
+    routed by shard offset (the per-edge weights are bit-identical to the
+    dense off-diagonals). The host control plane is untouched: host
+    record fields match the unsharded run exactly; the measurements run
+    per block and the metrics on the rows gathered onto the first
+    shard's device, where ``final_params`` also come back."""
     check_ported(cfg, mesh=mesh)
+    shard = shard_plan(cfg, mesh, device)
+    device = resolve_device(device) if shard is None else shard.first
     scen = robust.scenario(cfg, asynchronous=False)
     rounds = rounds or cfg.rounds
     n = cfg.num_workers
     rng = np.random.default_rng(cfg.seed)
     if adapter is None:
         adapter = modelspec.adapter_for(cfg, data, hidden=hidden)
-    flat = initial_params(adapter, n, cfg.seed, init_params, device)
     tx, ty = holdout_set(test_x, test_y, eval_subset, device)
     ex, ey, px, py = eval_batches(rng, data, shards, device)
     mixfn = mixing_fn(mixing)
@@ -511,9 +562,23 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
     codec0 = run_codec(cfg, adapter)
     leafmap = codec0.kind == "leafmap"
     compress = codec0.kind != "none"
+    if shard is not None:
+        if leafmap:
+            raise ValueError(
+                "the sharded path does not support leafmap codecs yet "
+                "(per-leaf payloads need per-segment routing)")
+        if needs_cross:
+            raise ValueError(
+                "pens needs the [W, W] cross-loss matrix every round; "
+                "run it on the single-device path")
+        flat, err, (evals, holds) = sharded_start(
+            shard, adapter, cfg.seed, init_params, codec0,
+            cfg.error_feedback, ((ex, ey, px, py), (tx, ty)))
+    else:
+        flat = initial_params(adapter, n, cfg.seed, init_params, device)
+        err = compression.codec_state_init(flat, codec0, cfg.error_feedback)
     p_model = adapter.param_count
     skey = compression.sparsify_base_key(cfg.seed)
-    err = compression.codec_state_init(flat, codec0, cfg.error_feedback)
     sparse = cfg.gossip == "sparse"
     byz = torch.as_tensor(scen.byz, device=device)
 
@@ -524,7 +589,16 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
         joined = cluster.last_joined
         if joined.any():
             donors = alive & ~joined
-            if donors.any():
+            if donors.any() and shard is not None:
+                flat = [adapter.round_leaves(b) for b in
+                        shard.reinit_joined(flat, joined, donors)]
+                if err is not None:
+                    err = [compression.codec_state_after_join(
+                               e, k[:, None], b, codec0, cfg.error_feedback)
+                           for e, k, b in zip(
+                               err, shard.put_host(joined, fill=False),
+                               flat)]
+            elif donors.any():
                 keep = torch.as_tensor(joined, device=device)
                 flat = adapter.round_leaves(_reinit_joined(
                     flat, keep, torch.as_tensor(donors, device=device)))
@@ -547,11 +621,16 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
                                shards.shards_at(h) if drifting else shards,
                                tau_cap, cfg.batch_size)
         prev = flat
-        flat = _local_train(
-            adapter, flat, torch.as_tensor(bx, device=device),
-            torch.as_tensor(by, device=device).long(),
-            torch.as_tensor(taus, device=device),
-            torch.tensor(lr, dtype=torch.float32, device=device), tau_cap)
+        if shard is not None:
+            flat = shard.local_train(adapter, flat, bx, by, taus, lr,
+                                     tau_cap)
+        else:
+            flat = _local_train(
+                adapter, flat, torch.as_tensor(bx, device=device),
+                torch.as_tensor(by, device=device).long(),
+                torch.as_tensor(taus, device=device),
+                torch.tensor(lr, dtype=torch.float32, device=device),
+                tau_cap)
 
         # --- clock (Eq. 10-11) ---
         t_round, waiting = round_clock(adj, taus, mu, beta, plan, alive,
@@ -559,9 +638,24 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
                                        cfg.crash_timeout, comm_ratio)
         clock += t_round
 
-        # --- gossip aggregation (Eq. 5-6): the Byzantine scenario axis,
-        # or dense / over the round's edge list, optionally compressed ---
-        if adj.sum() > 0 and scen.active:
+        # --- gossip aggregation (Eq. 5-6): sharded over the round's edge
+        # list routed by shard offset, the Byzantine scenario axis, or
+        # dense / over the round's edge list, optionally compressed ---
+        if adj.sum() > 0 and shard is not None:
+            (routed,) = shard.route([round_edge_list(adj, mixing)])
+            if compress:
+                scores = codec_scores(rcodec, skey, h, p_model)
+                flat, states = collectives.routed_compressed_gossip(
+                    flat, err or [None] * len(flat), routed,
+                    scores=[None] * len(flat) if scores is None else
+                    shard.replicate(torch.from_numpy(scores)),
+                    gamma=cfg.sparse_gamma, kind=rcodec.kind,
+                    k=rcodec.resolve_k(p_model),
+                    error_feedback=cfg.error_feedback)
+                err = None if err is None else states
+            else:
+                flat = collectives.routed_gossip(flat, routed)
+        elif adj.sum() > 0 and scen.active:
             flat = _gossip_scenario(flat, adj, scen, byz, sparse=sparse,
                                     mixing=mixing)
         elif adj.sum() > 0 and sparse:
@@ -597,30 +691,46 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
                     gamma=cfg.sparse_gamma)
             else:
                 flat = _gossip(flat, mix)
-        # the mixed rows back in the leaves' dtypes (a no-op in f32)
-        flat = adapter.round_leaves(flat)
 
         # --- measurements (Alg. 1 lines 4-5, 9-10), over the honest
         # alive workers (byzantine rows are adversaries, not clients) ---
         meas = scen.honest(alive)
-        losses, ls, sigs, upds = (
-            v.cpu().numpy() for v in _measure(adapter, flat, prev, ex, ey,
-                                              px, py))
+        if shard is not None:
+            # the mixed rows back in the leaves' dtypes (a no-op in f32);
+            # the measurements per block, the padding rows sliced off
+            flat = [adapter.round_leaves(b) for b in flat]
+            parts = [_measure(adapter, b, q, *ev)
+                     for b, q, ev in zip(flat, prev, evals)]
+            losses, ls, sigs, upds = (
+                shard.gather([p[i] for p in parts])[:n].cpu().numpy()
+                for i in range(4))
+            fleet = [_fleet_metrics(adapter, b, *hd)
+                     for b, hd in zip(flat, holds)]
+            mean_acc, mean_loss = _alive_means(
+                *(shard.gather([f[i] for f in fleet])[:n] for i in range(2)),
+                meas)
+            rows = shard.unpad(flat)
+        else:
+            flat = adapter.round_leaves(flat)
+            losses, ls, sigs, upds = (
+                v.cpu().numpy() for v in _measure(adapter, flat, prev, ex,
+                                                  ey, px, py))
+            mean_acc, mean_loss = _mean_accuracy(adapter, flat, tx, ty, meas)
+            rows = flat
         cross = None
         if needs_cross:
             cross = _cross_loss_matrix(adapter, flat, ex[:, :64],
                                        ey[:, :64]).cpu().numpy()
         strategy.observe(
             h, adj=adj, mu=mu, beta=beta,
-            edge_dist=edge_distances(flat).cpu().numpy(),
+            edge_dist=edge_distances(rows).cpu().numpy(),
             update_norms=upds[meas] if meas.any() else [0.0],
             smooth_l=float(np.median(ls[meas])),
             sigma=float(np.median(sigs[meas])),
             loss=float(np.mean(losses[meas])),
             cross_loss=cross, alive=alive, wire_ratio=comm_ratio)
 
-        mean_acc, mean_loss = _mean_accuracy(adapter, flat, tx, ty, meas)
-        d_bar = consensus_record(flat, meas)
+        d_bar = consensus_record(rows, meas)
         hist.records.append(RoundRecord(
             round=h, round_time=t_round, waiting_time=waiting,
             accuracy=mean_acc, loss=mean_loss,
@@ -629,7 +739,8 @@ def run_dfl(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
             cumulative_time=clock))
         if time_budget is not None and clock >= time_budget:
             break
-    hist.final_params = adapter.unflatten(flat)
+    hist.final_params = adapter.unflatten(
+        flat if shard is None else shard.unpad(flat))
     return hist
 
 
@@ -973,7 +1084,7 @@ def run_adpsgd(data: Dataset, test_x, test_y, shards, cluster: SimCluster,
     snapshots and the codec state are [W, P] tensors updated in place,
     row by row (the reference scatters into fresh arrays)."""
     device = resolve_device(device)
-    check_ported(cfg)
+    check_ported(cfg, asynchronous=True)
     rounds = rounds or cfg.rounds
     n = cfg.num_workers
     if adapter is None:

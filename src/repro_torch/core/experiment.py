@@ -84,11 +84,21 @@ def run_algorithm(algorithm: str, cfg: FedHPConfig, *,
     (fused only) batches S experiments as lanes of one run and returns
     ``list[History]``, one per lane (``fused.run_dfl_fused``).
     ``device``: ``None`` means the GPU and raises without one; ``"cpu"``
-    runs on the CPU."""
+    runs on the CPU.
+
+    ``mesh`` (a ``launch/mesh.WorkerMesh``; it sets ``cfg.sharded``) or
+    ``cfg.sharded`` runs the synchronous engines on the sharded path
+    (``runtime/shardexec``): the [W, P] matrix splits over the mesh's
+    shards, cross-shard gossip is routed by shard offset. Not available
+    for AD-PSGD. The test split lands on ``device``, which for a mesh is
+    its first shard's (``device="cpu"`` with a CPU mesh)."""
     if seeds is not None and not fused:
         raise ValueError("seeds batching requires fused=True")
     cfg = replace(cfg, algorithm=algorithm)
-    engine.check_ported(cfg, mesh=mesh, seeds=seeds)
+    if mesh is not None:
+        cfg = replace(cfg, sharded=True)
+    engine.check_ported(cfg, mesh=mesh, seeds=seeds,
+                        asynchronous=algorithm == "adpsgd")
     train, tx, ty, shards, cluster = setup_experiment(
         cfg, non_iid_p=non_iid_p, fail_at=fail_at, spread=spread,
         churn=churn, rounds=rounds, num_samples=num_samples, device=device)
@@ -101,5 +111,5 @@ def run_algorithm(algorithm: str, cfg: FedHPConfig, *,
     strategy = make_strategy(cfg, base)
     run = run_dfl_fused if fused else engine.run_dfl
     return run(train, tx, ty, shards, cluster, cfg, strategy, rounds=rounds,
-               mixing=mixing, time_budget=time_budget, device=device,
-               **lanes)
+               mixing=mixing, time_budget=time_budget, mesh=mesh,
+               device=device, **lanes)

@@ -65,8 +65,12 @@ segment's end (the reference lowers the same loop to one
   sum in the same order), and ``gossip_mix`` its lane-strided form: one
   launch per round (per event) for all lanes.
 
-CUDA graphs and the sharded twin are not ported yet (ROADMAP.md queue
-1).
+- ``mesh=`` (or ``cfg.sharded``): the sharded twin,
+  ``_scan_segment_sharded``, the [W, P] matrix split over a worker mesh's
+  shards (``runtime/shardexec``), gossip over the round's edge list
+  routed by shard offset through ``gossip_edges``.
+
+CUDA graphs are not ported yet (ROADMAP.md queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -93,9 +97,11 @@ from repro_torch.core.engine import (AdpsgdSchedule, History, RoundRecord,
                                      initial_params, mixing_fn,
                                      resolve_device, round_batches,
                                      round_clock, round_codec, round_edges,
-                                     round_topology, run_codec)
+                                     round_topology, run_codec, shard_plan,
+                                     sharded_start)
 from repro_torch.data.synthetic import Dataset
 from repro_torch.kernels import ops
+from repro_torch.runtime import collectives
 from repro_torch.simulation.cluster import SimCluster
 
 # static-plan strategies would otherwise stage the whole horizon's batch
@@ -180,7 +186,7 @@ def _precompute_segment(h0: int, seg_len: int, cluster: SimCluster,
                         shards, mixing: str, clock: float,
                         time_budget: float | None, adaptive: bool,
                         codec0, p_model: int, skey,
-                        scen: robust.Scenario):
+                        scen: robust.Scenario, sparse: bool):
     """Advance cluster/strategy/batch RNG streams for rounds h0..h0+K-1 in
     the exact order ``run_dfl`` would, and pack the device inputs.
 
@@ -194,8 +200,9 @@ def _precompute_segment(h0: int, seg_len: int, cluster: SimCluster,
     comm term as in the reference engine; rand-k rounds (and a leafmap's
     rand-k segments) draw their masks here, from ``skey``, on the host.
 
-    Under ``cfg.gossip="sparse"`` each round's topology ships as a CSR
-    edge list (``engine.round_edges``, stably sorted by destination) and
+    Under ``sparse`` (``cfg.gossip="sparse"``, and always on the sharded
+    path) each round's topology ships as a CSR edge list
+    (``engine.round_edges``, stably sorted by destination) and
     no [W, W] matrix is built; a robust mode ships each round's padded
     neighbour table (``robust.neighbor_table``), padded to one D per
     segment rounded up to a power of two (one kernel instance). Both are
@@ -204,7 +211,6 @@ def _precompute_segment(h0: int, seg_len: int, cluster: SimCluster,
     n = cfg.num_workers
     lanes = len(rngs)
     compress = codec0.kind != "none"
-    sparse = cfg.gossip == "sparse"
     robust_mode = scen.mode in ("trimmed", "median")
     drifting = hasattr(shards, "shards_at")
     per: list[dict] = []
@@ -512,6 +518,100 @@ def _scan_segment(adapter, flat, err, seg: _Segment, ex, ey, px, py, tx, ty,
 
 
 # ---------------------------------------------------------------------------
+# device code: the sharded twin — the segment's rounds on a worker mesh
+# ---------------------------------------------------------------------------
+
+def _sharded_edge_tables(seg: _Segment, plan) -> list:
+    """Each round's CSR edge list (``seg.edges``) routed over the plan's
+    shards by shard offset (``runtime/collectives.route_edges``): one
+    ``RoutedEdges`` a round, the segment's tables uploaded at once."""
+    n = plan.num_workers
+    row_ptr, col, w = seg.edges
+    lists = []
+    for t in range(len(seg)):
+        e = int(row_ptr[t, n])
+        lists.append((col[t, :e], np.repeat(np.arange(n), np.diff(
+            row_ptr[t])), w[t, :e]))
+    return plan.route(lists)
+
+
+def _scan_segment_sharded(adapter, blocks, errs, seg: _Segment, plan,
+                          evals, holds, *, measure: bool, k: int, ef: bool,
+                          gamma: float):
+    """``_scan_segment`` with the [W, P] matrix split over ``plan``'s
+    shards (``runtime/shardexec``), one lane, no host sync: per round and
+    shard the join blend (its fleet mean the sum of per-shard partial
+    products), the local steps, the codec on the shard's own rows and the
+    routed gossip delta (``gossip_edges`` once per offset that carries
+    edges into the shard), and the fleet metrics as sums of per-shard
+    partials on the first shard's device. ``blocks``/``errs`` hold one
+    [rows, P] block a shard (``errs`` None for a stateless codec);
+    ``evals``/``holds`` the eval stacks and holdout set on each shard's
+    device. Measure mode gathers the rows once per round for the [W, W]
+    edge distances. Returns (blocks', errs', outs) as ``_scan_segment``
+    with one lane, the padding rows sliced off."""
+    n = plan.num_workers
+    routes = _sharded_edge_tables(seg, plan)
+    bx = plan.put_host(seg.bx[:, 0], axis=1)
+    by = plan.put_host(seg.by[:, 0], axis=1)
+    taus, ew, cw, keep, rw = (plan.put_host(a, axis=1) for a in (
+        seg.taus, seg.ew, seg.cw, seg.keep, seg.rw))
+    lrs = plan.replicate(torch.from_numpy(seg.lrs))
+    gates = (plan.replicate(torch.from_numpy(seg.gates))
+             if seg.gates is not None else None)
+    codec = seg.codec
+    outs: dict[str, list] = {}
+
+    def emit(**kw):
+        for key, v in kw.items():
+            outs.setdefault(key, []).append(v)
+
+    for t in range(len(seg)):
+        if seg.keep[t].any():
+            blocks = [adapter.round_leaves(b) for b in plan.blend(
+                blocks, [kp[t] for kp in keep], [r[t] for r in rw])]
+            if errs is not None:
+                errs = [compression.codec_state_after_join(
+                            e, kp[t][:, None], b, codec, ef)
+                        for e, kp, b in zip(errs, keep, blocks)]
+        prev = blocks
+        blocks = [_local_train(adapter, b, bx[s][t], by[s][t], taus[s][t],
+                               lrs[s][t], seg.tau_cap)
+                  for s, b in enumerate(blocks)]
+        if seg.comm[t]:
+            if codec.kind != "none":
+                blocks, states = collectives.routed_compressed_gossip(
+                    blocks, errs or [None] * len(blocks), routes[t],
+                    scores=[None] * len(blocks) if gates is None
+                    else [g[t] for g in gates],
+                    gamma=gamma, kind=codec.kind, k=k, error_feedback=ef)
+                errs = None if errs is None else states
+            else:
+                blocks = collectives.routed_gossip(blocks, routes[t])
+            blocks = [adapter.round_leaves(b) for b in blocks]
+
+        fleet = [_fleet_metrics(adapter, b, *hd)
+                 for b, hd in zip(blocks, holds)]
+        dmean = plan.replicate(plan.psum([c[t] @ b
+                                          for c, b in zip(cw, blocks)]))
+        dists = [torch.sqrt(torch.sum((b - m[None]) ** 2, dim=1))
+                 for b, m in zip(blocks, dmean)]
+        emit(acc=plan.psum([e[t] @ f[0] for e, f in zip(ew, fleet)])[None],
+             loss=plan.psum([e[t] @ f[1] for e, f in zip(ew, fleet)])[None],
+             consensus=plan.psum([c[t] @ d
+                                  for c, d in zip(cw, dists)])[None])
+        if measure:
+            parts = [_measure(adapter, b, q, *ev)
+                     for b, q, ev in zip(blocks, prev, evals)]
+            losses, ls, sigs, upds = (plan.gather([p[i] for p in parts])[:n]
+                                      for i in range(4))
+            emit(losses=losses, ls=ls, sigs=sigs, upds=upds,
+                 edge=edge_distances(plan.unpad(blocks)))
+    return blocks, errs, {key: torch.stack(v).cpu().numpy()
+                          for key, v in outs.items()}
+
+
+# ---------------------------------------------------------------------------
 # driver
 # ---------------------------------------------------------------------------
 
@@ -545,9 +645,21 @@ def run_dfl_fused(data: Dataset, test_x, test_y, shards,
     strategies only when S > 1: an adaptive plan is feedback from one
     lane's trajectory. ``device``: ``None`` means the GPU (raises without
     one); ``"cpu"`` runs the same loop with the kernels' plain
-    versions."""
-    device = resolve_device(device)
+    versions.
+
+    ``mesh`` (a ``launch/mesh.WorkerMesh``) or ``cfg.sharded`` runs the
+    segments through ``_scan_segment_sharded``: the [W, P] matrix splits
+    over the mesh's shards, gossip takes the edge-list form routed by
+    shard offset, and the host control plane is the unsharded run's. One
+    lane only (no batched ``seeds``); PENS and per-leaf codec maps are
+    excluded, as ``engine.run_dfl``'s sharded path excludes them."""
     check_ported(cfg, mesh=mesh, seeds=seeds)
+    plan = shard_plan(cfg, mesh, device)
+    device = resolve_device(device) if plan is None else plan.first
+    if plan is not None and strategy.name == "pens":
+        raise ValueError(
+            "pens needs the [W, W] cross-loss matrix every round; "
+            "the sharded path excludes it (engine.run_dfl contract)")
     scen = robust.scenario(cfg, asynchronous=False)
     rounds = rounds or cfg.rounds
     n = cfg.num_workers
@@ -565,8 +677,6 @@ def run_dfl_fused(data: Dataset, test_x, test_y, shards,
     # eval batches (only lane 0's are read: the measurements run on one
     # lane)
     rngs = [np.random.default_rng(s) for s in seed_list]
-    flat = torch.stack([initial_params(adapter, n, s, init_params, device)
-                        for s in seed_list])
     ex, ey, px, py = [eval_batches(rng, data, shards, device)
                       for rng in rngs][0]
     tx, ty = holdout_set(test_x, test_y, eval_subset, device)
@@ -577,7 +687,19 @@ def run_dfl_fused(data: Dataset, test_x, test_y, shards,
     codec0 = run_codec(cfg, adapter)
     p_model = adapter.param_count
     skey = compression.sparsify_base_key(cfg.seed)
-    err = compression.codec_state_init(flat, codec0, cfg.error_feedback)
+    if plan is not None:
+        if codec0.kind == "leafmap":
+            raise ValueError(
+                "per-leaf codec maps are single-device only: their shared "
+                "payload spans leaf segments, which would need per-segment "
+                "routing tables on the sharded path")
+        flat, err, (evals, holds) = sharded_start(
+            plan, adapter, seed_list[0], init_params, codec0,
+            cfg.error_feedback, ((ex, ey, px, py), (tx, ty)))
+    else:
+        flat = torch.stack([initial_params(adapter, n, s, init_params,
+                                           device) for s in seed_list])
+        err = compression.codec_state_init(flat, codec0, cfg.error_feedback)
 
     hists = [History() for _ in seed_list]
     clock = 0.0
@@ -588,12 +710,19 @@ def run_dfl_fused(data: Dataset, test_x, test_y, shards,
                    else min(rounds - h, MAX_FUSE_ROUNDS))
         seg, clock, stop = _precompute_segment(
             h, seg_len, cluster, strategy, cfg, rngs, data, shards, mixing,
-            clock, time_budget, adaptive, codec0, p_model, skey, scen)
-        flat, err, outs = _scan_segment(
-            adapter, flat, err, seg, ex, ey, px, py, tx, ty,
-            measure=adaptive, needs_cross=needs_cross,
-            k=seg.codec.resolve_k(p_model), ef=cfg.error_feedback,
-            gamma=cfg.sparse_gamma, scen=scen)
+            clock, time_budget, adaptive, codec0, p_model, skey, scen,
+            sparse=cfg.gossip == "sparse" or plan is not None)
+        if plan is not None:
+            flat, err, outs = _scan_segment_sharded(
+                adapter, flat, err, seg, plan, evals, holds,
+                measure=adaptive, k=seg.codec.resolve_k(p_model),
+                ef=cfg.error_feedback, gamma=cfg.sparse_gamma)
+        else:
+            flat, err, outs = _scan_segment(
+                adapter, flat, err, seg, ex, ey, px, py, tx, ty,
+                measure=adaptive, needs_cross=needs_cross,
+                k=seg.codec.resolve_k(p_model), ef=cfg.error_feedback,
+                gamma=cfg.sparse_gamma, scen=scen)
         for t in range(len(seg)):
             for s, hist in enumerate(hists):
                 hist.records.append(RoundRecord(
@@ -618,6 +747,8 @@ def run_dfl_fused(data: Dataset, test_x, test_y, shards,
                     if needs_cross else None,
                     alive=seg.alive[t], wire_ratio=seg.wire_ratio[t])
         h += len(seg)
+    if plan is not None:
+        flat = plan.unpad(flat)[None]
     for s, hist in enumerate(hists):
         hist.final_params = adapter.unflatten(flat[s])
     return hists if seeds is not None else hists[0]
@@ -715,7 +846,7 @@ def run_adpsgd_fused(data: Dataset, test_x, test_y, shards,
     ``None`` means the GPU (raises without one); ``"cpu"`` runs the same
     loop with the kernels' plain versions."""
     device = resolve_device(device)
-    check_ported(cfg, seeds=seeds)
+    check_ported(cfg, seeds=seeds, asynchronous=True)
     rounds = rounds or cfg.rounds
     n = cfg.num_workers
     seed_list = seed_lanes(cfg, seeds, init_params)

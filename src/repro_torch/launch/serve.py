@@ -10,8 +10,9 @@ At smoke scale on the CPU::
 
 Without ``--device`` it runs on the card, where ``registry.init_params``
 builds a published config there (random weights from ``--seed``). The
-reference's ``--production`` and ``--multi-pod`` meshes wait for sharded
-execution (ROADMAP.md queue 1, item 3): given, they raise.
+reference's ``--production`` and ``--multi-pod`` meshes (launch/train's
+``(data, model)`` mesh) wait for ROADMAP.md queue 1, item 4: given, they
+raise.
 """
 from __future__ import annotations
 
@@ -91,7 +92,7 @@ def main(argv=None) -> int:
     ap.add_argument("--gen", type=int, default=8)
     ap.add_argument("--production", action="store_true",
                     help="the reference's production mesh: not ported "
-                    "(sharded execution, ROADMAP.md queue 1, item 3); "
+                    "(the (data, model) mesh, ROADMAP.md queue 1, item 4); "
                     "raises")
     ap.add_argument("--multi-pod", action="store_true",
                     help="with --production, the multi-pod mesh: not "
@@ -102,8 +103,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.production or args.multi_pod:
         raise NotImplementedError(
-            "--production / --multi-pod need the sharded mesh, which is not "
-            "ported to repro_torch yet (ROADMAP.md queue 1, item 3)")
+            "--production / --multi-pod need the (data, model) mesh, which "
+            "is not ported to repro_torch yet (ROADMAP.md queue 1, item 4)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     dev = resolve_device(args.device)

@@ -133,9 +133,10 @@ def run_reference(algo: str, churn: bool, rounds: int = ROUNDS, *,
 
 def run_port(algo: str, churn: bool, engine_name: str, *,
              rounds: int = ROUNDS, replay: RecordingStrategy | None = None,
-             mixing: str = "uniform", **cfg_kw):
+             mixing: str = "uniform", mesh=None, **cfg_kw):
     """The port's ``run_dfl`` or ``run_dfl_fused`` on the CPU from the same
-    JAX init — with its own strategy, or replaying ``replay``'s plans."""
+    JAX init — with its own strategy, or replaying ``replay``'s plans;
+    sharded over ``mesh`` (a CPU ``WorkerMesh``) when one is given."""
     cfg = FedHPConfig(**{**CFG_KW, **cfg_kw}, algorithm=algo)
     train, tx, ty, shards, cluster = experiment.setup_experiment(
         cfg, churn=torch_churn(churn), rounds=rounds, device="cpu",
@@ -150,7 +151,7 @@ def run_port(algo: str, churn: bool, engine_name: str, *,
                init_params=params_from_jax(jax_init(cfg.seed,
                                                     cfg.num_workers,
                                                     model=cfg.model)),
-               device="cpu")
+               mesh=mesh, device="cpu")
 
 
 def run_reference_adpsgd(churn: bool, rounds: int = ROUNDS, **cfg_kw):

@@ -39,6 +39,7 @@ import torch
 from _torch_parity import DATA_KW, port_config, run_port, run_reference
 from repro_torch.core import engine
 from repro_torch.core.experiment import run_algorithm, setup_experiment
+from repro_torch.launch.mesh import make_worker_mesh
 
 EXACT = ("round", "round_time", "waiting_time", "mean_tau", "num_links",
          "cumulative_time")
@@ -113,24 +114,24 @@ def _remat_block_through_an_adapter(cfg):
                           device="cpu")
 
 
-# (algorithm, config fields, what the call does): NotImplementedError
-# naming ROADMAP.md where the port still refuses, the reference's
-# ValueError where the reference refuses too, None where it now runs (the
-# per-leaf codec maps, the moe and hybrid families and remat="block",
-# ported since these cases were written)
+# (algorithm, config fields, what the call does): the reference's
+# ValueError (and its message) where the reference refuses too, None where
+# it now runs (the per-leaf codec maps, the moe and hybrid families,
+# remat="block" and sharded execution, ported since these cases were
+# written)
 @pytest.mark.parametrize("algo,fields,expect", [
     ("dpsgd", dict(compress="leafmap:default=int8"), None),
     ("dpsgd", dict(gossip="sparse", compress="leafmap:default=int8"), None),
-    ("dpsgd", dict(gossip="sparse", sharded=True), NotImplementedError),
-    ("dpsgd", dict(sharded=True), NotImplementedError),
+    ("dpsgd", dict(gossip="sparse", sharded=True), None),
+    ("dpsgd", dict(sharded=True), None),
     ("dpsgd", dict(model="moe:d=16", num_workers=4), None),
     ("dpsgd", dict(robust="median", model="hybrid:d=32", num_workers=4),
      None),
     ("dpsgd", None, None),
     ("adpsgd", dict(robust="screen:3", compress="leafmap:default=int8"),
-     ValueError),
+     (ValueError, "synchronous-engine only")),
     ("dpsgd", dict(sharded=True, compress="leafmap:default=int8"),
-     NotImplementedError)],
+     (ValueError, "leaf"))],
     ids=["compress-leafmap", "gossip-sparse-compress-leafmap",
          "gossip-sparse-sharded", "sharded-True", "model-moe",
          "robust-median-model-hybrid", "remat-block-adapter",
@@ -141,8 +142,9 @@ def test_unported_options_raise(algo, fields, expect):
     synchronous engines (the two LMs on 4 workers, whose measurement
     stack is a quarter of 8's; the hybrid at d 32: its Mamba2 heads are
     64 wide, and at d 16 the reference cannot reshape its 32 inner
-    channels either); AD-PSGD refuses a leafmap with the reference's
-    ValueError."""
+    channels either), and so does ``cfg.sharded`` (one CPU shard, the
+    default mesh with ``device="cpu"``); AD-PSGD refuses a leafmap and the
+    sharded path a leafmap, with the reference's ValueErrors."""
     if expect is None and fields is None:
         h = _remat_block_through_an_adapter(port_config())
         assert len(h.records) == 2
@@ -155,29 +157,26 @@ def test_unported_options_raise(algo, fields, expect):
             assert len(h.records) == 2
             assert np.isfinite(h.as_arrays()["loss"]).all()
         return
-    match = {NotImplementedError: "ROADMAP.md",
-             ValueError: "synchronous-engine only"}[expect]
-    with pytest.raises(expect, match=match):
-        if fields is None:
-            _remat_block_through_an_adapter(port_config())
-        else:
-            run_algorithm(algo, port_config(**fields), rounds=2,
-                          device="cpu")
+    exc, match = expect
+    with pytest.raises(exc, match=match):
+        run_algorithm(algo, port_config(**fields), rounds=2, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(seeds=[0, 1]), dict(mesh=object())],
+@pytest.mark.parametrize("kw", [dict(seeds=[0, 1]), dict(mesh=True)],
                          ids=["seeds", "mesh"])
 def test_unported_arguments_raise(kw):
-    """A mesh is still refused; ``seeds`` (ported since this case was
-    written) returns one History per lane."""
+    """Both arguments are ported since these cases were written: ``seeds``
+    returns one History per lane, a ``mesh`` (here one CPU shard) runs the
+    sharded path."""
     if "seeds" in kw:
         hists = run_algorithm("dpsgd", port_config(), rounds=2, fused=True,
                               device="cpu", **kw)
         assert len(hists) == 2 and all(len(h.records) == 2 for h in hists)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_algorithm("dpsgd", port_config(), rounds=2, fused=True,
-                      device="cpu", **kw)
+    h = run_algorithm("dpsgd", port_config(), rounds=2, fused=True,
+                      device="cpu", mesh=make_worker_mesh(devices=["cpu"]))
+    assert len(h.records) == 2
+    assert np.isfinite(h.as_arrays()["loss"]).all()
 
 
 @pytest.mark.parametrize("entry", ["run_algorithm", "setup_experiment",
