@@ -1,5 +1,5 @@
-"""Architecture registry: ``arch`` id -> (CONFIG, smoke_config), the
-port of ``repro.configs``."""
+"""Architecture registry: ``arch`` id -> (CONFIG, smoke_config), and the
+(arch, shape) cells — the port of ``repro.configs``."""
 from __future__ import annotations
 
 import importlib
@@ -9,6 +9,7 @@ from repro_torch.configs.base import (  # noqa: F401
     FedHPConfig,
     InputShape,
     ModelConfig,
+    RunConfig,
 )
 
 _ARCH_MODULES: dict[str, str] = {
@@ -42,3 +43,16 @@ def get_config(arch: str) -> ModelConfig:
 def get_smoke_config(arch: str) -> ModelConfig:
     """The reduced same-family config of ``arch`` for CPU tests."""
     return _module(arch).smoke_config()
+
+
+def arch_shape_cells(include_skipped: bool = False):
+    """All (arch, shape name, shape) cells of the published configs; an
+    architecture's ``skip_shapes`` are left out unless requested."""
+    cells = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for name, shape in SHAPES.items():
+            if not include_skipped and name in cfg.skip_shapes:
+                continue
+            cells.append((arch, name, shape))
+    return cells

@@ -1,12 +1,15 @@
 """Configs: the run configuration of the FedHP technique (Alg. 1-3), the
-model-architecture description of the registry models and the input-shape
-table — field-for-field copies of ``repro.configs.base.FedHPConfig``,
-``ModelConfig``, ``InputShape`` and ``SHAPES`` with the same defaults, so
-one config value drives either package. ``RunConfig`` waits for the
-launcher (ROADMAP.md queue 1, item 4)."""
+model-architecture description of the registry models, the input-shape
+table and the launcher's run configuration — field-for-field copies of
+``repro.configs.base.FedHPConfig``, ``ModelConfig``, ``InputShape``,
+``SHAPES`` and ``RunConfig`` with the same defaults (and
+``ModelConfig``'s parameter counts), so one config value drives either
+package."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any
 
 
 @dataclass(frozen=True)
@@ -85,6 +88,62 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         """The attention head width: ``head_dim`` or d_model / heads."""
         return self.head_dim or self.d_model // self.num_heads
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embedding + blocks + head): the
+        reference's formula, which sizes the launcher's ``SimCluster``
+        payload (32 bits a parameter)."""
+        d, L = self.d_model, self.num_layers
+        hd = self.resolved_head_dim
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        attn = d * hd * self.num_heads + 2 * d * hd * self.num_kv_heads \
+            + hd * self.num_heads * d
+        if self.family == "xlstm":
+            # mLSTM blocks: qkv + gates + out + up/down proj factor ~ 8 d^2
+            blocks = L * 8 * d * d
+            return emb + blocks
+        if self.num_experts:
+            ff_exp = self.num_experts * 3 * d * (self.moe_d_ff or self.d_ff)
+            router = d * self.num_experts
+            shared = self.num_shared_experts * 3 * d * (self.moe_d_ff
+                                                        or self.d_ff)
+            blocks = L * (attn + ff_exp + router + shared + 2 * d)
+        else:
+            n_ff = 3 if self.act in ("silu", "gelu") else 2  # gated vs plain
+            blocks = L * (attn + n_ff * d * self.d_ff + 2 * d)
+        if self.family == "hybrid":
+            # mamba2 blocks: in_proj(2*d_in) + conv + dt/B/C + out_proj
+            d_in = 2 * d
+            blocks = L * (2 * d * d_in + d_in * (self.ssm_state * 2 + 4)
+                          + d_in * d)
+            # plus shared attention block(s)
+            blocks += 2 * (attn + 3 * d * self.d_ff)
+        if self.family == "encdec":
+            # encoder + decoder with cross attention
+            enc = self.encoder_layers * (attn + 2 * d * self.d_ff + 2 * d)
+            dec = self.decoder_layers * (2 * attn + 2 * d * self.d_ff
+                                         + 3 * d)
+            blocks = enc + dec
+        return emb + blocks
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed experts count)."""
+        if not self.num_experts:
+            return self.param_count()
+        dense_like = dataclasses.replace(
+            self, num_experts=0, experts_per_token=0, num_shared_experts=0)
+        d_ffe = self.moe_d_ff or self.d_ff
+        act_ff = self.num_layers * (
+            (self.experts_per_token + self.num_shared_experts) * 3
+            * self.d_model * d_ffe + self.d_model * self.num_experts)
+        # dense_like.param_count() includes a dense FFN of d_ff; remove it
+        base = dense_like.param_count() \
+            - self.num_layers * 3 * self.d_model * self.d_ff
+        return base + act_ff
+
+    def shape_list(self) -> list[InputShape]:
+        """The input shapes of ``SHAPES`` this architecture runs."""
+        return [s for k, s in SHAPES.items() if k not in self.skip_shapes]
 
 
 @dataclass(frozen=True)
@@ -201,3 +260,19 @@ class FedHPConfig:
     # distribution slowly cycles while the global distribution stays
     # fixed. 0 disables drift (the paper's static partition).
     drift_every: int = 0
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """One launcher run: architecture, input shape, mesh, step count,
+    logging and checkpoint cadence, and the FedHP configuration."""
+
+    arch: str = "smollm-360m"
+    shape: str = "train_4k"
+    multi_pod: bool = False
+    steps: int = 100
+    log_every: int = 10
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 50
+    fedhp: FedHPConfig = field(default_factory=FedHPConfig)
+    extra: dict[str, Any] = field(default_factory=dict)

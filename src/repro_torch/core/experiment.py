@@ -1,6 +1,7 @@
 """Experiment harness wiring data + cluster + strategy (the port of
 ``repro.core.experiment``): the entry point a user calls,
-``run_algorithm(algo, cfg)``."""
+``run_algorithm(algo, cfg)``, and ``model_bits_for``, the payload Eq. 10
+charges for ``cfg.model``."""
 from __future__ import annotations
 
 from dataclasses import replace
@@ -17,6 +18,20 @@ from repro_torch.core.topology import make_base_topology
 from repro_torch.data.partition import DriftingPartition, pskew_partition
 from repro_torch.data.synthetic import Dataset
 from repro_torch.simulation.cluster import ChurnSchedule, SimCluster
+
+
+def model_bits_for(cfg: FedHPConfig, *, dim: int = 32,
+                   num_classes: int = 10) -> float:
+    """Uncompressed wire payload (bits) of one model transfer for the
+    model ``cfg.model`` names: 32 bits x the adapter's true parameter
+    count (what Eq. 10 charges)."""
+    return modelspec.get_adapter(cfg.model, dim=dim,
+                                 num_classes=num_classes).model_bits
+
+
+def replace_dataset(data: Dataset, x, y) -> Dataset:
+    """``data`` with its rows replaced by (x, y), its class count kept."""
+    return Dataset(x, y, data.num_classes)
 
 
 def churn_from_config(cfg: FedHPConfig,
@@ -49,7 +64,7 @@ def setup_experiment(cfg: FedHPConfig, *, non_iid_p: float = 0.1,
                                     num_classes=num_classes)
     data = adapter.make_data(num_samples, seed=cfg.seed, spread=spread)
     n_test = max(num_samples // 6, 256)
-    train = Dataset(data.x[n_test:], data.y[n_test:], data.num_classes)
+    train = replace_dataset(data, data.x[n_test:], data.y[n_test:])
     test_x = torch.as_tensor(data.x[:n_test], device=device)
     test_y = torch.as_tensor(data.y[:n_test], device=device)
     if cfg.drift_every > 0:

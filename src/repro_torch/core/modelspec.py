@@ -19,10 +19,11 @@ adapter:
     (``LeafInfo.dtype``: a config's ``dtype``, bf16 for the published
     registry configs): ``loss`` casts the views, a copy for a bf16 leaf;
   - ``round_leaves(flat)``: the flat matrix with every non-f32 leaf's
-    columns rounded to its dtype. The engines apply it after every write
-    — each SGD step, gossip, join blend and AD-PSGD exchange — where the
-    reference casts its f32 results back to the leaf dtype, so the flat
-    always holds values of the leaves' dtypes, as the reference's does;
+    columns rounded to its dtype (``round_leaves_``: in place). The
+    engines apply it after every write — each SGD step, gossip, join
+    blend and AD-PSGD exchange — where the reference casts its f32
+    results back to the leaf dtype, so the flat always holds values of
+    the leaves' dtypes, as the reference's does;
   - ``loss`` / ``accuracy``: per-worker values ``[W]`` on per-worker
     batches ``x`` ``[W, *batch, D]`` (features) or ``[W, *batch, S]``
     (tokens);
@@ -191,11 +192,15 @@ class ModelAdapter:
             return flat
         if len(spans) == 1 and spans[0][:2] == (0, flat.shape[-1]):
             return flat.to(spans[0][2]).to(torch.float32)
-        out = flat.clone()
-        for start, stop, dt in spans:
-            cols = out[..., start:stop]
+        return self.round_leaves_(flat.clone())
+
+    def round_leaves_(self, flat: torch.Tensor) -> torch.Tensor:
+        """``round_leaves`` in place, without the copy (a full-width fleet
+        has no room for a second [W, P] matrix); returns ``flat``."""
+        for start, stop, dt in self.narrow_spans():
+            cols = flat[..., start:stop]
             cols.copy_(cols.to(dt))
-        return out
+        return flat
 
     def cast_params(self, params: dict) -> dict:
         """{name: tensor} -> each leaf in its storage dtype (f32 views

@@ -6,11 +6,13 @@ Gaussian at a random center; a small MLP separates them. Crucially the
 per-class structure makes the paper's p-skew partition produce genuinely
 non-IID worker shards, reproducing the statistical-heterogeneity axis.
 The registry LMs train on ``make_token_data``'s class-structured token
-corpus.
+corpus; ``worker_batch_iterator`` walks one worker's shard in shuffled
+mini-batches.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Iterator
 
 import numpy as np
 
@@ -59,3 +61,21 @@ def make_token_data(num_sequences: int = 512, seq_len: int = 128,
             cum = np.cumsum(trans[c][x[m, s - 1]], axis=1)
             x[m, s] = (u[m, s][:, None] < cum).argmax(axis=1)
     return Dataset(x, y.astype(np.int32), num_classes)
+
+
+def worker_batch_iterator(data: Dataset, shard: np.ndarray, batch_size: int,
+                          seed: int = 0) -> Iterator[dict]:
+    """Infinite shuffled mini-batch iterator over one worker's shard:
+    {"x", "y"} numpy batches, each pass over a fresh permutation, the
+    reference's stream on the same seed."""
+    rng = np.random.default_rng(seed)
+    if len(shard) == 0:
+        raise ValueError("empty shard")
+    while True:
+        order = rng.permutation(len(shard))
+        for lo in range(0, len(order) - batch_size + 1, batch_size):
+            ix = shard[order[lo:lo + batch_size]]
+            yield {"x": data.x[ix], "y": data.y[ix]}
+        if len(order) < batch_size:        # shard smaller than a batch
+            ix = shard[rng.integers(0, len(shard), batch_size)]
+            yield {"x": data.x[ix], "y": data.y[ix]}

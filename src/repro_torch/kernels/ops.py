@@ -37,9 +37,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"gossip_mix": 0, "gossip_mix_lanes": 0, "quantize_block": 0,
             "dequantize_block": 0, "sparsify_block": 0, "gossip_edges": 0,
             "robust_gossip": 0, "flash_attention": 0, "consensus_dist": 0}
-# robust_gossip's and gossip_edges' launches by instance, and
-# flash_attention's by operand dtype (each also counts in LAUNCHES)
-INSTANCE_LAUNCHES = {"robust_gossip:register": 0, "robust_gossip:wide": 0,
+# gossip_mix's bf16-rounded form, robust_gossip's and gossip_edges'
+# launches by instance, and flash_attention's by operand dtype (each also
+# counts in LAUNCHES)
+INSTANCE_LAUNCHES = {"gossip_mix:bf16round": 0,
+                     "robust_gossip:register": 0, "robust_gossip:wide": 0,
                      "robust_gossip:shared": 0, "gossip_edges:staged": 0,
                      "gossip_edges:gather": 0, "flash_attention:f32": 0,
                      "flash_attention:bf16": 0}
@@ -50,6 +52,8 @@ INSTANCE_LAUNCHES = {"robust_gossip:register": 0, "robust_gossip:wide": 0,
 # W workers, in groups for gossip_mix) on the grid's y axis
 _MAX_NEIGHBORS = 48 * 1024 // 4
 _MAX_ROWS = 65535
+# where K > U gossip_mix stages u's U rows whole, as one chunk
+_MAX_CYCLIC_ROWS = 64
 # robust_gossip's instances: a register window (D_PAD + 1 floats a
 # thread, one template per power of two) for tables up to
 # ROBUST_REGISTER_MAX_DEGREE neighbours wide; then the wide instance,
@@ -153,8 +157,9 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()[0]))
-        lib.gossip_mix_f32.argtypes = [ctypes.c_void_p] * 4 + \
-            [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.gossip_mix_f32.argtypes = [ctypes.c_void_p] * 5 + \
+            [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.gossip_mix_bf16round_f32.argtypes = lib.gossip_mix_f32.argtypes
         lib.gossip_mix_lanes_f32.argtypes = [ctypes.c_void_p] * 4 + \
             [ctypes.c_int] * 4 + [ctypes.c_int64, ctypes.c_void_p]
         lib.quantize_block_f32.argtypes = [ctypes.c_void_p] * 3 + \
@@ -174,7 +179,8 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_bf16.argtypes = lib.flash_attention_f32.argtypes
         lib.consensus_dist_f32.argtypes = [ctypes.c_void_p] * 4 + \
             [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
-        for fn in (lib.gossip_mix_f32, lib.gossip_mix_lanes_f32,
+        for fn in (lib.gossip_mix_f32, lib.gossip_mix_bf16round_f32,
+                   lib.gossip_mix_lanes_f32,
                    lib.quantize_block_f32, lib.dequantize_block_f32,
                    lib.sparsify_block_f32,
                    lib.gossip_edges_f32, lib.robust_gossip_f32,
@@ -231,29 +237,45 @@ def _check_rows(name: str, w: int, p: int) -> None:
                          f"P < 2**31; got W={w}, P={p}")
 
 
-def gossip_mix(x: torch.Tensor, u: torch.Tensor,
-               w: torch.Tensor) -> torch.Tensor:
-    """Eq. 5 mix y[b] = x[b] + sum_k w[b, k] (u[k] - x[b]).
+def gossip_mix(x: torch.Tensor, u: torch.Tensor, w: torch.Tensor, *,
+               centre: torch.Tensor | None = None,
+               round_bf16: bool = False) -> torch.Tensor:
+    """Eq. 5 mix y[b] = x[b] + sum_k w[b, k] (u[k mod U] - c[b]).
 
-    x: [B, L], u: [K, L], w: [B, K], f32 -> [B, L]. CPU tensors run the
-    plain version (``ref.gossip_mix_ref``); CUDA tensors launch the
-    kernel on the current stream and count the launch."""
+    x: [B, L], u: [U, L], w: [B, K] with K a multiple of U (K = U but for
+    the matching gossip's matching-major weights), f32 -> [B, L];
+    ``centre`` c: [B, L], default x (the compressed matching gossip's
+    decoded payload). ``round_bf16``: each term and each sum rounded to
+    bf16, kept in f32 (the matching gossip on bf16 leaves; x should hold
+    bf16 values). CPU tensors run the plain version
+    (``ref.gossip_mix_ref``); CUDA tensors launch the kernel on the
+    current stream and count the launch (the bf16-rounded form also under
+    ``INSTANCE_LAUNCHES["gossip_mix:bf16round"]``)."""
+    c = x if centre is None else centre
     if x.dim() != 2 or u.dim() != 2 or w.dim() != 2:
-        raise ValueError("gossip_mix takes x [B, L], u [K, L], w [B, K]")
-    (b, length), k = x.shape, u.shape[0]
-    if u.shape[1] != length or tuple(w.shape) != (b, k):
+        raise ValueError("gossip_mix takes x [B, L], u [U, L], w [B, K]")
+    (b, length), n_u, k = x.shape, u.shape[0], w.shape[1]
+    if u.shape[1] != length or w.shape[0] != b or n_u == 0 or k % n_u or \
+            c.shape != x.shape:
         raise ValueError(f"gossip_mix shapes disagree: x {tuple(x.shape)}, "
-                         f"u {tuple(u.shape)}, w {tuple(w.shape)}")
-    if _on_cpu(x, u, w):
-        return ref.gossip_mix_ref(x, u, w)
-    _check_cuda("gossip_mix", {"x": x, "u": u, "w": w})
-    if b > _MAX_ROWS or k > _MAX_NEIGHBORS or length >= 2 ** 31:
+                         f"u {tuple(u.shape)}, w {tuple(w.shape)}, centre "
+                         f"{tuple(c.shape)}")
+    if _on_cpu(x, u, w, c):
+        return ref.gossip_mix_ref(x, u, w, centre=centre,
+                                  round_bf16=round_bf16)
+    _check_cuda("gossip_mix", {"x": x, "u": u, "w": w, "centre": c})
+    if b > _MAX_ROWS or k > _MAX_NEIGHBORS or length >= 2 ** 31 or \
+            (k > n_u > _MAX_CYCLIC_ROWS):
         raise ValueError(f"gossip_mix supports B <= {_MAX_ROWS}, "
-                         f"K <= {_MAX_NEIGHBORS}, L < 2**31; got "
-                         f"B={b}, K={k}, L={length}")
+                         f"K <= {_MAX_NEIGHBORS}, L < 2**31, and U <= "
+                         f"{_MAX_CYCLIC_ROWS} where K > U; got B={b}, "
+                         f"U={n_u}, K={k}, L={length}")
     y = torch.empty_like(x)
-    _launch("gossip_mix", _library().gossip_mix_f32, x.device, x.data_ptr(),
-            u.data_ptr(), w.data_ptr(), y.data_ptr(), b, k, length)
+    lib = _library()
+    _launch("gossip_mix", lib.gossip_mix_bf16round_f32 if round_bf16
+            else lib.gossip_mix_f32, x.device, x.data_ptr(), c.data_ptr(),
+            u.data_ptr(), w.data_ptr(), y.data_ptr(), b, n_u, k, length,
+            instance="bf16round" if round_bf16 else None)
     return y
 
 

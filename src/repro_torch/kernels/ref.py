@@ -42,16 +42,28 @@ def _tiled(x: torch.Tensor, tile_len: int, n_tiles: int) -> torch.Tensor:
                                                       tile_len)
 
 
-def gossip_mix_ref(x: torch.Tensor, u: torch.Tensor,
-                   w: torch.Tensor) -> torch.Tensor:
-    """x: [B, L]; u: [K, L]; w: [B, K] -> y[b] = x[b] + sum_k w[b, k]
-    (u[k] - x[b]), f32, accumulated for k ascending with one rounding per
-    subtract, multiply and add — the kernel's exact arithmetic order, so
-    the two agree bit for bit (an identity row of ``w`` is an exact
-    no-op)."""
+def _to_bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def gossip_mix_ref(x: torch.Tensor, u: torch.Tensor, w: torch.Tensor, *,
+                   centre: torch.Tensor | None = None,
+                   round_bf16: bool = False) -> torch.Tensor:
+    """x: [B, L]; u: [U, L]; w: [B, K], K a multiple of U -> y[b] = x[b]
+    + sum_k w[b, k] (u[k mod U] - c[b]), c the ``centre`` [B, L] (default
+    x), f32, accumulated for k ascending with one rounding per subtract,
+    multiply and add — the kernel's exact arithmetic order, so the two
+    agree bit for bit (an identity row of ``w`` is an exact no-op).
+    ``round_bf16`` also rounds each term and each sum to bf16 (to nearest
+    even, kept in f32): the reference's matching gossip on a bf16 leaf."""
+    c = x if centre is None else centre
     acc = x
-    for k in range(u.shape[0]):
-        acc = acc + w[:, k:k + 1] * (u[k] - x)
+    for k in range(w.shape[1]):
+        term = w[:, k:k + 1] * (u[k % u.shape[0]] - c)
+        if round_bf16:
+            acc = _to_bf16(acc + _to_bf16(term))
+        else:
+            acc = acc + term
     return acc
 
 

@@ -1,1 +1,2 @@
-"""Entry points of the port: serving (``serve``)."""
+"""Entry points of the port: training (``train``), serving (``serve``)
+and their meshes (``mesh``)."""

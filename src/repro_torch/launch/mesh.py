@@ -1,18 +1,25 @@
-"""The worker mesh of the port's sharded execution — the port of
-``repro.launch.mesh.make_worker_mesh``.
+"""Device meshes of the port — the port of ``repro.launch.mesh``.
 
-The reference's sharded path is one program over the local devices of a
-one-axis ``jax.sharding.Mesh`` (its CPU tests fake several host
-devices). Here the mesh is an ordered list of ``torch.device``s, one per
-shard, in one process: shard ``s`` holds rows ``[s·rows, (s+1)·rows)``
-of the padded ``[w_pad, P]`` worker matrix on ``devices[s]``. A device
-may repeat (``["cpu"] * 4``, or four shards on one card): shards on one
-device hand blocks to each other without a copy. ``make_debug_mesh`` and
-``make_production_mesh`` (launch/train's ``(data, model)`` mesh) wait
-for ROADMAP.md queue 1 item 4.
+The reference's meshes are ``jax.sharding.Mesh``es over the local
+devices (its CPU tests fake several host devices). Here a mesh is an
+ordered list of ``torch.device``s in one process, and a device may
+repeat — the counterpart of the fake host devices: ``REPRO_DEVICES=n``
+makes n slots of the one device a run is on (``host_devices``).
+
+- ``make_worker_mesh`` -> ``WorkerMesh``: the sharded execution's
+  one-axis mesh; shard ``s`` holds rows ``[s·rows, (s+1)·rows)`` of the
+  padded ``[w_pad, P]`` worker matrix on ``devices[s]`` (shards on one
+  device hand blocks to each other without a copy).
+- ``make_debug_mesh`` / ``make_production_mesh`` -> ``DeviceMesh``:
+  launch/train's named-axis mesh (``("data", "model")``; ``("pod",
+  "data", "model")`` multi-pod), slots laid out row-major over the axes
+  as ``jax.make_mesh`` lays out devices.
 """
 from __future__ import annotations
 
+import math
+import os
+import warnings
 from dataclasses import dataclass
 
 import torch
@@ -62,3 +69,101 @@ def make_worker_mesh(num_shards: int | None = None, axis: str = "workers",
             f"make_worker_mesh: num_shards={num_shards} out of range for a "
             f"host with {ndev} devices")
     return WorkerMesh(tuple(devices[:num_shards]), axis)
+
+
+@dataclass(frozen=True)
+class DeviceMesh:
+    """A named-axis mesh: ``axis_sizes[i]`` slots along ``axis_names[i]``,
+    ``devices`` the slots in row-major order (a device may repeat)."""
+
+    devices: tuple[torch.device, ...]
+    axis_sizes: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.axis_sizes) != len(self.axis_names):
+            raise ValueError(f"DeviceMesh: {len(self.axis_sizes)} sizes for "
+                             f"axes {self.axis_names}")
+        if math.prod(self.axis_sizes) != len(self.devices):
+            raise ValueError(f"DeviceMesh: {len(self.devices)} slots for a "
+                             f"mesh of shape {self.axis_sizes}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """{axis name: size}, in axis order (``jax.sharding.Mesh.shape``)."""
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+
+def host_devices(device=None) -> list[torch.device]:
+    """The slots a run's meshes are built over: ``REPRO_DEVICES=n`` slots
+    of ``device`` when that is set (the reference's fake host devices),
+    else every visible card for ``device=None`` and one slot of any
+    named device."""
+    n = os.environ.get("REPRO_DEVICES")
+    if device is None and not n:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    dev = _device("cuda" if device is None else device)
+    return [dev] * (int(n) if n else 1)
+
+
+def make_mesh(shape, axes, *, devices=None) -> DeviceMesh:
+    """``jax.make_mesh``: a mesh of ``shape`` over the first
+    prod(shape) of ``devices`` (default ``host_devices()``); raises
+    ``ValueError`` when there are fewer."""
+    devices = host_devices() if devices is None else \
+        [_device(d) for d in devices]
+    need = math.prod(shape)
+    if need > len(devices):
+        raise ValueError(f"mesh of shape {tuple(shape)} needs {need} devices; "
+                         f"{len(devices)} available")
+    return DeviceMesh(tuple(devices[:need]), tuple(shape), tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices=None) -> DeviceMesh:
+    """The pod mesh: 16 x 16 = 256 slots ``("data", "model")``
+    single-pod, 2 x 16 x 16 ``("pod", "data", "model")`` multi-pod. With
+    fewer ``devices`` (default ``host_devices()``) it raises as
+    ``make_debug_mesh(shrink=False)`` does."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_debug_mesh(shape, axes, devices=devices)
+
+
+def make_debug_mesh(shape=(2, 2), axes=("data", "model"), *,
+                    shrink: bool = False, devices=None) -> DeviceMesh:
+    """Small mesh for CPU tests over ``devices`` (default
+    ``host_devices()``: set ``REPRO_DEVICES`` for several slots).
+
+    There must be at least ``prod(shape)`` devices. With ``shrink=False``
+    (default) fewer raise ``ValueError``; with ``shrink=True`` axis sizes
+    are halved deterministically (leftmost even axis first, then forced
+    to 1) until the mesh fits, with a ``UserWarning`` naming the final
+    shape — the reference's rule and messages."""
+    devices = host_devices() if devices is None else \
+        [_device(d) for d in devices]
+    ndev = len(devices)
+    need = math.prod(shape)
+    if need > ndev:
+        if not shrink:
+            raise ValueError(
+                f"make_debug_mesh{tuple(shape)} needs {need} devices but the "
+                f"host exposes {ndev}; set REPRO_DEVICES={need} for {need} "
+                f"slots of one device, or pass shrink=True")
+        sizes = list(shape)
+        while math.prod(sizes) > ndev:
+            for i, s in enumerate(sizes):
+                if s > 1 and s % 2 == 0:
+                    sizes[i] = s // 2
+                    break
+            else:
+                for i, s in enumerate(sizes):
+                    if s > 1:
+                        sizes[i] = 1
+                        break
+        shape = tuple(sizes)
+        warnings.warn(
+            f"make_debug_mesh: host has {ndev} devices; shrank mesh to "
+            f"{shape} over axes {tuple(axes)}", UserWarning, stacklevel=2)
+    return make_mesh(shape, axes, devices=devices)

@@ -1,7 +1,41 @@
-"""Cross-shard gossip of the sharded DFL engines — the port of the
-edge-list half of ``repro.runtime.collectives`` (``worker_shard_extent``,
-``edge_shard_tables``, ``routed_mix_delta`` and the two sharded
-edge-gossip functions).
+"""Gossip collectives — the port of ``repro.runtime.collectives``: the
+dense matching collectives of launch/train's round step and the
+cross-shard edge gossip of the sharded DFL engines.
+
+**Matching collectives** (``matchings_as_pairs``,
+``matching_weight_tables``, ``gossip_fn``, ``gossip_compressed_fn``,
+``ring_allreduce_mean_fn``). The reference edge-colours the round
+topology into matchings and runs one ``lax.ppermute`` per matching over
+the worker axes: worker i adds w_m[i] (x_partner − x_i) for each matching
+m in turn, x the pre-gossip values. In the port the W workers' rows sit
+in one [W, P] matrix on one device, and the whole sum is one
+``gossip_mix`` launch laid out matching-major: u is the rows themselves
+and w has K = M·W columns, worker i's weight for matching m at column
+m·W + partner_m(i) (the kernel reads row k mod W for column k), so the
+kernel adds the terms in the reference's matching order with its f32
+rounding steps (a zero weight — another matching's columns, or an
+unmatched worker — adds an exact zero): bit-equal to the reference's f32
+arithmetic, without a partner permutation or a copy of the rows. On a
+bf16 leaf the reference rounds each matching's term and sum to bf16,
+which the kernel's bf16-rounded form does (a model of mixed leaf dtypes
+runs both forms and takes each leaf's columns from its own). The
+compressed gossip is the same launch with the decoded payload as u and
+as the centre each term differs from, the accumulator starting at x
+(the reference's ``a + w_m (ŷ_partner − ŷ_i)``), so it too rounds each
+matching on a bf16 leaf. The
+distances the reference measures are worker 0's to its partner in each
+matching (its ``shard_map`` returns the first shard's value), one
+``consensus_dist`` launch of row 0 against its partners' rows.
+The functions take the flat [W, P] f32 matrix in the reference's leaf
+order (``ModelAdapter``'s layout; the reference takes a tree of
+worker-stacked leaves), with its leaves' column spans where they matter
+(``leaf_spans``, and ``narrow_spans`` as ``ModelAdapter.narrow_spans``
+gives them), and return f32; the mesh only sets the worker count: its
+non-worker axes must have size 1 (``sharding.mesh_workers``: the model
+axis is ROADMAP.md queue 1 item 4).
+
+**Sharded edge gossip** (``worker_shard_extent``, ``edge_shard_tables``,
+``routed_mix_delta`` and the two sharded edge-gossip functions).
 
 The reference routes a directed edge list over a worker-sharded [W, P]
 matrix with one ``lax.ppermute`` of each shard's [rows, P] block per
@@ -14,10 +48,6 @@ form a local CSR list (local source rows in the received block, local
 destination rows in s's own), and the ``gossip_edges`` kernel mixes
 them: the delta is sum_delta (gossip_edges(v, recv_delta, csr_delta) -
 v), added in offset order as the reference's ``acc + segment_sum``.
-
-The dense matching collectives (``matchings_as_pairs``, ``gossip_fn``,
-``ring_allreduce_mean_fn``, ...) serve ``runtime/steps.py`` and wait
-for ROADMAP.md queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -29,14 +59,228 @@ import torch
 from repro_torch.core import compression
 from repro_torch.core import topology as topo
 from repro_torch.kernels import ops
+from repro_torch.runtime import sharding
 from repro_torch.runtime.sharding import worker_shard_extent
 
-__all__ = ["edge_shard_tables", "shard_csr", "routed_mix_delta",
+__all__ = ["matchings_as_pairs", "matching_weight_tables",
+           "matching_mix_weights", "gossip_fn", "gossip_compressed_fn",
+           "ring_allreduce_mean_fn", "edge_shard_tables", "shard_csr", "routed_mix_delta",
            "RoutedEdges", "route_edges", "per_device",
            "routed_gossip", "routed_compressed_gossip",
            "gossip_edges_sharded_fn", "gossip_edges_compressed_sharded_fn",
            "worker_shard_extent"]
 
+
+# ---------------------------------------------------------------------------
+# dense matching collectives (launch/train's round step)
+# ---------------------------------------------------------------------------
+
+def matchings_as_pairs(adj: np.ndarray) -> list[list[tuple[int, int]]]:
+    """Topology -> list of permutation pair-lists, one per matching of
+    ``topology.matching_decomposition`` (each an involution, with
+    identity pairs for unmatched workers so every destination is
+    written): pairs[m][i] = (i, partner_m(i))."""
+    n = adj.shape[0]
+    matchings = topo.matching_decomposition(adj)
+    perms = topo.matchings_to_perms(matchings, n)          # [M, N]
+    return [[(int(i), int(row[i])) for i in range(n)] for row in perms]
+
+
+def matching_weight_tables(adj: np.ndarray, mix: np.ndarray) -> np.ndarray:
+    """[M, N] per-worker mixing weight for its partner in matching m (0
+    where unmatched)."""
+    n = adj.shape[0]
+    matchings = topo.matching_decomposition(adj)
+    w = np.zeros((len(matchings), n), np.float32)
+    for m, match in enumerate(matchings):
+        for (i, j) in match:
+            w[m, i] = mix[i, j]
+            w[m, j] = mix[j, i]
+    return w
+
+
+def matching_mix_weights(pairs, weight_table: np.ndarray) -> np.ndarray:
+    """The ``gossip_mix`` weights of a matching-major mix, [W, M·W] f32:
+    row i holds ``weight_table[m, i]`` at column m·W + partner_m(i)
+    (column k weighting row k mod W), every other entry 0."""
+    n = weight_table.shape[1]
+    w = np.zeros((n, len(pairs) * n), np.float32)
+    for m, perm in enumerate(pairs):
+        for i, j in perm:
+            w[i, m * n + j] = weight_table[m, i]
+    return w
+
+
+def _check_rows(x: torch.Tensor, num_workers: int) -> None:
+    if x.dim() != 2 or x.dtype != torch.float32 or x.shape[0] != num_workers:
+        raise ValueError(f"expected the flat [{num_workers}, P] f32 matrix, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+
+
+class _MixWeights:
+    """A matching-major ``gossip_mix`` weight matrix, uploaded once per
+    device; ``scale`` multiplies the table in f32 first (top-k's damping,
+    the reference's ``gamma * w_m``)."""
+
+    def __init__(self, pairs, weight_table, num_workers: int,
+                 scale: float = 1.0):
+        self.matchings = len(pairs)
+        table = np.asarray(weight_table, np.float32).reshape(
+            len(pairs), num_workers)
+        self.host = torch.from_numpy(matching_mix_weights(
+            pairs, np.float32(scale) * table))
+        self.placed: dict[torch.device, torch.Tensor] = {}
+
+    def on(self, device: torch.device) -> torch.Tensor:
+        if device not in self.placed:
+            self.placed[device] = self.host.to(device)
+        return self.placed[device]
+
+
+def matching_mix(rows: torch.Tensor, weights: _MixWeights,
+                 narrow_spans=(), centre: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """rows [W, P] f32 -> rows_i + sum_m w_m[i] (u_partner - u_i), the
+    matchings in order, u the ``centre`` (default the rows): one
+    ``gossip_mix`` launch with u = c = the centre; the columns of
+    ``narrow_spans`` (bf16 leaves) with each term and sum rounded to
+    bf16 — one launch of the bf16-rounded form where they are every
+    column, else both forms."""
+    if weights.matchings == 0:
+        return rows
+    for _, _, dt in narrow_spans:
+        if dt != torch.bfloat16:
+            raise NotImplementedError(f"matching gossip on {dt} leaves: "
+                                      "the reference's leaves are f32 or "
+                                      "bf16")
+    u = rows if centre is None else centre
+    w = weights.on(rows.device)
+    covered = sum(b - a for a, b, _ in narrow_spans)
+    if covered == rows.shape[1]:
+        return ops.gossip_mix(rows, u, w, centre=centre, round_bf16=True)
+    out = ops.gossip_mix(rows, u, w, centre=centre)
+    if narrow_spans:
+        rounded = ops.gossip_mix(rows, u, w, centre=centre, round_bf16=True)
+        for a, b, _ in narrow_spans:
+            out[:, a:b] = rounded[:, a:b]
+    return out
+
+
+def worker0_distances(rows: torch.Tensor, pairs) -> torch.Tensor:
+    """The reference's measured neighbour distances: ||x_0 - x_partner||
+    for worker 0's partner in each matching (0 where it is unmatched),
+    [M] f32, one ``consensus_dist`` launch."""
+    if not pairs:
+        return torch.zeros(0, dtype=torch.float32, device=rows.device)
+    partners = torch.tensor([perm[0][1] for perm in pairs],
+                            device=rows.device)
+    return ops.consensus_dist(rows[0], rows.index_select(0, partners))
+
+
+def gossip_fn(mesh, worker_axes: tuple[str, ...],
+              pairs: list[list[tuple[int, int]]], weight_table: np.ndarray,
+              *, measure_distances: bool = False, narrow_spans=()):
+    """gossip(x) -> mixed, or (mixed, dists [M]) with
+    ``measure_distances``: x the flat [W, P] f32 matrix, ``narrow_spans``
+    its bf16 leaves' columns (module doc). The reference's
+    ``param_specs`` argument has no counterpart: a worker's replica is
+    never split."""
+    n = sharding.mesh_workers(mesh, worker_axes)
+    weights = _MixWeights(pairs, weight_table, n)
+
+    def gossip(x):
+        _check_rows(x, n)
+        mixed = matching_mix(x, weights, narrow_spans)
+        if measure_distances:
+            return mixed, worker0_distances(x, pairs)
+        return mixed
+
+    return gossip
+
+
+def gossip_compressed_fn(mesh, worker_axes: tuple[str, ...],
+                         pairs: list[list[tuple[int, int]]],
+                         weight_table: np.ndarray, *, mode: str = "int8",
+                         seed: int = 0, gamma: float = 0.25,
+                         leaf_spans=None, narrow_spans=()):
+    """Compressed gossip with the core codecs, per leaf as the reference
+    applies them: returns gossip(x, err, step) -> (mixed, new_err) on the
+    flat [W, P] f32 matrix, its leaves the column spans ``leaf_spans``
+    ((start, stop) in the reference's leaf order; default one leaf).
+
+    - ``"int8"``: each leaf's z = x + e is quantized on its own wire tiles
+      (one ``quantize_block`` and one ``dequantize_block`` launch a leaf),
+      the residual e' = z - ŷ carries, and x' = x + sum_m w_m (ŷ_partner -
+      ŷ_i);
+    - ``"topk:<k>"``: x̂-tracking, k resolved per leaf, q = topk(x - x̂),
+      x̂' = x̂ + q (the new err), x' = x + sum_m (gamma w_m) (x̂'_partner -
+      x̂'_i);
+    - ``"randk:<k>"``: each leaf ships the coordinates of its shared mask,
+      drawn from ``sparsify_base_key(seed)`` folded with the leaf's index
+      and ``step`` (``randk_scores``); err passes through unchanged.
+
+    The mix is one matching-major ``gossip_mix`` launch from x with the
+    payload as u and centre; on the columns of ``narrow_spans`` (bf16
+    leaves) each matching's term and sum round to bf16, as the
+    reference's do. ``err`` is a [W, P] f32 matrix, or None for zeros (a
+    fresh residual, as the reference's train step passes every round)."""
+    codec = compression.parse_mode(mode)
+    if codec.kind == "none":
+        raise ValueError("use gossip_fn for uncompressed exchange")
+    if codec.kind == "leafmap":
+        raise ValueError("gossip_compressed_fn takes a uniform codec")
+    n = sharding.mesh_workers(mesh, worker_axes)
+    weights = _MixWeights(pairs, weight_table, n,
+                          gamma if codec.kind == "topk" else 1.0)
+    skey = compression.sparsify_base_key(seed)
+
+    def gossip(x, err, step: int = 0):
+        _check_rows(x, n)
+        if err is not None:
+            _check_rows(err, n)
+        payload = torch.empty_like(x)
+        new_err = err if codec.kind == "randk" else torch.empty_like(x)
+        for idx, (a, b) in enumerate(leaf_spans or [(0, x.shape[1])]):
+            z = x[:, a:b]
+            e = None if err is None else err[:, a:b]
+            if codec.kind == "int8":
+                z = (z if e is None else z + e).contiguous()
+                q, scales = ops.quantize_block(z)
+                payload[:, a:b] = ops.dequantize_block(q, scales, b - a)
+                new_err[:, a:b] = z - payload[:, a:b]
+            elif codec.kind == "topk":
+                e = torch.zeros_like(z) if e is None else e
+                q = compression.sparsify_rows((z - e).contiguous(), "topk",
+                                              codec.resolve_k(b - a))
+                new_err[:, a:b] = e + q
+                payload[:, a:b] = new_err[:, a:b]
+            else:
+                scores = torch.from_numpy(compression.randk_scores(
+                    compression._fold_in(skey, idx), int(step), b - a))
+                payload[:, a:b] = compression.sparsify_rows(
+                    z.contiguous(), "randk", codec.resolve_k(b - a),
+                    scores=scores.to(x.device))
+        return matching_mix(x, weights, narrow_spans, centre=payload), new_err
+
+    return gossip
+
+
+def ring_allreduce_mean_fn(mesh, worker_axes: tuple[str, ...]):
+    """Dense baseline: every worker takes the fleet average (what a
+    parameter-server / all-reduce system does) -> f(x) on the flat
+    [W, P] f32 matrix."""
+    n = sharding.mesh_workers(mesh, worker_axes)
+
+    def allreduce(x):
+        _check_rows(x, n)
+        return x.mean(dim=0, keepdim=True).expand_as(x).contiguous()
+
+    return allreduce
+
+
+# ---------------------------------------------------------------------------
+# sharded edge gossip (the sharded DFL engines)
+# ---------------------------------------------------------------------------
 
 def edge_shard_tables(src, dst, w, num_workers: int, n_shards: int, *,
                       offsets: tuple[int, ...] | None = None,

@@ -330,6 +330,114 @@ def test_cuda_kernel_bit_equal_to_plain_version(b, k, length):
         assert torch.equal(y[2], x[2])
 
 
+# the matching gossip (launch/train's round step): W rows against u = the
+# rows themselves with K = M·W matching-major weights (column k weights
+# row k mod W), and a ragged L past a column tile; the compressed
+# gossip's centre is the decoded payload
+def _matching_operands(gen, device, w: int, length: int):
+    from repro_torch.core import topology as topo
+    from repro_torch.runtime import collectives
+    adj = topo.full_topology(w)
+    pairs = collectives.matchings_as_pairs(adj)
+    wt = collectives.matching_weight_tables(
+        adj, topo.mixing_matrix_uniform(adj))
+    x = torch.randn(w, length, generator=gen, device=device) \
+        .to(torch.bfloat16).float()
+    mw = torch.from_numpy(collectives.matching_mix_weights(pairs, wt))
+    return x, mw.to(device)
+
+
+def test_gossip_mix_bf16_rounding_plain_version():
+    """Each term and each sum rounded to bf16, a zero weight adding an
+    exact nothing: the rounded form keeps bf16 values, and differs from
+    the f32 form's one rounding."""
+    gen = torch.Generator().manual_seed(3)
+    x, w = _matching_operands(gen, "cpu", 4, 5000)
+    y = ops.gossip_mix(x, x, w, round_bf16=True)
+    assert torch.equal(y, y.to(torch.bfloat16).float())
+    acc = x
+    for k in range(w.shape[1]):
+        term = (w[:, k:k + 1] * (x[k % 4] - x)).to(torch.bfloat16).float()
+        acc = (acc + term).to(torch.bfloat16).float()
+    assert torch.equal(y, acc)
+    once = ops.gossip_mix(x, x, w).to(torch.bfloat16).float()
+    assert not torch.equal(y, once)
+    w0 = torch.zeros_like(w)
+    assert torch.equal(ops.gossip_mix(x, x, w0, round_bf16=True), x)
+
+
+@pytest.mark.parametrize("round_bf16", [False, True])
+def test_gossip_mix_centre_and_repeated_rows_plain_version(round_bf16):
+    """u's rows are read cyclically (K = M·U): the same as u repeated M
+    times, bit for bit; the terms differ from the centre while the sum
+    starts at x; a centre of x is the default."""
+    gen = torch.Generator().manual_seed(5)
+    x, w = _matching_operands(gen, "cpu", 4, 3000)
+    u = torch.randn(4, 3000, generator=gen).to(torch.bfloat16).float()
+    y = ops.gossip_mix(x, u, w, centre=u, round_bf16=round_bf16)
+    assert torch.equal(y, ops.gossip_mix(x, u.repeat(3, 1), w, centre=u,
+                                         round_bf16=round_bf16))
+    acc = x
+    for k in range(w.shape[1]):
+        term = w[:, k:k + 1] * (u[k % 4] - u)
+        acc = acc + (term.to(torch.bfloat16).float() if round_bf16
+                     else term)
+        if round_bf16:
+            acc = acc.to(torch.bfloat16).float()
+    assert torch.equal(y, acc)
+    assert torch.equal(ops.gossip_mix(x, x, w, centre=x,
+                                      round_bf16=round_bf16),
+                       ops.gossip_mix(x, x, w, round_bf16=round_bf16))
+
+
+@pytest.mark.parametrize("shapes", [((4, 10), (3, 10), (4, 7), None),
+                                    ((4, 10), (2, 10), (4, 6), (4, 9)),
+                                    ((4, 10), (2, 10), (4, 6), (3, 10))])
+def test_gossip_mix_rejects_bad_repeats_and_centres(shapes):
+    x, u, w = (torch.zeros(s) for s in shapes[:3])
+    centre = None if shapes[3] is None else torch.zeros(shapes[3])
+    with pytest.raises(ValueError):
+        ops.gossip_mix(x, u, w, centre=centre)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,length", [(4, 6922), (4, 1_000_003), (8, 4096)])
+def test_cuda_gossip_mix_bf16round_bit_equal(w, length):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(length)
+    x, mw = _matching_operands(gen, "cuda", w, length)
+    before = (ops.LAUNCHES["gossip_mix"],
+              ops.INSTANCE_LAUNCHES["gossip_mix:bf16round"])
+    y = ops.gossip_mix(x, x, mw, round_bf16=True)
+    assert (ops.LAUNCHES["gossip_mix"],
+            ops.INSTANCE_LAUNCHES["gossip_mix:bf16round"]) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(y, ref.gossip_mix_ref(x, x, mw, round_bf16=True))
+
+
+# the compressed matching gossip's call: the sum from x, the terms from
+# the payload (u = centre), and the uncompressed call with a centre of x
+# given (c = x, so the rows of c are staged with u's); 16 workers' 15
+# matchings take K = 240 columns, past one staged chunk of 64
+@pytest.mark.cuda
+@pytest.mark.parametrize("round_bf16", [False, True])
+@pytest.mark.parametrize("w,length", [(4, 6922), (4, 1_000_003), (8, 4096),
+                                      (16, 5000)])
+def test_cuda_gossip_mix_centre_bit_equal(w, length, round_bf16):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(length + 1)
+    x, mw = _matching_operands(gen, "cuda", w, length)
+    payload = torch.randn(w, length, generator=gen, device="cuda")
+    for u, centre in ((payload, payload), (x, x), (payload, x)):
+        before = ops.LAUNCHES["gossip_mix"]
+        y = ops.gossip_mix(x, u, mw, centre=centre, round_bf16=round_bf16)
+        assert ops.LAUNCHES["gossip_mix"] == before + 1
+        assert torch.equal(y, ref.gossip_mix_ref(
+            x, u, mw, centre=centre, round_bf16=round_bf16))
+
+
 # (S, B, K, L, a mixing matrix shared by the lanes): the batched MLP
 # round (4 lanes of the W = 30 fleet, u = x), AD-PSGD's pairwise average
 # (one row a lane) and both endpoints' rows (two), a lane count past
