@@ -44,7 +44,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    ``scaled_dot_product_attention``'s time; its bf16 instances at
    ``FLASH_BF16_CASES`` within one bf16 ulp, with the share of elements
    that differ, the bound of bf16 bytes against the operations at bf16's
-   989 TFLOP/s, and bf16 SDPA's time) and
+   989 TFLOP/s, the issued bound (1.5 x those operations: the tile
+   instance's p v twice, p split hi / lo) and bf16 SDPA's time; the bf16
+   tile instance, ``flash_attention_bf16.cu``, is an entry of the
+   kernels line of its own) and
    ``consensus_dist`` (the kernel benchmark's shape and phase 7's, its
    path: 3 rows of L = 361,821,120; within 1e-6 relative);
    ``gossip_mix``'s lane-strided
@@ -206,6 +209,7 @@ import contextlib
 import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1210,16 +1214,20 @@ def check_flash_attention(cycles_per_ms: float,
     and the bound: the bytes at the dtype's element size over HBM's rate,
     against the operations at the dtype's peak (f32 FMAs outside the
     tensor cores, or bf16's dense tensor-core rate). ``tc_bound_ms`` is a
-    diagnostic beside it: the operations the instance issues on TF32
-    tensor cores (three products per product in f32, 3xTF32; one for q
-    k^T and two for p v in bf16, whose values TF32 holds exactly)."""
+    diagnostic beside it: the operations the tile instance issues on the
+    tensor cores (in f32 three TF32 products per product, 3xTF32, at
+    TF32's rate; in bf16 one product for q k^T and two for p v, p split
+    hi / lo, at bf16's rate). In bf16 the short instance and the tile
+    instance (its own kernel, ``flash_attention_bf16.cu``) are two
+    entries of the kernels line: the short one at the measurement
+    group, the tile one at smollm-360m's train shape."""
     bf16 = dtype == torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(5 if bf16 else 4)
     cases = [c for c in FLASH_CASES if not bf16 or c[0] in FLASH_BF16_CASES]
-    elem, peak, tc_products = (2, BF16_FLOPS, 1.5) if bf16 else \
-        (4, F32_FLOPS, 3.0)
+    elem, peak, tc_products, tc_peak = (2, BF16_FLOPS, 1.5, BF16_FLOPS) \
+        if bf16 else (4, F32_FLOPS, 3.0, TF32_FLOPS)
     suffix = "/bf16" if bf16 else ""
-    worst, main = 0.0, None
+    worst, main, tile_worst, tile_main = 0.0, None, 0.0, None
     for case, b, s, hq, hkv, hd, causal, window, is_main in cases:
         q, k, v = (torch.randn(b, s, h, hd, generator=gen, device="cuda")
                    .to(dtype) for h in (hq, hkv, hkv))
@@ -1235,7 +1243,7 @@ def check_flash_attention(cycles_per_ms: float,
         tol = ref.bf16_ulp(y_ref).clamp_min(FLASH_ATOL) if bf16 else \
             FLASH_ATOL + FLASH_RTOL * y_ref.abs()
         err = float(diff.max())
-        if bool((diff > tol).any()):
+        if not bool((diff <= tol).all()):      # a NaN fails too
             raise AssertionError(
                 f"flash_attention[{case}{suffix}] differs from its plain "
                 f"version past " + ("one bf16 ulp" if bf16 else "2e-5")
@@ -1275,9 +1283,10 @@ def check_flash_attention(cycles_per_ms: float,
         flops = 4 * b * hq * hd * pairs
         bound_ms, bound_by = _bound(nbytes, flops, peak)
         tc_ms = max(nbytes / HBM_BYTES_PER_S,
-                    tc_products * flops / TF32_FLOPS) * 1e3
+                    tc_products * flops / tc_peak) * 1e3
+        instance = ops.flash_instance(q, k, v)
         log("phase2", kernel="flash_attention", case=case + suffix,
-            instance=ops.flash_instance(q, k, v), B=b, S=s, Hq=hq,
+            instance=instance, B=b, S=s, Hq=hq,
             Hkv=hkv, hd=hd, causal=forced, window=window,
             max_abs_err=err, sdpa_max_abs_diff=lib_err, **extra,
             ms=f"{kernel_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
@@ -1287,18 +1296,31 @@ def check_flash_attention(cycles_per_ms: float,
             tflops=f"{flops / kernel_ms / 1e9:.3f}",
             share_of_bound=f"{bound_ms / kernel_ms:.4f}",
             share_of_tc_bound=f"{tc_ms / kernel_ms:.4f}")
+        timed = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                     bound_ms=bound_ms, bound_by=bound_by)
         if is_main:
-            main = dict(ms=kernel_ms, plain_ms=plain_ms,
-                        library_ms=library_ms, bound_ms=bound_ms,
-                        bound_by=bound_by)
+            main = timed
+        if bf16 and instance == "tile":
+            tile_worst = max(tile_worst, err)
+            if case == "smollm-train":
+                tile_main = timed
         del q, k, v, y, y_ref, mask, diff, tol
         torch.cuda.empty_cache()
     tag = "bf16" if bf16 else "f32"
-    return dict(name="flash_attention" + ("_bf16" if bf16 else ""),
+    out = [dict(name="flash_attention" + ("_bf16" if bf16 else ""),
                 route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:77",
-                max_abs_err=worst, count_key=f"flash_attention:{tag}", **main)
+                max_abs_err=worst, count_key=f"flash_attention:{tag}",
+                **main)]
+    if bf16:
+        out.append(dict(
+            name="flash_attention_bf16_tile", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
+            replaces="src/repro/kernels/flash_attention.py:77",
+            max_abs_err=tile_worst, count_key="flash_attention:bf16_tile",
+            **tile_main))
+    return out
 
 
 def check_consensus_dist(cycles_per_ms: float) -> dict:
@@ -3017,10 +3039,12 @@ def run_trainer() -> dict[str, int]:
             counts["consensus_dist"] != rounds or \
             counts["flash_attention"] != want_flash or \
             counts["flash_attention:bf16"] != want_flash or \
+            counts["flash_attention:bf16_tile"] != want_flash or \
             counts["quantize_block"] or counts["gossip_edges"]:
         raise AssertionError(f"{name}: launched {counts}; the path launches "
                              f"gossip_mix (bf16round) and consensus_dist "
-                             f"once a round, flash {want_flash} times")
+                             f"once a round, flash {want_flash} times "
+                             f"(the bf16 tile instance)")
     failures = holds.failures()
     if holds.held["flash_attention"] != flash_step * caps[0]:
         failures.append(f"held {holds.held['flash_attention']} flash calls")
@@ -3144,11 +3168,40 @@ def _log_trace(prof, path: str, wall: float) -> None:
         f"{name}_kernel" in e.key or f"{name}_f32" in e.key
         for name in ("gossip_mix", "quantize", "dequantize", "sparsify",
                      "gossip_edges", "robust_gossip", "flash_fwd",
-                     "flash_short", "consensus"))]
+                     "flash_short", "flash_bf16", "consensus"))]
     for e in top + ours:
         log("trace", kernel=repr(e.key[:90]), calls=e.count,
             device_ms=f"{e.self_device_time_total / 1e3:.3f}",
             share=f"{e.self_device_time_total / busy_us:.4f}")
+
+
+def bf16_tile_sass(lib: Path) -> dict[str, dict[str, int]]:
+    """The bf16 tile instance's tensor-core instructions in the built
+    library's SASS (``cuobjdump -sass``), per head width: its kernels
+    must issue bf16 warpgroup products (HGMMA) and no TF32 ``mma.sync``
+    (an HMMA on TF32 operands, the instance it replaced); raises
+    otherwise -> {hd: {"HGMMA": n, "HMMA": n, "TF32": n}}."""
+    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / \
+        "bin" / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_bf16_kernelILi(\d+)E", line)
+            current = counts.setdefault(m.group(1), dict.fromkeys(
+                ("HGMMA", "HMMA", "TF32"), 0)) if m else None
+        elif current is not None:
+            for op in ("HGMMA", "HMMA"):
+                current[op] += bool(re.search(rf"\b{op}\b", line))
+            current["TF32"] += "HMMA" in line and "TF32" in line
+    if sorted(map(int, counts)) != sorted(ops.FLASH_HEAD_DIMS) or any(
+            c["HGMMA"] == 0 or c["TF32"] for c in counts.values()):
+        raise AssertionError(f"the bf16 tile instance's SASS: {counts}; "
+                             "every head width must issue HGMMA and no "
+                             "TF32 HMMA")
+    return counts
 
 
 def main() -> int:
@@ -3191,6 +3244,7 @@ def main() -> int:
     log("phase1", card=repr(card), torch=torch.__version__,
         cuda=torch.version.cuda, build_s=f"{build_s:.3f}",
         library=lib.name, ptxas=ptxas)
+    log("phase1", bf16_tile_sass=bf16_tile_sass(lib))
 
     cycles_per_ms = _sleep_cycles_per_ms()
     marks = [("start", time.perf_counter())]

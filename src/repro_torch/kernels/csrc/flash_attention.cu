@@ -136,25 +136,19 @@
 // each product's terms, so both instances are held to 2e-5 against the
 // plain version, not bit for bit.
 //
-// bf16 instances (both kernels, every head width; templated on the element
-// type T) compute what the reference's Pallas kernel computes on bf16
-// operands: q k^T of the bf16 values accumulated in f32, the scale, mask and
-// online softmax in f32, p kept in f32, p v accumulated in f32 with v read
-// exactly, and the output rounded to bf16 once, at the end (round to
-// nearest even). A bf16 value is exact in TF32 (8 significand bits of TF32's
-// 11), so its fragment is its bits shifted left 16, with no split: q k^T is
-// ONE TF32 mma.sync where f32 takes three, and p v two (p split hi / lo
-// against the exact v). Shared memory holds the bf16 values (half the f32
-// bytes: rows padded by 8 elements, 16 bytes, to HD + 8, where a fragment's
-// lanes read 16 distinct 32-bit words, two lanes a word); the short kernel
-// reads a thread's 4-element chunks as 8 bytes (its quad's 64-byte f32 row
-// slice becomes 32 bytes; 16-byte chunks would not split hd 112's 14 over a
-// quad). The plain version (ref.flash_attention_ref) upcasts, runs the f32
+// bf16 instances: the short kernel is templated on the element type T and
+// computes what the reference's Pallas kernel computes on bf16 operands: q
+// k^T of the bf16 values accumulated in f32, the scale, mask and online
+// softmax in f32, p v accumulated in f32 with v read exactly, and the
+// output rounded to bf16 once, at the end (round to nearest even); it reads
+// a thread's 4-element chunks as 8 bytes (its quad's 64-byte f32 row slice
+// becomes 32 bytes; 16-byte chunks would not split hd 112's 14 over a
+// quad). The bf16 tile instance is a kernel of its own, on Hopper's
+// warpgroup tensor cores in bf16 (flash_attention_bf16.cu); the launcher
+// flash_attention_bf16 sends it every bf16 call the caller gives the tile
+// kernel. The plain version (ref.flash_attention_ref) upcasts, runs the f32
 // composition and rounds once, so a bf16 instance agrees with it to one
-// bf16 ulp per element (the f32 results differ in their last bits and may
-// round apart). Bound: as for f32, with 2 bytes an element and the FLOPs at
-// TF32's 495 TFLOP/s times the products the instance issues (1 for q k^T, 2
-// for p v).
+// bf16 ulp per element.
 //
 // Bound: q, k and v read once and o written once; 4 B Hq S Sk_eff hd
 // operations (two products, Sk_eff the keys in reach, about Sk / 2 under
@@ -187,20 +181,10 @@ constexpr float kNegInf = -1e30f;
 
 typedef __nv_bfloat16 bf16;
 
-// an element type's 16-byte chunk, and whether its values are exact TF32
-// operands (bf16: yes, no 3xTF32 split; f32: no)
+// an element type's 16-byte chunk
 template <typename T>
 __host__ __device__ constexpr int chunk_elems() {
   return 16 / (int)sizeof(T);
-}
-template <typename T>
-__host__ __device__ constexpr bool exact_tf32() {
-  return sizeof(T) == 2;
-}
-
-// the TF32 operand bits of a bf16 value: its f32 bits, exact
-__device__ __forceinline__ uint32_t tf32_bits(bf16 a) {
-  return (uint32_t)__bfloat16_as_ushort(a) << 16;
 }
 
 // four elements as floats: a float4, or four bf16 in 8 bytes
@@ -240,14 +224,11 @@ __device__ __forceinline__ void store4(bf16* p, float4 v) {
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
-// the tile kernel's shape per head width: each warp owns MT m-tiles of 16
-// query rows (a block 64 MT rows), a key tile is KEYS keys; shared memory
-// holds Q's rows and two stages of K and V, every row padded by 16 bytes
-// (hd + 4 floats, hd + 8 bf16);
+// the f32 tile kernel's shape per head width: each warp owns MT m-tiles
+// of 16 query rows (a block 64 MT rows), a key tile is KEYS keys; shared
+// memory holds Q's rows and two stages of K and V, every row padded by 16
+// bytes (hd + 4 floats);
 // MIN_BLOCKS blocks an SM bound the registers (65,536 / (128 MIN_BLOCKS))
 template <int HD> struct TileShape;
 template <> struct TileShape<64> {
@@ -268,10 +249,10 @@ __host__ __device__ constexpr int tile_rows() {
   return 64 * TileShape<HD>::kMT;
 }
 
-template <int HD, typename T>
+template <int HD>
 __host__ __device__ constexpr size_t tile_smem_bytes() {
-  return ((size_t)tile_rows<HD>() + 4 * TileShape<HD>::kKeys) *
-         (HD + chunk_elems<T>()) * sizeof(T);
+  return ((size_t)tile_rows<HD>() + 4 * TileShape<HD>::kKeys) * (HD + 4) *
+         sizeof(float);
 }
 
 // 16 bytes, or 16 zero bytes where `fill` is false (nothing is read)
@@ -336,12 +317,13 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
   mma_tf32(c, ah, bh0, bh1);
 }
 
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, TileShape<HD>::kMinBlocks)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int Sk,
-                 int Hq, int Hkv, int tiles, int causal, int window,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S,
+                 int Sk, int Hq, int Hkv, int tiles, int causal, int window,
                  float scale) {
+  typedef float T;
   constexpr int MT = TileShape<HD>::kMT;
   constexpr int KEYS = TileShape<HD>::kKeys;
   constexpr int ROWS = tile_rows<HD>();
@@ -457,8 +439,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         (causal && j0 + KEYS - 1 > pmin) ||
                         (window && j0 <= pmax - window);
 
-    // s = q k^T in 3xTF32 (one TF32 product of exact bf16 operands); a
-    // split K fragment serves every m-tile
+    // s = q k^T in 3xTF32; a split K fragment serves every m-tile
     float s[MT][NJ][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -466,53 +447,28 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
-    if constexpr (exact_tf32<T>()) {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t a[MT][4];
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const T* qr = sq + (warp * 16 * MT + 16 * mt + gq) * LD + 8 * ks +
-                        tq;
-          a[mt][0] = tf32_bits(qr[0]);
-          a[mt][1] = tf32_bits(qr[8 * LD]);
-          a[mt][2] = tf32_bits(qr[4]);
-          a[mt][3] = tf32_bits(qr[8 * LD + 4]);
-        }
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          if (j < nj) {
-            const T* kr = sk + (8 * j + gq) * LD + 8 * ks + tq;
-            const uint32_t b0 = tf32_bits(kr[0]), b1 = tf32_bits(kr[4]);
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) mma_tf32(s[mt][j], a[mt], b0, b1);
-          }
-        }
+      for (int mt = 0; mt < MT; ++mt) {
+        const T* qr = sq + (warp * 16 * MT + 16 * mt + gq) * LD +
+                      8 * ks + tq;
+        split_tf32(qr[0], ah[mt][0], al[mt][0]);
+        split_tf32(qr[8 * LD], ah[mt][1], al[mt][1]);
+        split_tf32(qr[4], ah[mt][2], al[mt][2]);
+        split_tf32(qr[8 * LD + 4], ah[mt][3], al[mt][3]);
       }
-    } else {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t ah[MT][4], al[MT][4];
+      for (int j = 0; j < NJ; ++j) {
+        if (j < nj) {
+          const T* kr = sk + (8 * j + gq) * LD + 8 * ks + tq;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(kr[0], bh0, bl0);
+          split_tf32(kr[4], bh1, bl1);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const T* qr = sq + (warp * 16 * MT + 16 * mt + gq) * LD +
-                        8 * ks + tq;
-          split_tf32(qr[0], ah[mt][0], al[mt][0]);
-          split_tf32(qr[8 * LD], ah[mt][1], al[mt][1]);
-          split_tf32(qr[4], ah[mt][2], al[mt][2]);
-          split_tf32(qr[8 * LD + 4], ah[mt][3], al[mt][3]);
-        }
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          if (j < nj) {
-            const T* kr = sk + (8 * j + gq) * LD + 8 * ks + tq;
-            uint32_t bh0, bl0, bh1, bl1;
-            split_tf32(kr[0], bh0, bl0);
-            split_tf32(kr[4], bh1, bl1);
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-              mma_3xtf32(s[mt][j], ah[mt], al[mt], bh0, bh1, bl0, bl1);
-          }
+          for (int mt = 0; mt < MT; ++mt)
+            mma_3xtf32(s[mt][j], ah[mt], al[mt], bh0, bh1, bl0, bl1);
         }
       }
     }
@@ -569,8 +525,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    // acc += p v in 3xTF32 (two TF32 products, p's hi and lo parts,
-    // against an exact bf16 v). p's accumulator layout is the A fragment of
+    // acc += p v in 3xTF32. p's accumulator layout is the A fragment of
     // the next product once the keys of an 8-key step are taken in the
     // order 0, 2, 4, 6, 1, 3, 5, 7: thread tq holds keys 2 tq and 2 tq + 1
     // of rows gq and gq + 8, which are A's columns tq and tq + 4 -- so B
@@ -611,23 +566,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int c = 0; c < KC; ++c) {
           if (c0 + c < nj) {
             const T* vr = sv + (8 * (c0 + c) + 2 * tq) * LD + gq + 8 * n;
-            if constexpr (exact_tf32<T>()) {
-              const uint32_t b0 = tf32_bits(vr[0]);
-              const uint32_t b1 = tf32_bits(vr[LD]);
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(vr[0], bh0, bl0);
+            split_tf32(vr[LD], bh1, bl1);
 #pragma unroll
-              for (int mt = 0; mt < MT; ++mt) {
-                mma_tf32(part[mt], pl[c][mt], b0, b1);
-                mma_tf32(part[mt], ph[c][mt], b0, b1);
-              }
-            } else {
-              uint32_t bh0, bl0, bh1, bl1;
-              split_tf32(vr[0], bh0, bl0);
-              split_tf32(vr[LD], bh1, bl1);
-#pragma unroll
-              for (int mt = 0; mt < MT; ++mt)
-                mma_3xtf32(part[mt], ph[c][mt], pl[c][mt], bh0, bh1, bl0,
-                           bl1);
-            }
+            for (int mt = 0; mt < MT; ++mt)
+              mma_3xtf32(part[mt], ph[c][mt], pl[c][mt], bh0, bh1, bl0, bl1);
           }
         }
 #pragma unroll
@@ -660,15 +604,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int HD, typename T>
-int launch(const T* q, const T* k, const T* v, T* o, int B, int S, int Sk,
-           int Hq, int Hkv, int causal, int window, float scale,
-           cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes<HD, T>();
+template <int HD>
+int launch(const float* q, const float* k, const float* v, float* o, int B,
+           int S, int Sk, int Hq, int Hkv, int causal, int window,
+           float scale, cudaStream_t stream) {
+  const size_t smem = tile_smem_bytes<HD>();
   static bool opted_in = false;        // once per instance and process
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<HD, T>,
+        flash_fwd_kernel<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     opted_in = true;
@@ -676,7 +620,7 @@ int launch(const T* q, const T* k, const T* v, T* o, int B, int S, int Sk,
   const int rows = (Hq / Hkv) * S;
   const int tiles = (rows + tile_rows<HD>() - 1) / tile_rows<HD>();
   const unsigned grid = (unsigned)((int64_t)B * Hkv * tiles);
-  flash_fwd_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
       q, k, v, o, S, Sk, Hq, Hkv, tiles, causal, window, scale);
   return (int)cudaGetLastError();
 }
@@ -824,33 +768,34 @@ int launch_short(const T* q, const T* k, const T* v, T* o, int B, int S,
 }
 
 template <typename T>
-int dispatch(const T* q, const T* k, const T* v, T* o, int B, int S, int Sk,
-             int Hq, int Hkv, int hd, int causal, int window, int short_path,
-             float scale, void* stream) {
-  if (B == 0 || S == 0) return 0;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (short_path) {
-    switch (hd) {
-      case 64:
-        return launch_short<64>(q, k, v, o, B, S, Sk, Hq, Hkv, causal,
-                                window, scale, st);
-      case 112:
-        return launch_short<112>(q, k, v, o, B, S, Sk, Hq, Hkv, causal,
-                                 window, scale, st);
-      case 128:
-        return launch_short<128>(q, k, v, o, B, S, Sk, Hq, Hkv, causal,
-                                 window, scale, st);
-      case 192:
-        return launch_short<192>(q, k, v, o, B, S, Sk, Hq, Hkv, causal,
-                                 window, scale, st);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  }
+int dispatch_short(const T* q, const T* k, const T* v, T* o, int B, int S,
+                   int Sk, int Hq, int Hkv, int hd, int causal, int window,
+                   float scale, cudaStream_t st) {
   switch (hd) {
     case 64:
-      return launch<64>(q, k, v, o, B, S, Sk, Hq, Hkv, causal, window,
-                        scale, st);
+      return launch_short<64>(q, k, v, o, B, S, Sk, Hq, Hkv, causal, window,
+                              scale, st);
+    case 112:
+      return launch_short<112>(q, k, v, o, B, S, Sk, Hq, Hkv, causal,
+                               window, scale, st);
+    case 128:
+      return launch_short<128>(q, k, v, o, B, S, Sk, Hq, Hkv, causal,
+                               window, scale, st);
+    case 192:
+      return launch_short<192>(q, k, v, o, B, S, Sk, Hq, Hkv, causal,
+                               window, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int dispatch_tile(const float* q, const float* k, const float* v, float* o,
+                  int B, int S, int Sk, int Hq, int Hkv, int hd, int causal,
+                  int window, float scale, cudaStream_t st) {
+  switch (hd) {
+    case 64:
+      return launch<64>(q, k, v, o, B, S, Sk, Hq, Hkv, causal, window, scale,
+                        st);
     case 112:
       return launch<112>(q, k, v, o, B, S, Sk, Hq, Hkv, causal, window,
                          scale, st);
@@ -867,22 +812,34 @@ int dispatch(const T* q, const T* k, const T* v, T* o, int B, int S, int Sk,
 
 }  // namespace
 
+// the bf16 tile instance (flash_attention_bf16.cu)
+extern "C" int flash_attention_bf16_tile(const void* q, const void* k,
+                                         const void* v, void* o, int B,
+                                         int S, int Sk, int Hq, int Hkv,
+                                         int hd, int causal, int window,
+                                         float scale, void* stream);
+
 // Launches on `stream`, allocates nothing, and returns a cudaError_t as an
 // int (0 == success; cudaErrorInvalidValue for a head dim without an
 // instance, or the short kernel asked for Sk > 64). The caller picks the
 // instance (`short_path`: Sk within its limit, at most 64, and q, k, v,
-// o 16-byte aligned; the tile kernel also needs q, k, v aligned) and
-// checks shapes, dtypes, devices, Hq % Hkv == 0, S <= Sk and
-// B * Hkv * ceil(g * S / rows) < 2**31 (rows a block: 64 for the short
-// kernel, tile_rows<hd>() for the tile kernel). flash_attention_f32 takes
-// f32 operands, flash_attention_bf16 bf16 ones (and writes bf16).
+// o 16-byte aligned; the tile kernels also need q, k, v aligned) and
+// checks shapes, dtypes, devices, Hq % Hkv == 0, S <= Sk and that the grid
+// fits 2**31 blocks (the short kernel: B * Hkv * ceil(g * S / 64); the f32
+// tile kernel: B * Hkv * ceil(g * S / tile_rows<hd>()); the bf16 tile
+// kernel: B * Hq * ceil(S / 128)). flash_attention_f32 takes f32
+// operands, flash_attention_bf16 bf16 ones (and writes bf16).
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, int B, int S,
                                    int Sk, int Hq, int Hkv, int hd,
                                    int causal, int window, int short_path,
                                    float scale, void* stream) {
-  return dispatch<float>(q, k, v, o, B, S, Sk, Hq, Hkv, hd, causal, window,
-                         short_path, scale, stream);
+  if (B == 0 || S == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return short_path ? dispatch_short<float>(q, k, v, o, B, S, Sk, Hq, Hkv,
+                                            hd, causal, window, scale, st)
+                    : dispatch_tile(q, k, v, o, B, S, Sk, Hq, Hkv, hd,
+                                    causal, window, scale, st);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
@@ -890,9 +847,13 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     int Sk, int Hq, int Hkv, int hd,
                                     int causal, int window, int short_path,
                                     float scale, void* stream) {
-  return dispatch<bf16>(static_cast<const bf16*>(q),
-                        static_cast<const bf16*>(k),
-                        static_cast<const bf16*>(v), static_cast<bf16*>(o),
-                        B, S, Sk, Hq, Hkv, hd, causal, window, short_path,
-                        scale, stream);
+  if (B == 0 || S == 0) return 0;
+  if (!short_path)
+    return flash_attention_bf16_tile(q, k, v, o, B, S, Sk, Hq, Hkv, hd,
+                                     causal, window, scale, stream);
+  return dispatch_short<bf16>(static_cast<const bf16*>(q),
+                              static_cast<const bf16*>(k),
+                              static_cast<const bf16*>(v),
+                              static_cast<bf16*>(o), B, S, Sk, Hq, Hkv, hd,
+                              causal, window, scale, (cudaStream_t)stream);
 }

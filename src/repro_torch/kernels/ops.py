@@ -38,13 +38,15 @@ LAUNCHES = {"gossip_mix": 0, "gossip_mix_lanes": 0, "quantize_block": 0,
             "dequantize_block": 0, "sparsify_block": 0, "gossip_edges": 0,
             "robust_gossip": 0, "flash_attention": 0, "consensus_dist": 0}
 # gossip_mix's bf16-rounded form, robust_gossip's and gossip_edges'
-# launches by instance, and flash_attention's by operand dtype (each also
-# counts in LAUNCHES)
+# launches by instance, and flash_attention's by operand dtype and, of
+# the bf16 ones, those of the tile instance (each also counts in
+# LAUNCHES)
 INSTANCE_LAUNCHES = {"gossip_mix:bf16round": 0,
                      "robust_gossip:register": 0, "robust_gossip:wide": 0,
                      "robust_gossip:shared": 0, "gossip_edges:staged": 0,
                      "gossip_edges:gather": 0, "flash_attention:f32": 0,
-                     "flash_attention:bf16": 0}
+                     "flash_attention:bf16": 0,
+                     "flash_attention:bf16_tile": 0}
 
 # gossip_mix stages u and w in chunks of 64 neighbours, so K is not
 # bounded by shared memory; it keeps the limit of its first version, which
@@ -82,10 +84,12 @@ CONSENSUS_BLOCK_COLS = 2048
 # flash_attention's two instances: the short-sequence kernel takes Sk up
 # to FLASH_SHORT_MAX_KEYS[hd] (the group's whole K and V in shared
 # memory, room for 64 keys; 16-byte aligned operands), the tile kernel
-# longer Sk (four warps on the tensor cores, 32 query rows a warp at hd
-# 64, 112 and 128, 16 at hd 192). The limits are where the two cross on
-# an H100 (tools/kernel_ab.py at Sk = 16, 32, 48, 64: the short kernel
-# wins up to 48 keys at hd 64 and 192, up to 32 at hd 128); at hd 112 it
+# longer Sk (in f32 four warps on the tensor cores, 32 query rows a warp
+# at hd 64, 112 and 128, 16 at hd 192; in bf16 its own kernel on
+# Hopper's warpgroup products, csrc/flash_attention_bf16.cu). The limits
+# are where the two cross in f32 on an H100 (tools/kernel_ab.py at Sk =
+# 16, 32, 48, 64: the short kernel wins up to 48 keys at hd 64 and 192,
+# up to 32 at hd 128; bf16 takes the same limits); at hd 112 it
 # wins at every Sk it has room for on zamba2-7b's 32 ungrouped heads but
 # only to about 20 keys on kimi-k2's 64 / 8 heads, and the limit is the
 # worse of the two (the crossing sweep in PERF.md). A block takes this
@@ -93,6 +97,10 @@ CONSENSUS_BLOCK_COLS = 2048
 FLASH_SHORT_MAX_KEYS = {64: 48, 112: 16, 128: 32, 192: 48}
 FLASH_SHORT_ROWS = 64
 FLASH_TILE_ROWS = {64: 128, 112: 128, 128: 128, 192: 64}
+# the bf16 tile instance (csrc/flash_attention_bf16.cu: two consumer
+# warpgroups of 64 rows on Hopper's wgmma) takes one query head's 128
+# positions a block, at every head width
+FLASH_BF16_TILE_ROWS = 128
 # flash_attention's template instances: the registry models' head widths
 # (smollm 64; zamba2 and kimi-k2 112; gemma3, internlm2 and olmoe 128;
 # nemotron 192)
@@ -215,10 +223,10 @@ def _check_cuda(name: str, tensors: dict[str, torch.Tensor],
 
 
 def _launch(name: str, fn, device: torch.device, *args,
-            instance: str | None = None) -> None:
+            instance: str | tuple[str, ...] | None = None) -> None:
     """Call the library's launcher ``fn`` on ``device``'s current stream,
     raise on a refused launch, count a successful one (and its
-    ``instance`` in INSTANCE_LAUNCHES)."""
+    ``instance``, or each of a tuple of them, in INSTANCE_LAUNCHES)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
@@ -227,8 +235,8 @@ def _launch(name: str, fn, device: torch.device, *args,
                            f"{_library().cuda_error_string(err).decode()} "
                            f"({err})")
     LAUNCHES[name] += 1
-    if instance is not None:
-        INSTANCE_LAUNCHES[f"{name}:{instance}"] += 1
+    for inst in (instance,) if isinstance(instance, str) else instance or ():
+        INSTANCE_LAUNCHES[f"{name}:{inst}"] += 1
 
 
 def _check_rows(name: str, w: int, p: int) -> None:
@@ -545,10 +553,26 @@ def flash_instance(q: torch.Tensor, k: torch.Tensor,
 def flash_block_rows(q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor) -> int:
     """The query rows a block of the instance ``flash_instance`` names
-    takes."""
+    takes: of a KV group's g * S (short, f32 tile), or of one head's S
+    positions (bf16 tile)."""
     if flash_instance(q, k, v) == "short":
         return FLASH_SHORT_ROWS
+    if q.dtype == torch.bfloat16:
+        return FLASH_BF16_TILE_ROWS
     return FLASH_TILE_ROWS[q.shape[3]]
+
+
+def flash_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """The blocks a launch of the instance ``flash_instance`` names runs:
+    the short kernel and the f32 tile one per (sequence, KV head, chunk of
+    the group's g * S query rows), the bf16 tile one per (sequence, query
+    head, chunk of its S positions)."""
+    b, s, hq, _ = q.shape
+    rows = flash_block_rows(q, k, v)
+    if flash_instance(q, k, v) == "tile" and q.dtype == torch.bfloat16:
+        return b * hq * -(-s // rows)
+    hkv = k.shape[2]
+    return b * hkv * -(-(hq // hkv) * s // rows)
 
 
 # flash_attention's launchers by operand dtype (the .cu's instances) and
@@ -570,16 +594,21 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sk, hkv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     short = flash_instance(q, k, v) == "short"
+    instance = _FLASH_DTYPES[q.dtype]
     if not short:
-        # the tile kernel stages K and V with 16-byte asynchronous copies:
-        # an operand that starts off 16 bytes goes in as a fresh copy
+        # the tile kernels stage K and V with 16-byte asynchronous copies
+        # (f32) or TMA (bf16, whose tensor maps need 16-byte aligned
+        # bases): an operand that starts off 16 bytes goes in as a fresh
+        # copy
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
                    for t in (q, k, v))
+        if q.dtype == torch.bfloat16:
+            instance = (instance, "bf16_tile")
     _launch("flash_attention",
             getattr(_library(), _FLASH_LAUNCHERS[q.dtype]), q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
             sk, hq, hkv, hd, int(causal), window, int(short), hd ** -0.5,
-            instance=_FLASH_DTYPES[q.dtype])
+            instance=instance)
     return o
 
 
@@ -625,8 +654,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Differentiable: the backward recomputes through the plain version.
     CPU tensors run the plain version (``ref.flash_attention_ref``);
     CUDA tensors launch the kernel instance ``flash_instance`` names (f32
-    or bf16; another dtype raises) and count the launch. Operands of
-    mixed dtypes raise."""
+    or bf16; another dtype raises; a bf16 tile launch runs the wgmma
+    kernel of ``csrc/flash_attention_bf16.cu``) and count the launch.
+    Operands of mixed dtypes raise."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or \
             q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
         raise ValueError("flash_attention takes q [B, S, Hq, hd], k and v "
@@ -646,12 +676,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if s > sk:
         raise ValueError(f"flash_attention needs S <= Sk; got S={s}, "
                          f"Sk={sk}")
-    # either instance launches one block per (sequence, KV head, chunk of
-    # its rows a block of the group's query rows)
-    chunks = -(-(hq // hkv) * s // flash_block_rows(q, k, v))
-    if b * hkv * chunks >= 2 ** 31:
-        raise ValueError("flash_attention: B * Hkv * query-row chunks must "
-                         "fit the kernel grid's x axis (< 2**31)")
+    if flash_blocks(q, k, v) >= 2 ** 31:
+        raise ValueError("flash_attention: the instance's blocks (B * Hkv "
+                         "or B * Hq times its query-row chunks) must fit "
+                         "the kernel grid's x axis (< 2**31)")
     causal = bool(causal) or sk % 128 != 0
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), causal, int(window))

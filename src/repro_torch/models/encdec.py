@@ -116,6 +116,24 @@ def attention_calls(cfg: ModelConfig) -> int:
     return 0
 
 
+def activation_floats(cfg: ModelConfig, seq_len: int) -> int:
+    """The floats one decoder token's forward keeps for the backward
+    pass, about: the encoder's per-frame activations (an attention + MLP
+    block's, ``dense.attention_block_floats``, a layer) over the frames
+    a decoder token stands for (``seq_len / dec_len(seq_len)``, about
+    ``DEC_RATIO``), and per decoder layer the self-attention + MLP
+    block's, plus the cross-attention's norm input and output, q, its
+    output and residual, and its K and V over those frames."""
+    frames = -(-seq_len // dec_len(seq_len))
+    hd = cfg.resolved_head_dim
+    qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    enc = cfg.encoder_layers * dense.attention_block_floats(cfg, cfg.d_ff)
+    cross = 3 * cfg.d_model + 2 * qd + frames * 2 * kvd
+    dec = cfg.decoder_layers * (dense.attention_block_floats(cfg, cfg.d_ff)
+                                + cross)
+    return frames * enc + dec
+
+
 def _ln(x, gain, eps: float):
     """The reference's layer norm of gain 1 + ``gain`` and no bias."""
     return L.layer_norm(x, 1.0 + gain, torch.zeros_like(gain), eps)

@@ -6,6 +6,7 @@ Inputs cross between the two packages as numpy arrays only.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import replace
 
 import jax
@@ -66,7 +67,16 @@ def jax_init(seed: int, num_workers: int, dim: int = 32, hidden: int = 64,
     """The reference's ``adapter.init(PRNGKey(seed))`` for the model
     ``model`` names, broadcast to a worker-stacked numpy pytree (nested
     dicts for a registry model) — the weights both packages start
-    from."""
+    from. Computed once a process for each argument set (a registry
+    model's eager init takes seconds, and a parity case asks for it
+    three times): fresh containers around the same read-only arrays."""
+    return jax.tree.map(lambda v: v, _jax_init_once(
+        seed, num_workers, dim, hidden, num_classes, model))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_init_once(seed: int, num_workers: int, dim: int, hidden: int,
+                   num_classes: int, model: str) -> dict:
     adapter = jax_modelspec.get_adapter(model, dim=dim, hidden=hidden,
                                         num_classes=num_classes)
     p0 = adapter.init(jax.random.PRNGKey(seed))

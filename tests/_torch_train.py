@@ -54,8 +54,9 @@ def port_run(z: dict, tag: str, cfg, rounds: int, **kw):
     init = {k[len(f"{tag}/init/"):]: torch.from_numpy(v)
             for k, v in z.items() if k.startswith(f"{tag}/init/")}
     start = int(z[f"{tag}/start_round"])
-    batches = iter([{n: torch.from_numpy(z[f"{tag}/round{h}/batch/{n}"])
-                     for n in ("labels", "tokens")}
+    batches = iter([{k.rsplit("/", 1)[1]: torch.from_numpy(v)
+                     for k, v in z.items()
+                     if k.startswith(f"{tag}/round{h}/batch/")}
                     for h in range(start, rounds)])
     snaps: dict[int, torch.Tensor] = {}
     run = train(cfg, SHAPE, cpu_mesh(), steps_total=rounds, tau_max=TAU_MAX,

@@ -16,6 +16,9 @@ writes ``OUT_DIR/<case>.npz`` for each case:
   keys; the copy, ``OUT_DIR/ckpt_resume``, takes the resumed run's).
 - ``int8``: the same loop with ``--compressed`` (f32, 3 rounds);
   ``bf16_int8``: the same in bf16.
+- ``whisper``: the same loop on the whisper-large-v3 smoke config (f32,
+  the encdec family: ``frames``, ``tokens`` and ``labels`` batches),
+  2 rounds.
 - ``collectives``: ``gossip_fn`` (with and without distances, and on
   the tree cast to bf16), ``gossip_compressed_fn`` (int8, top-k, rand-k
   at two steps; int8 and rand-k also on the tree cast to bf16) and
@@ -304,6 +307,8 @@ def main(argv) -> int:
         elif case == "bf16_int8":
             train_loop(dataclasses.replace(smoke, dtype="bfloat16"),
                        ROUNDS - 1, out, "run", compressed=True)
+        elif case == "whisper":
+            train_loop(get_smoke_config("whisper-large-v3"), 2, out, "run")
         elif case == "collectives":
             collectives_cases(out)
         else:

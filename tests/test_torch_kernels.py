@@ -905,6 +905,19 @@ def test_flash_attention_rejects_bad_calls():
         q = torch.zeros(1, s, 15, hd).expand(b, -1, -1, -1)
         k = torch.zeros(1, s, 5, hd).expand(b, -1, -1, -1)
         assert ops.flash_block_rows(q, k, k) == rows
+        assert ops.flash_blocks(q, k, k) == b * 5 * chunks
+        with pytest.raises(ValueError, match="grid"):
+            ops.flash_attention(q, k, k)
+    # the bf16 tile instance: one block per (sequence, query head, chunk
+    # of 128 positions) -- 2 chunks at S = 200, every head width
+    for hd in ops.FLASH_HEAD_DIMS:
+        b = 2 ** 31 // (15 * 2) + 1
+        q = torch.zeros(1, 200, 15, hd, dtype=torch.bfloat16).expand(
+            b, -1, -1, -1)
+        k = torch.zeros(1, 200, 5, hd, dtype=torch.bfloat16).expand(
+            b, -1, -1, -1)
+        assert ops.flash_block_rows(q, k, k) == ops.FLASH_BF16_TILE_ROWS
+        assert ops.flash_blocks(q, k, k) == b * 15 * 2
         with pytest.raises(ValueError, match="grid"):
             ops.flash_attention(q, k, k)
 
@@ -1047,6 +1060,61 @@ def test_cuda_flash_attention_bf16_matches_plain_version(b, s, hq, hkv, hd,
         .sum().backward()
     for a, b_ in ((qg, qr), (kg, kr), (vg, vr)):
         assert torch.equal(a.grad, b_.grad)
+
+
+# the bf16 tile instance (csrc/flash_attention_bf16.cu) at every head
+# width: non-causal with Sk a multiple of 128, causal, sliding windows
+# (one without causal), ragged S (100 and 1,000: the last 128-position
+# chunk part empty, a consumer warpgroup wholly past S at 100 on a
+# 128-row block), and g = Hq / Hkv of 1, 3, 6 and 8 (b, s, hq, hkv, hd,
+# causal, window)
+FLASH_BF16_TILE_CASES = [(2, 256, 6, 2, 64, False, 0),
+                         (1, 1000, 8, 1, 64, True, 0),
+                         (2, 100, 6, 1, 64, True, 0),
+                         (1, 512, 4, 4, 64, True, 200),
+                         (1, 384, 3, 1, 112, False, 0),
+                         (1, 1000, 8, 1, 112, True, 0),
+                         (2, 100, 1, 1, 112, True, 0),
+                         (1, 600, 6, 1, 112, True, 128),
+                         (1, 512, 8, 1, 128, False, 0),
+                         (1, 1000, 6, 1, 128, True, 0),
+                         (2, 100, 3, 1, 128, True, 0),
+                         (1, 768, 4, 4, 128, True, 256),
+                         (1, 512, 4, 2, 128, False, 100),
+                         (1, 256, 6, 1, 192, False, 0),
+                         (1, 1000, 8, 1, 192, True, 0),
+                         (2, 100, 1, 1, 192, True, 0),
+                         (1, 640, 3, 1, 192, True, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hq,hkv,hd,causal,window",
+                         FLASH_BF16_TILE_CASES)
+def test_cuda_flash_attention_bf16_tile_matches_plain_version(
+        b, s, hq, hkv, hd, causal, window):
+    """The bf16 tile instance (wgmma bf16 products, p split hi / lo, TMA
+    key tiles) against the plain version on bf16 operands: each element
+    within one bf16 ulp, or within 2e-5 near 0 (see the test above); the
+    launch counted as a bf16 tile launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(b * s + hd + hq)
+    q, k, v = (torch.randn(b, s, h, hd, generator=gen, device="cuda")
+               .to(torch.bfloat16) for h in (hq, hkv, hkv))
+    assert ops.flash_instance(q, k, v) == "tile"
+    before = (ops.LAUNCHES["flash_attention"],
+              ops.INSTANCE_LAUNCHES["flash_attention:bf16"],
+              ops.INSTANCE_LAUNCHES["flash_attention:bf16_tile"])
+    y = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert (ops.LAUNCHES["flash_attention"],
+            ops.INSTANCE_LAUNCHES["flash_attention:bf16"],
+            ops.INSTANCE_LAUNCHES["flash_attention:bf16_tile"]) == \
+        tuple(n + 1 for n in before)
+    forced = causal or s % 128 != 0
+    want = ref.flash_attention_ref(q, k, v, causal=forced, window=window)
+    assert y.dtype == torch.bfloat16
+    assert bool(((y.float() - want.float()).abs()
+                 <= ref.bf16_ulp(want).clamp_min(2e-5)).all())
 
 
 @pytest.mark.cuda

@@ -5,11 +5,15 @@
 sources, on one card, in turns.
 
     python3 tools/kernel_ab.py --base DIR [--out FILE] \
-        [--kernels mix flash robust quant dequant edges sparsify] \
-        [--set NAME=VALUE ...] [--repeat N]
+        [--kernels mix flash flash_bf16 robust quant dequant edges
+                   sparsify] [--set NAME=VALUE ...] [--repeat N]
 
 ``DIR`` holds the other version's sources of the kernels named by
-``--kernels`` (``gossip_mix.cu``, ``flash_attention.cu``,
+``--kernels`` (``gossip_mix.cu``, ``flash_attention.cu`` for ``flash``
+and ``flash_bf16``, with ``flash_attention_bf16.cu`` where that version
+has it (the bf16 tile instance's own file, which a version from before
+it lacks: there the tile path of ``flash_attention.cu``'s
+``flash_attention_bf16`` launcher is the bf16 tile),
 ``robust_gossip.cu``, ``quantize_block.cu`` for both int8 codec
 kernels, ``gossip_edges.cu``, ``sparsify_block.cu``; for example
 written there from a git revision with ``git show
@@ -29,18 +33,25 @@ floor, ``sparsify_block`` with the top-k and the rand-k gate;
 for ``flash_attention`` also at Sk = 16, 32, 48, 64 and 65 for each
 head width; a flash case whose keys fit the short kernel (64) is timed
 with each instance forced, so the dispatch limits
-(``ops.FLASH_SHORT_MAX_KEYS``) can be set where the two cross. In the
+(``ops.FLASH_SHORT_MAX_KEYS``) can be set where the two cross.
+``flash_bf16`` times the bf16 launcher (``flash_attention_bf16``) at
+``chip_smoke.py``'s ``FLASH_BF16_CASES``, each held to one bf16 ulp of
+the plain version (or 2e-5 near 0), with bf16
+``scaled_dot_product_attention`` timed beside the two versions in the
+same call and both bounds: bf16's 989 TFLOP/s, and the issued one (1.5
+times the products: p v twice, p split hi / lo). In the
 same way ``gossip_edges`` is timed on ``EDGES_SWEEP``'s fleets with each
 of this checkout's instances forced (``ops.EDGES_STAGED_MAX_ROWS``), and
 ``sparsify_block`` at the main shape's two gates with each cluster size
 forced (``ops.sparsify_cluster``).
 Each version's output is held to the plain version (bit-equal for
 ``gossip_mix``, ``robust_gossip``, ``gossip_edges`` and the codec
-kernels, 2e-5 for ``flash_attention``), then each case is timed base,
+kernels, 2e-5 for ``flash_attention``, one bf16 ulp for its bf16
+instances), then each case is timed base,
 this checkout, this checkout, base (``chip_smoke.time_ms``: CUDA events
 around back-to-back launches). One line per case, and all of them as
 JSON in ``FILE`` (default ``build/kernel_ab.json``). ``--kernels`` names
-the kernels to time (default all seven). ``--set NAME=VALUE`` (any
+the kernels to time (default all eight). ``--set NAME=VALUE`` (any
 number of times) builds this checkout's side with the ``constexpr``
 constant ``NAME`` of those sources set to ``VALUE``, so that a build-time
 variant is timed against the base; ``--repeat N`` times every case N
@@ -66,11 +77,15 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.core import compression  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
-# --kernels name -> its source in csrc/
-SOURCES = {"mix": "gossip_mix.cu", "flash": "flash_attention.cu",
-           "robust": "robust_gossip.cu", "quant": "quantize_block.cu",
-           "dequant": "quantize_block.cu", "edges": "gossip_edges.cu",
-           "sparsify": "sparsify_block.cu"}
+# --kernels name -> its sources in csrc/
+_FLASH = ("flash_attention.cu", "flash_attention_bf16.cu")
+SOURCES = {"mix": ("gossip_mix.cu",), "flash": _FLASH, "flash_bf16": _FLASH,
+           "robust": ("robust_gossip.cu",), "quant": ("quantize_block.cu",),
+           "dequant": ("quantize_block.cu",),
+           "edges": ("gossip_edges.cu",), "sparsify": ("sparsify_block.cu",)}
+# sources an older version may lack: the bf16 tile instance's own file,
+# which flash_attention.cu calls where it exists
+OPTIONAL_SOURCES = ("flash_attention_bf16.cu",)
 # the keys the short kernel has room for (kShortMaxKeys in
 # flash_attention.cu); the dispatch limits below it are ops'
 SHORT_CAPACITY = 64
@@ -117,7 +132,8 @@ def build(src_dir: Path, name: str, kernels: list[str]) -> ctypes.CDLL:
     work = REPO / "build" / "kernel_ab" / name
     work.mkdir(parents=True, exist_ok=True)
     nvcc = ops._nvcc()
-    sources = sorted({SOURCES[k] for k in kernels})
+    sources = sorted({s for k in kernels for s in SOURCES[k]
+                      if s not in OPTIONAL_SOURCES or (src_dir / s).exists()})
     objs = [work / f"{Path(s).stem}.o" for s in sources]
     ops._run_all([[nvcc, *ops.NVCC_FLAGS, "-c", "-o", str(o),
                    str(src_dir / s)] for s, o in zip(sources, objs)])
@@ -134,10 +150,11 @@ def build(src_dir: Path, name: str, kernels: list[str]) -> ctypes.CDLL:
             lib.gossip_mix_lanes_f32.argtypes = [ctypes.c_void_p] * 4 + \
                 [ctypes.c_int] * 4 + [ctypes.c_int64, ctypes.c_void_p]
             lib.gossip_mix_lanes_f32.restype = ctypes.c_int
-    if "flash" in kernels:
-        lib.flash_attention_f32.argtypes = [ctypes.c_void_p] * 4 + \
-            [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
-        lib.flash_attention_f32.restype = ctypes.c_int
+    if "flash" in kernels or "flash_bf16" in kernels:
+        for fn in (lib.flash_attention_f32, lib.flash_attention_bf16):
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + \
+                [ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     if "robust" in kernels:
         # version 1 takes the register window d_pad after the table's D
         lib.robust_abi = _abi(lib, "robust_gossip")
@@ -183,7 +200,7 @@ def variant_sources(settings: list[str], kernels: list[str]) -> Path:
     out = REPO / "build" / "kernel_ab" / "new_src"
     out.mkdir(parents=True, exist_ok=True)
     texts = {src: (ops.CSRC / src).read_text()
-             for src in {SOURCES[k] for k in kernels}}
+             for k in kernels for src in SOURCES[k]}
     for setting in settings:
         name, value = setting.split("=", 1)
         hits = 0
@@ -248,15 +265,17 @@ def mix_lanes_call(lib, x, u, w):
 
 def flash_call(lib, q, k, v, causal: bool, window: int,
                instance: str | None = None):
-    """One launch of ``lib``'s flash kernel: the instance ``ops`` would
-    dispatch to, or ``instance``."""
+    """One launch of ``lib``'s flash kernel of q's dtype (f32 or bf16):
+    the instance ``ops`` would dispatch to, or ``instance``."""
     o = torch.empty_like(q)
     b, s, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     short = (instance or ops.flash_instance(q, k, v)) == "short"
+    launcher = lib.flash_attention_bf16 if q.dtype == torch.bfloat16 \
+        else lib.flash_attention_f32
 
     def call():
-        _check(lib.flash_attention_f32(
+        _check(launcher(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
             sk, hq, hkv, hd, int(causal), window, int(short), hd ** -0.5,
             _stream()), "flash_attention")
@@ -440,8 +459,8 @@ def run_flash(libs: dict, cycles_per_ms: float) -> list[dict]:
         for which, call in calls.items():
             got = call()
             torch.cuda.synchronize()
-            if bool(((got - want).abs() > cs.FLASH_ATOL
-                     + cs.FLASH_RTOL * want.abs()).any()):
+            if not bool(((got - want).abs() <= cs.FLASH_ATOL
+                         + cs.FLASH_RTOL * want.abs()).all()):
                 raise AssertionError(f"flash_attention[{case}] of {which} "
                                      "differs from its plain version")
         heavy = s >= 1000
@@ -455,6 +474,57 @@ def run_flash(libs: dict, cycles_per_ms: float) -> list[dict]:
                              S=s, Hq=hq, Hkv=hkv, hd=hd,
                              instance=inst or ops.flash_instance(q, k, v)))
         del q, k, v, want, calls, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_flash_bf16(libs: dict, cycles_per_ms: float) -> list[dict]:
+    """The bf16 launcher at ``FLASH_BF16_CASES``: each version within one
+    bf16 ulp of the plain version, timed in turns, with bf16
+    ``scaled_dot_product_attention`` timed beside them."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for case, b, s, hq, hkv, hd, causal, window, _ in cs.FLASH_CASES:
+        if case not in cs.FLASH_BF16_CASES:
+            continue
+        q, k, v = (torch.randn(b, s, h, hd, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for h in (hq, hkv, hkv))
+        forced = causal or s % 128 != 0
+        want = ref.flash_attention_ref(q, k, v, causal=forced, window=window)
+        tol = ref.bf16_ulp(want).clamp_min(cs.FLASH_ATOL)
+        calls = {which: flash_call(lib, q, k, v, forced, window)
+                 for which, lib in libs.items()}
+        for which, call in calls.items():
+            got = call()
+            torch.cuda.synchronize()
+            if not bool(((got.float() - want.float()).abs() <= tol).all()):
+                raise AssertionError(f"flash_attention[{case}/bf16] of "
+                                     f"{which} differs from its plain "
+                                     "version past one bf16 ulp")
+        heavy = s >= 1000
+        kw = dict(batch=2 if heavy else 5, reps=10 if heavy else 30)
+        times = in_turns(calls, cycles_per_ms, **kw)
+        mask = ref.attention_mask(s, s, causal=forced, window=window,
+                                  device="cuda")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask if window else None,
+                is_causal=forced and not window, enable_gqa=True)
+        sdpa_ms = cs.time_ms(sdpa, cycles_per_ms, **kw)
+        nbytes = (2 * b * s * hq * hd + 2 * b * s * hkv * hd) * 2
+        flops = 4 * b * hq * hd * int(mask.sum())
+        bound_ms, _ = cs._bound(nbytes, flops, cs.BF16_FLOPS)
+        issued_ms, _ = cs._bound(nbytes, 1.5 * flops, cs.BF16_FLOPS)
+        new = sum(times["new"]) / 2
+        rows.append(_summary("flash_attention_bf16", case, times, bound_ms,
+                             B=b, S=s, Hq=hq, Hkv=hkv, hd=hd,
+                             instance=ops.flash_instance(q, k, v),
+                             sdpa_ms=sdpa_ms, new_over_sdpa=new / sdpa_ms,
+                             issued_bound_ms=issued_ms,
+                             new_share_of_issued=issued_ms / new))
+        del q, k, v, want, tol, calls, mask
         torch.cuda.empty_cache()
     return rows
 
@@ -627,7 +697,8 @@ def main() -> int:
     libs = {"base": build(args.base.resolve(), "base", args.kernels),
             "new": build(new_src, "new", args.kernels)}
     cycles_per_ms = cs._sleep_cycles_per_ms()
-    runs = {"mix": run_mix, "flash": run_flash, "robust": run_robust,
+    runs = {"mix": run_mix, "flash": run_flash,
+            "flash_bf16": run_flash_bf16, "robust": run_robust,
             "quant": run_quant, "dequant": run_dequant, "edges": run_edges,
             "sparsify": run_sparsify}
     rows = []
