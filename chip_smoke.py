@@ -219,6 +219,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
+from torch.utils.flop_counter import FlopCounterMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -233,7 +235,8 @@ from repro_torch.core.experiment import (run_algorithm,  # noqa: E402
                                          setup_experiment)
 from repro_torch.data.partition import pskew_partition  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import dryrun, serve  # noqa: E402
+from repro_torch.launch import roofline as rl  # noqa: E402
 from repro_torch.launch import train as trainer  # noqa: E402
 from repro_torch.launch.mesh import make_worker_mesh  # noqa: E402
 from repro_torch.models import moe, registry  # noqa: E402
@@ -2752,7 +2755,9 @@ class _TrainHolds:
     within one bf16 ulp (``_bf16_bound``, phase 5's rule). The first
     gossip_mix and consensus_dist call is also timed on its own inputs.
     ``start(names)`` holds only the kernels named. Each call
-    launches and counts as it does unheld."""
+    launches and counts as it does unheld; the checks and timings run
+    outside any dispatch mode (a FLOP count of the round sees the path's
+    work only)."""
 
     NAMES = ("gossip_mix", "quantize_block", "dequantize_block",
              "consensus_dist", "flash_attention")
@@ -2766,13 +2771,16 @@ class _TrainHolds:
         self.timed = {}
 
     def _time(self, name: str, fn, nbytes: int, flops: int) -> None:
-        """Time ``fn`` once a kernel; its launches are not the path's."""
+        """Time ``fn`` once a kernel; its launches are not the path's, nor
+        is their work (``ops.WORK``)."""
         if name in self.timed:
             return
-        counts = dict(ops.LAUNCHES), dict(ops.INSTANCE_LAUNCHES)
+        counts = (dict(ops.LAUNCHES), dict(ops.INSTANCE_LAUNCHES),
+                  dict(ops.WORK))
         ms = time_ms(fn, self.cycles, batch=1, reps=5)
         ops.LAUNCHES.update(counts[0])
         ops.INSTANCE_LAUNCHES.update(counts[1])
+        ops.WORK.update(counts[2])
         bound_ms, bound_by = _bound(nbytes, flops)
         self.timed[name] = dict(ms=f"{ms:.4f}", bound_ms=f"{bound_ms:.4f}",
                                 bound_by=bound_by)
@@ -2780,6 +2788,11 @@ class _TrainHolds:
     def gossip_mix(self, x, u, w, *, centre=None, round_bf16=False):
         y = self.orig["gossip_mix"](x, u, w, centre=centre,
                                     round_bf16=round_bf16)
+        with _disable_current_modes():
+            self._hold_mix(x, u, w, y, centre, round_bf16)
+        return y
+
+    def _hold_mix(self, x, u, w, y, centre, round_bf16):
         for c0 in range(0, x.shape[1], HOLD_COLS):
             cols = slice(c0, c0 + HOLD_COLS)
             want = ref.gossip_mix_ref(
@@ -2797,24 +2810,30 @@ class _TrainHolds:
                                                    round_bf16=round_bf16),
                    _mix_bytes(x, u, w, centre),
                    (5 if round_bf16 else 3) * b * k * length)
-        return y
 
     def quantize_block(self, x):
         q, s = self.orig["quantize_block"](x)
-        _require_equal("quantize_block", f"trainer{tuple(x.shape)}",
-                       zip((q, s), ref.quantize_block_ref(x)))
+        with _disable_current_modes():
+            _require_equal("quantize_block", f"trainer{tuple(x.shape)}",
+                           zip((q, s), ref.quantize_block_ref(x)))
         self.held["quantize_block"] += 1
         return q, s
 
     def dequantize_block(self, q, s, n):
         y = self.orig["dequantize_block"](q, s, n)
-        _require_equal("dequantize_block", f"trainer[{q.shape[0]}, {n}]",
-                       [(y, ref.dequantize_block_ref(q, s, n))])
+        with _disable_current_modes():
+            _require_equal("dequantize_block", f"trainer[{q.shape[0]}, {n}]",
+                           [(y, ref.dequantize_block_ref(q, s, n))])
         self.held["dequantize_block"] += 1
         return y
 
     def consensus_dist(self, x, u):
         d = self.orig["consensus_dist"](x, u)
+        with _disable_current_modes():
+            self._hold_dist(x, u, d)
+        return d
+
+    def _hold_dist(self, x, u, d):
         d_ref = ref.consensus_dist_ref(x, u)
         rel = float(((d - d_ref).abs() / d_ref.clamp_min(1e-30)).max())
         if rel > CONSENSUS_RTOL:
@@ -2826,11 +2845,10 @@ class _TrainHolds:
         self._time("consensus_dist",
                    lambda: self.orig["consensus_dist"](x, u),
                    ((k + 1) * length + k) * 4, 3 * k * length)
-        return d
 
     def flash_attention(self, q, k, v, **kw):
         out = self.orig["flash_attention"](q, k, v, **kw)
-        with torch.no_grad():
+        with torch.no_grad(), _disable_current_modes():
             self.flash.append(_flash_call_err(q.detach(), k.detach(),
                                               v.detach(), kw, out.detach(),
                                               _bf16_bound))
@@ -2919,6 +2937,87 @@ def _dense_mix_gap(x: torch.Tensor, y: torch.Tensor,
     return worst_ratio, worst
 
 
+def _phase7_dry_run(cfg, mesh, adj: np.ndarray, pass_workers: int):
+    """Phase 7's cell counted by the dry run on the ``meta`` device (no
+    card: ``launch/dryrun.run_cell``) as its held round runs: the round's
+    adj, tau_max and measured distances, the flash kernel on. Also one
+    flash call's plain backward at the path's shapes (the custom VJP's
+    recompute through the plain composition, ROADMAP.md queue 2 item
+    11), and the calls a round makes of it. Returns (the record, the
+    backward's line)."""
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(
+        TRAIN_ARCH, TRAIN_SHAPE, mesh=mesh, verbose=False,
+        cfg_overrides={"use_flash_kernel": True},
+        train_kw=dict(tau_max=TRAIN_TAU, adj=adj, measure_distances=True))
+    trace_s = time.perf_counter() - t0
+    b = pass_workers * (TRAIN_SHAPE.global_batch // TRAIN_WORKERS)
+    hd, dt = cfg.resolved_head_dim, getattr(torch, cfg.dtype)
+    q, k, v = (torch.empty(b, TRAIN_SHAPE.seq_len, h, hd, dtype=dt,
+                           device="meta", requires_grad=True)
+               for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+    out = ops.flash_attention(q, k, v)
+    bwd = dryrun.count(lambda: torch.autograd.grad(out, (q, k, v),
+                                                   torch.empty_like(out)))
+    calls = registry.attention_calls(cfg) * \
+        -(-TRAIN_WORKERS // pass_workers) * TRAIN_TAU
+    backward = dict(shape=[b, TRAIN_SHAPE.seq_len, cfg.num_heads, hd],
+                    calls_a_round=calls, flops_a_call=bwd.flops,
+                    bytes_a_call=bwd.bytes,
+                    round_flops=calls * bwd.flops,
+                    round_bytes=calls * bwd.bytes,
+                    share_of_round_flops=f"{calls * bwd.flops / rec['hlo_flops']:.4f}",
+                    share_of_round_bytes=f"{calls * bwd.bytes / rec['hlo_bytes']:.4f}")
+    log("phase7", dry_run=f"{TRAIN_ARCH}/W={TRAIN_WORKERS}/S=4096/"
+        f"tau={TRAIN_TAU}/flash", mesh=rec["mesh"], chips=rec["chips"],
+        trace_s=f"{trace_s:.1f}", hlo_flops=rec["hlo_flops"],
+        hlo_bytes=rec["hlo_bytes"], collective_bytes=rec["collective_bytes"],
+        compute_ms=f"{rec['compute_s'] * 1e3:.3f}",
+        memory_ms=f"{rec['memory_s'] * 1e3:.3f}",
+        collective_ms=f"{rec['collective_s'] * 1e3:.3f}",
+        dominant=rec["dominant"], model_flops=rec["model_flops"],
+        useful_fraction=f"{rec['useful_fraction']:.4f}",
+        peak_gb=f"{rec['peak_bytes_per_device'] / 1e9:.3f}",
+        constants=dict(peak_flops=rl.PEAK_FLOPS, hbm_bw=rl.HBM_BW,
+                       link_bw=rl.LINK_BW),
+        flash_plain_backward=backward)
+    return rec, backward
+
+
+class _FirstStepCount:
+    """Count the first call of the first train step ``steps.make_train_step``
+    builds while active (launch/train's held round): its FLOPs under
+    ``FlopCounterMode`` plus the kernels' own (``ops.WORK``), as the dry
+    run counts them."""
+
+    def __init__(self):
+        self.flops = None
+        self.make = steps.make_train_step
+
+    def _build(self, *args, **kw):
+        bundle = self.make(*args, **kw)
+        fn = bundle.fn
+
+        def counted(*step_args):
+            if self.flops is not None:
+                return fn(*step_args)
+            work = ops.WORK["flops"]
+            with FlopCounterMode(display=False) as mode:
+                out = fn(*step_args)
+            self.flops = mode.get_total_flops() + ops.WORK["flops"] - work
+            return out
+
+        bundle.fn = counted
+        return bundle
+
+    def __enter__(self):
+        steps.make_train_step = self._build
+        return self
+
+    def __exit__(self, *exc):
+        steps.make_train_step = self.make
+
+
 def _train_run(cfg, mesh, p1, batches, rounds: int, **kw):
     """``launch/train.train`` from the one-worker start ``p1`` on
     ``batches``, its round lines printed under phase 7 -> (run, the
@@ -2995,10 +3094,15 @@ def run_trainer() -> dict[str, int]:
     b_w = TRAIN_SHAPE.global_batch // TRAIN_WORKERS
     # flash launches a step: the forward and remat's recompute of every
     # attention layer, once a pass of workers_per_pass workers
-    passes = -(-TRAIN_WORKERS // layout.workers_per_pass(torch.empty(
-        TRAIN_WORKERS, b_w, TRAIN_SHAPE.seq_len, device="meta")))
+    pass_workers = layout.workers_per_pass(torch.empty(
+        TRAIN_WORKERS, b_w, TRAIN_SHAPE.seq_len, device="meta"))
+    passes = -(-TRAIN_WORKERS // pass_workers)
     flash_step = 2 * registry.attention_calls(cfg) * passes
     tokens_round = TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
+
+    # the dry run of the held round's cell: the trainer's base topology
+    base = topo.make_base_topology(TRAIN_WORKERS, "full", TRAIN_SEED)
+    dry, _ = _phase7_dry_run(cfg, mesh, base, pass_workers)
 
     os.environ["REPRO_DEVICES"] = str(TRAIN_WORKERS)
 
@@ -3024,9 +3128,10 @@ def run_trainer() -> dict[str, int]:
     holds = _TrainHolds(cycles)
     holds.start()
     try:
-        run, counts, peak = _train_run(cfg, mesh, p1, batches,
-                                       1 + TRAIN_TIMED_ROUNDS,
-                                       on_round=after_round)
+        with _FirstStepCount() as held_count:
+            run, counts, peak = _train_run(cfg, mesh, p1, batches,
+                                           1 + TRAIN_TIMED_ROUNDS,
+                                           on_round=after_round)
     finally:
         holds.stop()
         ops.gossip_mix = mix
@@ -3055,9 +3160,32 @@ def run_trainer() -> dict[str, int]:
             min(d["unmixed"] for d in distinct) <= 1.0:
         failures.append(f"the rounds' weights on distinct rows against the "
                         f"dense mix: {distinct} (of the bounds)")
+    a0 = run.rounds[0]
+    if not (np.array_equal(a0.adj, base) and caps[0] == TRAIN_TAU):
+        failures.append("the held round is not the dry run's cell: "
+                        f"links {int(a0.adj.sum()) // 2}, tau cap {caps[0]}")
+    if held_count.flops != dry["hlo_flops"]:
+        failures.append(f"the held round counted {held_count.flops} FLOPs "
+                        f"on the card, the dry run {dry['hlo_flops']:.0f}")
     timed = run.rounds[1:]
     secs = sum(r.seconds for r in timed)
     tokens = sum(tokens_round * int(max(r.taus.max(), 1)) for r in timed)
+    # the measured round against the roofline: MFU (tau_max local steps'
+    # model FLOPs over the round's seconds at the card's bf16 peak) and
+    # the dry run's bound over the seconds of the rounds of its tau_max
+    mf = rl.model_flops_train(cfg, TRAIN_SHAPE)
+    bound_s = max(dry["compute_s"], dry["memory_s"], dry["collective_s"])
+    same_tau = [r.seconds for r, c in zip(timed, caps[1:])
+                if c == TRAIN_TAU]
+    log("phase7", roofline=name, timed_tau_caps=caps[1:],
+        mfu=f"{sum(mf * c for c in caps[1:]) / (secs * rl.PEAK_FLOPS):.5f}",
+        bound_ms=f"{bound_s * 1e3:.3f}", bound_by=dry["dominant"],
+        share_of_bound=f"{bound_s / statistics.mean(same_tau):.5f}"
+        if same_tau else "not measured",
+        held_round_flops=held_count.flops,
+        dry_run_flops=f"{dry['hlo_flops']:.0f}",
+        peak_gb=f"{peak:.3f}",
+        dry_run_peak_gb=f"{dry['peak_bytes_per_device'] / 1e9:.3f}")
     log("phase7", run=name, P=run.layout.param_count,
         mesh=mesh.shape, slots=[str(d) for d in mesh.devices],
         rounds=rounds, timed_rounds=len(timed),
@@ -3085,7 +3213,7 @@ def run_trainer() -> dict[str, int]:
     # (b) the first round with the plain attention composition
     plain_cfg = replace(cfg, use_flash_kernel=False)
     run_b, counts, peak = _train_run(plain_cfg, mesh, p1, batches, 1)
-    a0, b0 = run.rounds[0], run_b.rounds[0]
+    b0 = run_b.rounds[0]
     loss_gap = abs(b0.loss - a0.loss) / abs(a0.loss)
     dist_gap = float(np.max(np.abs(b0.dists - a0.dists)
                             / np.maximum(np.abs(a0.dists), 1e-30)))

@@ -14,16 +14,28 @@ go to the plain PyTorch version in ``ref.py``; CUDA tensors go to the
 kernel, or the call raises. There is no fallback from a failed build or
 launch to the plain version. ``LAUNCHES`` counts successful launches per
 kernel, so a run can show that its main path went through the kernels.
+
+Operands all on the ``meta`` device (shape and dtype, no storage) take
+the CUDA path's operand checks (shapes, dtypes, contiguity; not the
+launch's extents) and get empty outputs of the kernel's shapes and
+dtypes, launching nothing: the shape function a step traced on ``meta``
+needs (``launch/dryrun.py``). ``WORK`` tallies the kernels' own FLOPs
+and bytes, by the formulas behind their bounds (PERF.md §6), at every
+CUDA launch and every ``meta`` call of the kernels the train and serve
+steps reach; a CPU call adds nothing (its plain version's operations are
+PyTorch's own, which ``torch.utils.flop_counter`` sees).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref
@@ -37,6 +49,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"gossip_mix": 0, "gossip_mix_lanes": 0, "quantize_block": 0,
             "dequantize_block": 0, "sparsify_block": 0, "gossip_edges": 0,
             "robust_gossip": 0, "flash_attention": 0, "consensus_dist": 0}
+# the kernels' own work (module doc): FLOPs and bytes moved
+WORK = {"flops": 0, "bytes": 0}
 # gossip_mix's bf16-rounded form, robust_gossip's and gossip_edges'
 # launches by instance, and flash_attention's by operand dtype and, of
 # the bf16 ones, those of the tile instance (each also counts in
@@ -207,10 +221,11 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
 
 def _check_cuda(name: str, tensors: dict[str, torch.Tensor],
                 dtypes: dict[str, torch.dtype] | None = None) -> None:
-    """Operands of a launch: one CUDA device, contiguous, float32 unless
-    ``dtypes`` names another type."""
+    """Operands of a launch: one CUDA device (or all on ``meta``, whose
+    call only tallies), contiguous, float32 unless ``dtypes`` names
+    another type."""
     devices = {t.device for t in tensors.values()}
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+    if len(devices) != 1 or next(iter(devices)).type not in ("cuda", "meta"):
         raise ValueError(f"{name}: all operands must be on one CUDA device "
                          "(or all on the CPU), got "
                          f"{ {k: str(t.device) for k, t in tensors.items()} }")
@@ -220,6 +235,22 @@ def _check_cuda(name: str, tensors: dict[str, torch.Tensor],
             raise TypeError(f"{name}: {k} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
+
+
+def _tally(flops: int, nbytes: int) -> None:
+    WORK["flops"] += int(flops)
+    WORK["bytes"] += int(nbytes)
+
+
+def _meta_call(work: tuple[int, int], t: torch.Tensor) -> bool:
+    """Whether a call whose operands passed ``_check_cuda`` is a ``meta``
+    call, which tallies ``work`` and launches nothing. The launch's
+    extents (grid axes, 32-bit offsets) are the card's, so a meta call
+    does not check them."""
+    if t.device.type != "meta":
+        return False
+    _tally(*work)
+    return True
 
 
 def _launch(name: str, fn, device: torch.device, *args,
@@ -272,13 +303,22 @@ def gossip_mix(x: torch.Tensor, u: torch.Tensor, w: torch.Tensor, *,
         return ref.gossip_mix_ref(x, u, w, centre=centre,
                                   round_bf16=round_bf16)
     _check_cuda("gossip_mix", {"x": x, "u": u, "w": w, "centre": c})
+    # x, a centre other than x and a u other than both read once, w read,
+    # y written; a subtract, multiply and add a term (and two bf16
+    # roundings in the rounded form)
+    rows = b * (1 if c is x else 2) + (0 if u is x or u is c else n_u)
+    work = ((5 if round_bf16 else 3) * b * k * length,
+            ((rows + b) * length + w.numel()) * 4)
+    y = torch.empty_like(x)
+    if _meta_call(work, x):
+        return y
     if b > _MAX_ROWS or k > _MAX_NEIGHBORS or length >= 2 ** 31 or \
             (k > n_u > _MAX_CYCLIC_ROWS):
         raise ValueError(f"gossip_mix supports B <= {_MAX_ROWS}, "
                          f"K <= {_MAX_NEIGHBORS}, L < 2**31, and U <= "
                          f"{_MAX_CYCLIC_ROWS} where K > U; got B={b}, "
                          f"U={n_u}, K={k}, L={length}")
-    y = torch.empty_like(x)
+    _tally(*work)
     lib = _library()
     _launch("gossip_mix", lib.gossip_mix_bf16round_f32 if round_bf16
             else lib.gossip_mix_f32, x.device, x.data_ptr(), c.data_ptr(),
@@ -337,10 +377,16 @@ def quantize_block(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return ref.quantize_block_ref(x)
     _check_cuda("quantize_block", {"x": x})
     w, p = x.shape
-    _check_rows("quantize_block", w, p)
     row_len, tile_len, n_tiles = ref.wire_tiles(p)
     q = torch.empty(w, row_len, dtype=torch.int8, device=x.device)
     scales = torch.empty(w, n_tiles, dtype=torch.float32, device=x.device)
+    # x read, q and the scales written; abs, max, divide, round and clamp
+    # an element
+    work = (6 * w * p, 4 * w * p + w * row_len + 4 * w * n_tiles)
+    if _meta_call(work, x):
+        return q, scales
+    _check_rows("quantize_block", w, p)
+    _tally(*work)
     cluster = quantize_cluster(w, n_tiles, tile_len, sm_count(x.device))
     _launch("quantize_block", _library().quantize_block_f32, x.device,
             x.data_ptr(), q.data_ptr(), scales.data_ptr(), w, p, row_len,
@@ -393,8 +439,14 @@ def dequantize_block(q: torch.Tensor, scales: torch.Tensor,
     _check_cuda("dequantize_block", {"q": q, "scales": scales},
                 {"q": torch.int8})
     w = q.shape[0]
-    _check_rows("dequantize_block", w, num_params)
     y = torch.empty(w, num_params, dtype=torch.float32, device=q.device)
+    # q's first P bytes a row and the scales read, y written; a multiply
+    # an element
+    work = (w * num_params, 5 * w * num_params + 4 * w * n_tiles)
+    if _meta_call(work, q):
+        return y
+    _check_rows("dequantize_block", w, num_params)
+    _tally(*work)
     _launch("dequantize_block", _library().dequantize_block_f32, q.device,
             q.data_ptr(), scales.data_ptr(), y.data_ptr(), w, num_params,
             row_len, tile_len, n_tiles)
@@ -592,7 +644,14 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{q.dtype}")
     b, s, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    # q, k and v read, o written; two products of 2 hd operations a
+    # (query, key in reach) pair and query head
+    work = (4 * b * hq * hd * flash_pairs(s, sk, causal, window),
+            (2 * b * s * hq + 2 * b * sk * hkv) * hd * q.element_size())
     o = torch.empty_like(q)
+    if _meta_call(work, q):
+        return o
+    _tally(*work)
     short = flash_instance(q, k, v) == "short"
     instance = _FLASH_DTYPES[q.dtype]
     if not short:
@@ -610,6 +669,17 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             sk, hq, hkv, hd, int(causal), window, int(short), hd ** -0.5,
             instance=instance)
     return o
+
+
+@functools.lru_cache(maxsize=256)
+def flash_pairs(s: int, sk: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs of an [s, sk] attention that the mask
+    ``ref.attention_mask`` keeps: key kp of query qp where kp <= qp
+    (causal) and kp > qp - window (a sliding window)."""
+    qp = np.arange(s, dtype=np.int64)
+    hi = np.minimum(qp, sk - 1) if causal else np.full(s, sk - 1)
+    lo = np.maximum(qp - window + 1, 0) if window else np.zeros(s, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -697,10 +767,15 @@ def consensus_dist(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         return ref.consensus_dist_ref(x, u)
     _check_cuda("consensus_dist", {"x": x, "u": u})
     k, length = u.shape
+    out = torch.empty(k, dtype=torch.float32, device=x.device)
+    # x and u read, the K distances written; subtract, multiply, add
+    work = (3 * k * length, ((k + 1) * length + k) * 4)
+    if _meta_call(work, x):
+        return out
     if k > _MAX_ROWS:
         raise ValueError(f"consensus_dist supports K <= {_MAX_ROWS}; "
                          f"got K={k}")
-    out = torch.empty(k, dtype=torch.float32, device=x.device)
+    _tally(*work)
     n_blocks = -(-length // CONSENSUS_BLOCK_COLS)
     partial = torch.empty(k, max(n_blocks, 1), dtype=torch.float32,
                           device=x.device)

@@ -25,6 +25,10 @@ updated in place (``models/dense.py``).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+from dataclasses import dataclass, field
+
 import torch
 import torch.nn.functional as F
 
@@ -220,18 +224,63 @@ def _slstm_step(p: dict, state: dict, x_proj: torch.Tensor) -> dict:
     return {"c": c, "n": n, "h": h_new, "m": m_new}
 
 
+@dataclass
+class TokenLoop:
+    """A cap on ``apply_slstm``'s token loop (``token_loop``): ``trips``
+    trips, the loop lengths it was asked for, and the trip running (None
+    outside the loop)."""
+
+    trips: int
+    lengths: set[int] = field(default_factory=set)
+    trip: int | None = None
+
+
+_TOKEN_LOOP: contextvars.ContextVar[TokenLoop | None] = \
+    contextvars.ContextVar("slstm_token_loop", default=None)
+
+
+@contextlib.contextmanager
+def token_loop(trips: int):
+    """Within: ``apply_slstm`` on ``meta`` tensors runs at most ``trips``
+    trips of its token loop and repeats the last hidden state over the
+    tokens left — every trip issues the same operations at the same
+    shapes, so a dry run counts the loop from short traces
+    (``launch/dryrun.py``). Yields the ``TokenLoop``, which records the
+    loop lengths seen."""
+    loop = TokenLoop(trips)
+    tok = _TOKEN_LOOP.set(loop)
+    try:
+        yield loop
+    finally:
+        _TOKEN_LOOP.reset(tok)
+
+
 def apply_slstm(p: dict, x: torch.Tensor, cfg: ModelConfig, state=None):
     """Full-sequence sLSTM block of a fleet, token by token: x [W, B, S, d]
-    -> ([W, B, S, d], the final state)."""
+    -> ([W, B, S, d], the final state); under ``token_loop`` (``meta``
+    tensors only) a capped number of trips."""
     wn, bsz, s, d = x.shape
+    loop = _TOKEN_LOOP.get()
+    trips = s
+    if loop is not None:
+        if x.device.type != "meta":
+            raise ValueError("token_loop caps the sLSTM loop of a meta "
+                             "trace only: its values are not the model's")
+        loop.lengths.add(s)
+        trips = min(loop.trips, s)
     h_res = x
     xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
     x_proj = L.matmul(xn, p["w_in"]) + p["b"][:, None, None].to(xn.dtype)
     st = state or init_slstm_state(cfg, wn, bsz, device=x.device)
     hs = []
-    for t in range(s):
+    for t in range(trips):
+        if loop is not None:
+            loop.trip = t
         st = _slstm_step(p, st, x_proj[:, :, t])
         hs.append(st["h"])
+    if loop is not None:
+        loop.trip = None
+    hs += hs[-1:] * (s - trips)
     hid = torch.stack(hs, dim=2).reshape(wn, bsz, s, d).to(x.dtype)
     hid = L.rms_norm(hid, p["ln_inner"], cfg.norm_eps)
     x = h_res + hid

@@ -1,19 +1,240 @@
-"""Worker layouts — the port of the parts of ``repro.runtime.sharding``
-the port runs: the DFL worker count of a named-axis mesh
+"""Worker layouts and sharding rules — the port of
+``repro.runtime.sharding``: the DFL worker count of a named-axis mesh
 (``worker_axes_in_mesh``, ``num_workers``), the worker-stacked shapes
-and the ``[W, b / W, ...]`` batch split of launch/train's round step, and
+and the ``[W, b / W, ...]`` batch split of launch/train's round step,
 the worker-stack layout of the sharded DFL engines, which keep each
-worker's whole replica on its worker's shard: only the leading worker dim
-splits, contiguously, ``rows = w_pad / n_shards`` rows a shard.
+worker's whole replica on its worker's shard (only the leading worker
+dim splits, contiguously, ``rows = w_pad / n_shards`` rows a shard), and
+the reference's spec rules, which map every parameter, batch and
+decode-cache leaf of a production mesh to a partition spec.
 
-The reference's ``param_spec`` / ``cache_spec`` rule tables shard a
-replica over the ``model`` axis (tensor parallelism within a worker);
-they wait for the model axis, ROADMAP.md queue 1 item 4.
+A spec is the counterpart of a ``PartitionSpec``: a tuple with one entry
+a dim, each ``None`` (replicated), an axis name, or a tuple of axis
+names (the dim split over their product). The rules are pure functions
+of leaf names, shapes and a mesh's ``.shape`` dict ({axis: size}), so
+any object with one serves: a ``DeviceMesh`` of ``meta`` slots stands
+for the 256-chip pod (``launch/dryrun.py`` reads its bytes per device
+from them). Executing them — tensor parallelism within a worker over the
+``model`` axis — is not ported: ``mesh_workers`` raises for a model axis
+of size > 1 (ROADMAP.md queue 1 item 4).
 """
 from __future__ import annotations
 
+import math
+import re
+
 import numpy as np
 import torch
+
+
+# ---------------------------------------------------------------------------
+# Param rules
+# ---------------------------------------------------------------------------
+
+# name pattern -> (trailing rank, spec builder(tp, fsdp)); the spec applies
+# to the trailing `rank` dims, leading (stacked layer) dims replicate
+_COL = lambda tp, fsdp: (fsdp, tp)           # noqa: E731  [in, out] column-parallel
+_ROW = lambda tp, fsdp: (tp, fsdp)           # noqa: E731  [in, out] row-parallel
+
+_RULES: list[tuple[re.Pattern, int, object]] = [
+    # embeddings / heads
+    (re.compile(r"embed$"), 2, lambda tp, f: (tp, None)),
+    (re.compile(r"lm_head$"), 2, _COL),
+    # MoE expert banks: experts over the TP axis (EP); within-expert FSDP
+    (re.compile(r"moe/w_(gate|up)$"), 3, lambda tp, f: (tp, f, None)),
+    (re.compile(r"moe/w_down$"), 3, lambda tp, f: (tp, None, f)),
+    (re.compile(r"moe/router$"), 2, lambda tp, f: (f, None)),
+    (re.compile(r"moe/shared/w_(gate|up)$"), 2, _COL),
+    (re.compile(r"moe/shared/w_down$"), 2, _ROW),
+    # attention
+    (re.compile(r"attn/w[qkv]$"), 2, _COL),
+    (re.compile(r"attn/wo$"), 2, _ROW),
+    # dense MLP
+    (re.compile(r"mlp/w_(up|gate)$"), 2, _COL),
+    (re.compile(r"mlp/w_down$"), 2, _ROW),
+    # mamba2
+    (re.compile(r"mamba/in_proj$"), 2, _COL),
+    (re.compile(r"mamba/out_proj$"), 2, _ROW),
+    (re.compile(r"mamba/conv_w$"), 2, lambda tp, f: (None, tp)),
+    # xlstm mLSTM
+    (re.compile(r"w_up$"), 2, _COL),
+    (re.compile(r"w(q|k|v)$"), 2, _COL),
+    (re.compile(r"w_down$"), 2, _ROW),
+    (re.compile(r"w_(i|f)gate$"), 2, lambda tp, f: (f, None)),
+    # xlstm sLSTM
+    (re.compile(r"w_in$"), 2, _COL),
+    (re.compile(r"(^|/)r$"), 3, lambda tp, f: (tp, None, None)),
+    (re.compile(r"w_ffn_(gate|up)$"), 2, _COL),
+    (re.compile(r"w_ffn_down$"), 2, _ROW),
+]
+
+
+def _spec(entries) -> tuple:
+    """A spec from its entries, normalised as a ``PartitionSpec`` is: a
+    tuple of one axis becomes the axis, an empty one ``None``."""
+    return tuple(None if e == () else e[0] if isinstance(e, tuple) and
+                 len(e) == 1 else e for e in entries)
+
+
+def _axes_size(mesh, ax) -> int:
+    """The slots a spec entry (an axis name or a tuple of them) spans."""
+    return math.prod(mesh.shape[a] for a in
+                     (ax if isinstance(ax, tuple) else (ax,)))
+
+
+def _dims_divisible(shape, spec, mesh) -> tuple:
+    """Drop shardings that don't divide the dim (e.g. 15 heads on 16-way)."""
+    return tuple(None if ax is None or dim % _axes_size(mesh, ax) else ax
+                 for dim, ax in zip(shape, spec))
+
+
+def _present(axes, mesh):
+    """First axis of ``axes`` present in the mesh (or None)."""
+    for a in axes:
+        if a in mesh.shape:
+            return a
+    return None
+
+
+def param_spec(name: str, leaf_shape, cfg, mesh, *,
+               worker_dim: bool) -> tuple:
+    """The spec of parameter leaf ``name`` (the reference's path,
+    ``blocks/attn/wq``) of ``leaf_shape``, with or without the leading
+    worker dim.
+
+    within_worker == "dp": params replicate inside the worker (tp=None);
+    the worker's batch splits over the idle model axis instead. GQA with
+    kv_heads < TP width: wk / wv stay replicated (the standard fix for
+    kv < tp)."""
+    tp = _present(cfg.tp_axes, mesh) if cfg.within_worker == "tp" else None
+    fsdp = _present(cfg.fsdp_axes, mesh)
+    shape = tuple(leaf_shape[1:] if worker_dim else leaf_shape)
+    trailing = ()
+    for pat, rank, builder in _RULES:
+        if pat.search(name) and len(shape) >= rank:
+            trailing = builder(tp, fsdp)
+            break
+    if tp is not None and re.search(r"attn/w[kv]$", name) \
+            and cfg.num_kv_heads % mesh.shape[tp] != 0:
+        trailing = (fsdp, None)                  # replicate kv heads
+    spec = (None,) * (len(shape) - len(trailing)) + tuple(trailing)
+    spec = _dims_divisible(shape, spec, mesh)
+    if worker_dim:
+        spec = (worker_axes_in_mesh(cfg, mesh) or None,) + spec
+    return _spec(spec)
+
+
+def param_pspecs(cfg, mesh, shapes: dict, *, worker_dim: bool = True
+                 ) -> dict[str, tuple]:
+    """{name: spec} of ``shapes`` ({name: shape}, as
+    ``registry.leaf_shapes`` gives them, with the worker dim when
+    ``worker_dim``)."""
+    return {k: param_spec(k, s, cfg, mesh, worker_dim=worker_dim)
+            for k, s in shapes.items()}
+
+
+# ---------------------------------------------------------------------------
+# Batch / cache rules
+# ---------------------------------------------------------------------------
+
+def train_batch_spec(cfg, mesh, name: str, leaf_shape) -> tuple:
+    """Train batches are worker-stacked: [W, b_w, ...]. The within-worker
+    batch dim splits over whatever axes the params leave idle: "data" for
+    FSDP archs (worker = pod), "model" for within-worker-DP archs."""
+    w = worker_axes_in_mesh(cfg, mesh)
+    avail = [a for a in ("data", "model") if a in mesh.shape
+             and a not in w]
+    if cfg.within_worker != "dp":
+        avail = [a for a in avail if a != "model"]
+    chosen: list[str] = []
+    size = 1
+    for a in avail:                       # greedy product divisibility
+        if len(leaf_shape) > 1 and leaf_shape[1] % (size * mesh.shape[a]) == 0:
+            chosen.append(a)
+            size *= mesh.shape[a]
+    spec = [w or None, tuple(chosen) if chosen else None] \
+        + [None] * (len(leaf_shape) - 2)
+    # batch too small to use "model"? fall back to sequence parallelism
+    seq_dim = 3 if name == "mrope_positions" else 2   # [W,b,3,S] vs [W,b,S,..]
+    if cfg.within_worker == "dp" and "model" not in chosen \
+            and len(leaf_shape) > seq_dim \
+            and leaf_shape[seq_dim] % mesh.shape["model"] == 0:
+        spec[seq_dim] = "model"
+    return _spec(spec)
+
+
+def serve_batch_spec(cfg, mesh, leaf_shape) -> tuple:
+    """Serving batches: [B, ...] batch over (pod, data) when divisible.
+
+    ``cfg.serve_seq_shard``: within-worker-DP archs replicate params over
+    "model"; sharding dim 1 (sequence) over "model" dedups the forward
+    every model slot would compute, at the cost of per-layer K/V
+    all-gathers."""
+    axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    first = axes if axes and leaf_shape[0] % _axes_size(mesh, axes) == 0 \
+        else None
+    spec = [first] + [None] * (len(leaf_shape) - 1)
+    if cfg.serve_seq_shard and cfg.within_worker == "dp" \
+            and "model" in mesh.shape and len(leaf_shape) > 1 \
+            and leaf_shape[1] % mesh.shape["model"] == 0:
+        spec[1] = "model"
+    return _spec(spec)
+
+
+_KV_CACHE = re.compile(r"(^|/)(k|v|xk|xv|attn_k|attn_v|local_k|local_v|"
+                       r"global_k|global_v|tail_k|tail_v)$")
+
+
+def cache_spec(cfg, mesh, name: str, leaf_shape, batch: int) -> tuple:
+    """Decode-cache leaves: KV caches [..., B, S, hkv, hd], SSM states.
+
+    batch > 1: batch over (pod, data), sequence over model (psum'd
+    contraction). batch == 1 (long-context): sequence over (data, model).
+    """
+    tp = _present(cfg.tp_axes, mesh)
+    dp_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    dims = list(leaf_shape)
+    spec: list = [None] * len(dims)
+    # the batch dim: the first dim equal to `batch` (after stack dims)
+    b_idx = dims.index(batch) if batch in dims else None
+    dp_size = _axes_size(mesh, dp_axes)
+    if _KV_CACHE.search(name):
+        s_idx = b_idx + 1 if b_idx is not None else len(dims) - 3
+        if batch > 1:
+            if b_idx is not None and batch % dp_size == 0 and dp_axes:
+                spec[b_idx] = dp_axes
+            if tp and dims[s_idx] % mesh.shape[tp] == 0:
+                spec[s_idx] = tp
+        else:
+            axes = tuple(a for a in (*dp_axes, tp) if a)
+            if axes and dims[s_idx] % _axes_size(mesh, axes) == 0:
+                spec[s_idx] = axes
+    else:
+        # SSM / mLSTM / conv states: shard heads or channels over model
+        if tp:
+            for i in range(len(dims) - 1, -1, -1):
+                if dims[i] % mesh.shape[tp] == 0 and dims[i] >= mesh.shape[tp]:
+                    spec[i] = tp
+                    break
+        if batch > 1 and b_idx is not None and batch % dp_size == 0 \
+                and dp_axes:
+            spec[b_idx] = dp_axes
+    return _spec(spec)
+
+
+def cache_specs(cfg, mesh, cache_shapes: dict, batch: int
+                ) -> dict[str, tuple]:
+    """{name: spec} of a serving cache ({name: shape}; the reference's
+    ``cache_shardings``): ``cache_spec`` a leaf, () for a 0-d leaf."""
+    return {k: cache_spec(cfg, mesh, k, s, batch) if len(s) else ()
+            for k, s in cache_shapes.items()}
+
+
+def spec_shards(mesh, spec) -> int:
+    """The slots a leaf of ``spec`` is split over: the product of the
+    sizes of the axes that shard it (its bytes a device are its bytes
+    over this)."""
+    return math.prod(_axes_size(mesh, ax) for ax in spec if ax is not None)
 
 
 def worker_axes_in_mesh(cfg, mesh) -> tuple[str, ...]:
@@ -87,6 +308,14 @@ def split_batch(batch: dict, w: int) -> dict:
                         for k, v in batch.items()}, w)
     return {k: v.reshape(w, v.shape[0] // w, *v.shape[1:])
             for k, v in batch.items()}
+
+
+def worker_stack_spec(ndim: int, axes) -> tuple:
+    """Spec for one worker-stacked leaf: leading dim over ``axes``, rest
+    replicated. The flat DFL engines keep every within-worker dim dense
+    (the whole replica lives on its worker's shard), so this is the only
+    spec shape the sharded path needs."""
+    return _spec((tuple(axes),) + (None,) * (ndim - 1))
 
 
 def worker_shard_extent(mesh, worker_axes) -> int:

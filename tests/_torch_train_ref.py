@@ -16,9 +16,13 @@ writes ``OUT_DIR/<case>.npz`` for each case:
   keys; the copy, ``OUT_DIR/ckpt_resume``, takes the resumed run's).
 - ``int8``: the same loop with ``--compressed`` (f32, 3 rounds);
   ``bf16_int8``: the same in bf16.
-- ``whisper``: the same loop on the whisper-large-v3 smoke config (f32,
-  the encdec family: ``frames``, ``tokens`` and ``labels`` batches),
-  2 rounds.
+- ``whisper``, ``moe``, ``hybrid``, ``xlstm``, ``vlm``: the same loop on
+  the smoke config of whisper-large-v3 (the encdec family: ``frames``,
+  ``tokens`` and ``labels`` batches), olmoe-1b-7b, zamba2-7b, xlstm-1.3b
+  and qwen2-vl-2b (``vision_embeds`` and ``mrope_positions`` besides the
+  tokens), f32, 2 rounds, each at its ``FAMILY_CASES`` lr
+  (``FAMILY@LR`` at another; ``FAMILY:nudge`` from the init moved one
+  ulp a weight).
 - ``collectives``: ``gossip_fn`` (with and without distances, and on
   the tree cast to bf16), ``gossip_compressed_fn`` (int8, top-k, rand-k
   at two steps; int8 and rand-k also on the tree cast to bf16) and
@@ -65,6 +69,16 @@ from repro.simulation.cluster import SimCluster  # noqa: E402
 
 W, SEQ, TAU_MAX, LR, SEED = 4, 64, 2, 0.01, 0
 ROUNDS = 4
+# the families past the dense one: case -> (arch, lr), each run on its
+# smoke config in f32 for FAMILY_ROUNDS rounds. ``CASE@LR`` runs it at
+# another lr, ``CASE:nudge`` from the init moved one ulp (the witness of
+# each lr, tests/test_torch_train_families.py): zamba2-7b's smoke config
+# parts from itself in its parameters by 1.6e-4 at lr 0.01, by 3.6e-7 at
+# 0.002 (tests/_torch_train_gaps.py)
+FAMILY_CASES = {"whisper": ("whisper-large-v3", LR),
+                "moe": ("olmoe-1b-7b", LR), "hybrid": ("zamba2-7b", 0.002),
+                "xlstm": ("xlstm-1.3b", LR), "vlm": ("qwen2-vl-2b", LR)}
+FAMILY_ROUNDS = 2
 # make_debug_mesh(shape, shrink=True) on 4 devices: (shape, axes)
 MESH_CASES = (((2, 2), ("data", "model")), ((8,), ("data",)),
               ((4, 4), ("data", "model")), ((3, 2), ("data", "model")),
@@ -113,22 +127,29 @@ def _flat(tree, prefix: str = "") -> dict[str, np.ndarray]:
 
 
 def train_loop(cfg, rounds: int, out: dict, tag: str, *,
-               compressed: bool = False, ckpt_dir: str = "",
-               ckpt_every: int = 5, resume: bool = False) -> None:
+               lr: float = LR, compressed: bool = False, ckpt_dir: str = "",
+               ckpt_every: int = 5, resume: bool = False,
+               nudge: bool = False) -> None:
     """``launch/train.py``'s ``main`` after argument parsing, recording
-    into ``out`` under ``tag``."""
+    into ``out`` under ``tag``. ``nudge``: every weight of the init moved
+    one f32 ulp up (``np.nextafter``), the run the reference's gap from
+    itself is measured on."""
     shape = InputShape("train_4k", seq_len=SEQ, global_batch=2 * W,
                        kind="train")
     mesh = jax.make_mesh((W, 1), ("data", "model"))
     w = sharding.num_workers(cfg, mesh)
     fcfg = FedHPConfig(num_workers=w, rounds=rounds, tau_max=TAU_MAX,
-                       tau_init=TAU_MAX, lr=LR, seed=SEED)
+                       tau_init=TAU_MAX, lr=lr, seed=SEED)
     base = make_base_topology(w, "full" if w <= 8 else "erdos:0.3", SEED)
     controller = AdaptiveController(base, tau_max=fcfg.tau_max)
     tracker = ConsensusTracker(w, fcfg.beta1, fcfg.beta2)
     cluster = SimCluster(w, model_bits=32.0 * cfg.param_count(), seed=SEED)
 
-    p1 = registry.init_params(cfg, jax.random.PRNGKey(SEED))
+    p1 = _compile_on_first_call(jax.jit(
+        lambda key: registry.init_params(cfg, key)))(jax.random.PRNGKey(SEED))
+    if nudge:
+        p1 = jax.tree.map(lambda l: jnp.asarray(np.nextafter(
+            np.asarray(l), np.asarray(np.inf, np.asarray(l).dtype))), p1)
     out.update({f"{tag}/init/{k}": v for k, v in _flat(p1).items()})
     params = jax.tree.map(
         lambda l: jnp.broadcast_to(l[None], (w,) + l.shape), p1)
@@ -140,6 +161,7 @@ def train_loop(cfg, rounds: int, out: dict, tag: str, *,
         params = jax.tree.map(jnp.asarray, elastic_reshard(state, w))
         start_round = int(meta["step"]) + 1
     out[f"{tag}/start_round"] = np.int64(start_round)
+    out[f"{tag}/base_lr"] = np.float64(lr)
 
     adj = base
     taus = np.full(w, fcfg.tau_init, np.int64)
@@ -149,7 +171,7 @@ def train_loop(cfg, rounds: int, out: dict, tag: str, *,
     for h in range(start_round, rounds):
         r = f"{tag}/round{h}"
         out[f"{r}/adj"], out[f"{r}/taus"] = adj.copy(), taus.copy()
-        lr = jnp.float32(LR * (fcfg.lr_decay ** h))
+        lr = jnp.float32(fcfg.lr * (fcfg.lr_decay ** h))
         tau_cap = int(max(taus.max(), 1))
         key = (tuple(map(tuple, adj)), tau_cap)
         if key not in compiled_cache:
@@ -307,8 +329,13 @@ def main(argv) -> int:
         elif case == "bf16_int8":
             train_loop(dataclasses.replace(smoke, dtype="bfloat16"),
                        ROUNDS - 1, out, "run", compressed=True)
-        elif case == "whisper":
-            train_loop(get_smoke_config("whisper-large-v3"), 2, out, "run")
+        elif case.partition(":")[0].partition("@")[0] in FAMILY_CASES:
+            head, _, variant = case.partition(":")
+            family, _, lr = head.partition("@")
+            arch, base_lr = FAMILY_CASES[family]
+            train_loop(get_smoke_config(arch), FAMILY_ROUNDS, out, "run",
+                       lr=float(lr) if lr else base_lr,
+                       nudge=variant == "nudge")
         elif case == "collectives":
             collectives_cases(out)
         else:
