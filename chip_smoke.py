@@ -49,7 +49,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    tile instance, ``flash_attention_bf16.cu``, is an entry of the
    kernels line of its own) and
    ``consensus_dist`` (the kernel benchmark's shape and phase 7's, its
-   path: 3 rows of L = 361,821,120; within 1e-6 relative);
+   path: 3 rows of L = 361,821,120; within 1e-6 relative); gossip_mix's
+   bf16-rounded form at phase 7's shape ([4, 361,821,120], K = 12)
+   beside its library yardstick, x (1 - rowsum) plus the weights folded
+   to [4, 4] by x in one f32 ``torch.addmm`` (the unrounded mix);
    ``gossip_mix``'s lane-strided
    form (the batched seeds axis: 4 lanes of the MLP path's round, of
    AD-PSGD's pair and of both endpoints' rows), bit-equal to its plain
@@ -176,8 +179,27 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    distances within the CPU tests' bf16 bounds (2e-3, 2e-2 relative);
    (c) that round under ``--compressed``: int8 a leaf, every quantize and
    dequantize call (11 leaves) and the bf16-rounded gossip_mix (from x,
-   the decoded payload as u and as the centre) bit-equal. Each
-   run's launches counted from zero and held to the path's.
+   the decoded payload as u and as the centre) bit-equal; the model axis
+   (``runtime/sharding``'s rules executed, a worker's replica over its
+   model-axis slots): (d) dp, the same model over ``(data, model) =
+   (4, 2)``, 8 slots of the card (``REPRO_DEVICES=8``): each slot the
+   whole replica and 1 of its worker's 2 sequences, a held round from
+   (a)'s init and first batch (every kernel call held as in (a), its
+   FLOPs on the card equal to the dry run's of this cell) within the
+   bf16 bounds of (a)'s first round (loss 2e-3, distances over sqrt(2)
+   2e-2 — the reference counts a whole leaf once a slot —, parameters
+   1e-3 relative in norm), then a timed round: seconds, tokens a second,
+   peak memory; (e) tp, internlm2-20b at its published widths (d 6,144,
+   48 / 8 heads of 128, d_ff 16,384, vocabulary 92,544, bf16, remat
+   "block"), depth 2 of 48, over ``(2, 2)`` (``REPRO_DEVICES=4``,
+   ``--workers 2``; a global batch of 2, 1 sequence a worker): a held
+   round, then the same round at ``(2, 1)`` from the same init and
+   batch, loss and parameters within those bounds and the distances
+   against the reference's rule on the (2, 1) rows, sqrt(d^2 + d^2 of
+   the leaves every slot holds whole). Each run's launches counted from
+   zero and held to the path's: gossip_mix (bf16-rounded) and
+   consensus_dist once a slot a round, flash once a slot's attention
+   layer a forward pass.
 
 Then a JSON line describing every kernel, the card line, and the last
 line ``{"ok": true, "device": {...}}``; ``[timing]`` lines give each
@@ -195,7 +217,8 @@ phase 6 alone (after building the registry corpus);
 
     python3 chip_smoke.py --train
 
-phase 7 alone, and with ``--trace`` a traced round of its trainer.
+phase 7 alone ((d) and (e) included; ``[timing]`` gives them apart), and
+with ``--trace`` a traced round of its trainer.
 
     python3 chip_smoke.py --trace
 
@@ -208,6 +231,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import os
 import re
 import statistics
@@ -240,7 +264,8 @@ from repro_torch.launch import roofline as rl  # noqa: E402
 from repro_torch.launch import train as trainer  # noqa: E402
 from repro_torch.launch.mesh import make_worker_mesh  # noqa: E402
 from repro_torch.models import moe, registry  # noqa: E402
-from repro_torch.runtime import shardexec, steps  # noqa: E402
+from repro_torch.runtime import collectives, shardexec  # noqa: E402
+from repro_torch.runtime import sharding, steps  # noqa: E402
 from repro_torch.simulation.cluster import SimCluster  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
@@ -389,6 +414,10 @@ FAMILY_PATHS = (("olmoe-1b-7b", 1, 444_733_440, 4, LM_CFG.lr),
                 ("zamba2-7b", 6, 922_968_288, 2, 0.01),
                 ("xlstm-1.3b", 8, 474_241_080, 4, 5e-4))
 FAMILY_ROUNDS = 2
+# phase 4 holds the two engines on the family paths over one round, where
+# phase 3 runs them two: the room the script's time limit leaves phase 7's
+# model-axis runs (a cut of the path's depth, not of a width)
+FAMILY_PARITY_ROUNDS = 1
 # the registry path as published: smollm-360m at its own dtype (bf16
 # leaves and activations, the flash kernel's bf16 instances) and
 # activation-checkpoint policy ("block"), with LM_MODEL's cuts (depth 4
@@ -612,6 +641,53 @@ def check_gossip_mix(cycles_per_ms: float) -> dict:
                 source="src/repro_torch/kernels/csrc/gossip_mix.cu",
                 replaces="src/repro/kernels/gossip_mix.py:45",
                 max_abs_err=worst, **main)
+
+
+def check_gossip_mix_trainer(cycles_per_ms: float) -> list:
+    """gossip_mix's bf16-rounded form at phase 7's shape (the trainer's
+    matching gossip: x [4, TRAIN_P] of bf16 values, u = x, the complete
+    graph's 3 matchings laid out matching-major, K = 12), bit-equal to its
+    plain version on a column chunk, timed beside its library yardstick:
+    x (1 - rowsum(w)) plus the matchings' weights folded to [4, 4] by x,
+    one ``torch.addmm`` in f32 — the unrounded mix, which the bf16-rounded
+    form's roundings part from. No kernel entry of its own (row 1's)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    adj = topo.make_base_topology(TRAIN_WORKERS, "full", TRAIN_SEED)
+    pairs = collectives.matchings_as_pairs(adj)
+    w = torch.from_numpy(collectives.matching_mix_weights(
+        pairs, collectives.matching_weight_tables(
+            adj, topo.mixing_matrix_uniform(adj)))).cuda()
+    x = torch.randn(TRAIN_WORKERS, TRAIN_P, generator=gen, device="cuda") \
+        .mul_(0.02).to(torch.bfloat16).float()
+    y = ops.gossip_mix(x, x, w, round_bf16=True)
+    cols = slice(0, HOLD_COLS)
+    _require_equal("gossip_mix", "trainer-bf16round", [(
+        y[:, cols], ref.gossip_mix_ref(x[:, cols].contiguous(),
+                                       x[:, cols].contiguous(), w,
+                                       round_bf16=True))])
+    folded = torch.zeros(TRAIN_WORKERS, TRAIN_WORKERS, device="cuda")
+    folded.index_add_(1, torch.arange(w.shape[1], device="cuda")
+                      % TRAIN_WORKERS, w)
+
+    def library():
+        return torch.addmm(x * (1.0 - w.sum(dim=1))[:, None], folded, x)
+
+    lib_gap = float((library() - y).abs().max())
+    del y
+    kernel_ms = time_ms(lambda: ops.gossip_mix(x, x, w, round_bf16=True),
+                        cycles_per_ms, batch=2, reps=5)
+    library_ms = time_ms(library, cycles_per_ms, batch=2, reps=5)
+    nbytes = 2 * x.numel() * 4 + w.numel() * 4
+    bound_ms, bound_by = _bound(nbytes, 5 * TRAIN_WORKERS * w.shape[1]
+                                * TRAIN_P)
+    log("phase2", kernel="gossip_mix", case="trainer-bf16round",
+        B=TRAIN_WORKERS, K=w.shape[1], L=TRAIN_P, bit_equal_chunk=True,
+        ms=f"{kernel_ms:.6f}", addmm_f32_ms=f"{library_ms:.6f}",
+        addmm_max_abs_diff=lib_gap, bound_ms=f"{bound_ms:.6f}",
+        bound_by=bound_by, share_of_bound=f"{bound_ms / kernel_ms:.4f}")
+    del x, w
+    torch.cuda.empty_cache()
+    return []
 
 
 # (case, S, B, K, L): the batched MLP round (4 lanes of the W = 30
@@ -1938,7 +2014,7 @@ def run_family_paths(data) -> dict[str, int]:
 def check_family_engines_agree(data) -> None:
     """Phase 4 for the moe, hybrid and xlstm families: FedHP through both
     engines at each family's published widths, over the registry path's
-    ``erdos:0.5`` base."""
+    ``erdos:0.5`` base, ``FAMILY_PARITY_ROUNDS`` rounds."""
     for arch, layers, params, w, lr in FAMILY_PATHS:
         adapter = family_adapter(arch, layers, params)
         fdata = _fleet_data(data, w)
@@ -1948,7 +2024,7 @@ def check_family_engines_agree(data) -> None:
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             hists[fused_engine], _ = _lm_run(
-                adapter, fdata, "fedhp", FAMILY_ROUNDS,
+                adapter, fdata, "fedhp", FAMILY_PARITY_ROUNDS,
                 fused_engine=fused_engine, num_workers=w, lr=lr,
                 **LM_PARITY_FIELDS)
             torch.cuda.synchronize()
@@ -1963,7 +2039,7 @@ def check_family_engines_agree(data) -> None:
                                          else "cuda")
                                  for k, v in hist.final_params.items()}
         _compare_engines(f"fedhp/{arch}-{layers}l/W={w}/erdos:0.5", hists,
-                         secs, int8=False, rounds=FAMILY_ROUNDS)
+                         secs, int8=False, rounds=FAMILY_PARITY_ROUNDS)
         del hists
         torch.cuda.empty_cache()
 
@@ -2744,6 +2820,26 @@ TRAIN_TIMED_ROUNDS = 3
 TRAIN_LOSS_RTOL, TRAIN_DIST_RTOL = 2e-3, 2e-2
 # columns a held gossip_mix call's plain version takes at a time
 HOLD_COLS = 1 << 24
+# (d) the model axis in dp: the same model over (data, model) = (4, 2), 8
+# slots of the one card (REPRO_DEVICES=8, --workers 4): each slot the
+# whole replica and 1 of its worker's 2 sequences; a held round from (a)'s
+# init and first batch, then a timed round
+MODEL_DP_SLOTS = 8
+# (d) and (e) against their model extent of 1, the CPU tests' bf16 trainer
+# bounds: loss and distances relative, the parameters relative in norm
+MODEL_LOSS_RTOL, MODEL_DIST_RTOL, MODEL_PARAM_RTOL = 2e-3, 2e-2, 1e-3
+# (e) the model axis in tp: internlm2-20b at its published widths (d
+# 6,144, 48 / 8 heads of 128, d_ff 16,384, vocabulary 92,544, bf16, remat
+# "block"), depth 2 of 48, over (2, 2) (REPRO_DEVICES=4, --workers 2),
+# then the same round at (2, 1). The cut: a global batch of 2 (1 sequence
+# a worker) for train_4k's 256; at 4 the dry run's peak estimate is
+# 63.5 GB at (2, 2) and 99.5 GB at (2, 1) (PERF.md §4), at 2 51.4 / 72.1
+TP_ARCH = "internlm2-20b"
+TP_LAYERS = 2
+TP_WORKERS = 2
+TP_SLOTS = 4
+TP_SHAPE = InputShape("train_4k", seq_len=4096, global_batch=2,
+                      kind="train")
 
 
 class _TrainHolds:
@@ -2762,8 +2858,9 @@ class _TrainHolds:
     NAMES = ("gossip_mix", "quantize_block", "dequantize_block",
              "consensus_dist", "flash_attention")
 
-    def __init__(self, cycles_per_ms: float):
+    def __init__(self, cycles_per_ms: float, arch: str = TRAIN_ARCH):
         self.cycles = cycles_per_ms
+        self.arch = arch
         self.orig = {n: getattr(ops, n) for n in self.NAMES}
         self.held = dict.fromkeys(self.NAMES, 0)
         self.worst = dict.fromkeys(self.NAMES, 0.0)
@@ -2864,7 +2961,7 @@ class _TrainHolds:
             setattr(ops, n, self.orig[n])
 
     def failures(self) -> list[str]:
-        return _held_failures(TRAIN_ARCH, self.flash)
+        return _held_failures(self.arch, self.flash)
 
 
 def _mix_bytes(x, u, w, centre) -> int:
@@ -2937,21 +3034,23 @@ def _dense_mix_gap(x: torch.Tensor, y: torch.Tensor,
     return worst_ratio, worst
 
 
-def _phase7_dry_run(cfg, mesh, adj: np.ndarray, pass_workers: int):
+def _phase7_dry_run(cfg, mesh, adj: np.ndarray, pass_workers: int,
+                    slots: int = 1):
     """Phase 7's cell counted by the dry run on the ``meta`` device (no
     card: ``launch/dryrun.run_cell``) as its held round runs: the round's
-    adj, tau_max and measured distances, the flash kernel on. Also one
-    flash call's plain backward at the path's shapes (the custom VJP's
-    recompute through the plain composition, ROADMAP.md queue 2 item
-    11), and the calls a round makes of it. Returns (the record, the
-    backward's line)."""
+    adj, tau_max and measured distances, the flash kernel on, on
+    ``mesh`` (its model axis of ``slots`` slots in dp: each runs the
+    replica on its share of the batch). Also one flash call's plain
+    backward at the path's shapes (the custom VJP's recompute through the
+    plain composition, ROADMAP.md queue 2 item 11), and the calls a round
+    makes of it. Returns (the record, the backward's line)."""
     t0 = time.perf_counter()
     rec = dryrun.run_cell(
         TRAIN_ARCH, TRAIN_SHAPE, mesh=mesh, verbose=False,
         cfg_overrides={"use_flash_kernel": True},
         train_kw=dict(tau_max=TRAIN_TAU, adj=adj, measure_distances=True))
     trace_s = time.perf_counter() - t0
-    b = pass_workers * (TRAIN_SHAPE.global_batch // TRAIN_WORKERS)
+    b = pass_workers * (TRAIN_SHAPE.global_batch // TRAIN_WORKERS // slots)
     hd, dt = cfg.resolved_head_dim, getattr(torch, cfg.dtype)
     q, k, v = (torch.empty(b, TRAIN_SHAPE.seq_len, h, hd, dtype=dt,
                            device="meta", requires_grad=True)
@@ -2960,7 +3059,7 @@ def _phase7_dry_run(cfg, mesh, adj: np.ndarray, pass_workers: int):
     bwd = dryrun.count(lambda: torch.autograd.grad(out, (q, k, v),
                                                    torch.empty_like(out)))
     calls = registry.attention_calls(cfg) * \
-        -(-TRAIN_WORKERS // pass_workers) * TRAIN_TAU
+        -(-TRAIN_WORKERS // pass_workers) * TRAIN_TAU * slots
     backward = dict(shape=[b, TRAIN_SHAPE.seq_len, cfg.num_heads, hd],
                     calls_a_round=calls, flops_a_call=bwd.flops,
                     bytes_a_call=bwd.bytes,
@@ -2970,6 +3069,7 @@ def _phase7_dry_run(cfg, mesh, adj: np.ndarray, pass_workers: int):
                     share_of_round_bytes=f"{calls * bwd.bytes / rec['hlo_bytes']:.4f}")
     log("phase7", dry_run=f"{TRAIN_ARCH}/W={TRAIN_WORKERS}/S=4096/"
         f"tau={TRAIN_TAU}/flash", mesh=rec["mesh"], chips=rec["chips"],
+        args_gb=f"{rec['bytes_per_device'] / 1e9:.3f}",
         trace_s=f"{trace_s:.1f}", hlo_flops=rec["hlo_flops"],
         hlo_bytes=rec["hlo_bytes"], collective_bytes=rec["collective_bytes"],
         compute_ms=f"{rec['compute_s'] * 1e3:.3f}",
@@ -3018,14 +3118,15 @@ class _FirstStepCount:
         steps.make_train_step = self.make
 
 
-def _train_run(cfg, mesh, p1, batches, rounds: int, **kw):
+def _train_run(cfg, mesh, p1, batches, rounds: int, shape=TRAIN_SHAPE,
+               **kw):
     """``launch/train.train`` from the one-worker start ``p1`` on
     ``batches``, its round lines printed under phase 7 -> (run, the
     launches it made, counted from zero, peak GB)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
-    run = trainer.train(cfg, TRAIN_SHAPE, mesh, steps_total=rounds,
+    run = trainer.train(cfg, shape, mesh, steps_total=rounds,
                         tau_max=TRAIN_TAU, lr=TRAIN_LR, seed=TRAIN_SEED,
                         init_params=p1, batches=iter(batches[:rounds]),
                         log=lambda line: log("phase7", line=repr(line)),
@@ -3034,24 +3135,32 @@ def _train_run(cfg, mesh, p1, batches, rounds: int, **kw):
     return run, _read_counts(), torch.cuda.max_memory_allocated() / 1e9
 
 
+def _trainer_mesh(workers: int, slots: int, model: int):
+    """``build_mesh(workers)`` over ``slots`` slots of the one card
+    (``REPRO_DEVICES=slots``), required to be (workers, model) there."""
+    was = os.environ.get("REPRO_DEVICES")
+    os.environ["REPRO_DEVICES"] = str(slots)
+    try:
+        mesh = trainer.build_mesh(workers, device="cuda")
+    finally:
+        if was is None:
+            os.environ.pop("REPRO_DEVICES")
+        else:
+            os.environ["REPRO_DEVICES"] = was
+    if mesh.shape != {"data": workers, "model": model} or \
+            set(mesh.devices) != {torch.device("cuda", 0)}:
+        raise AssertionError(f"phase 7 mesh {mesh}: not ({workers}, "
+                             f"{model}) on the card")
+    return mesh
+
+
 def _trainer_setup():
     """Phase 7's config (published, the flash kernel on), its mesh
     (``build_mesh`` with ``REPRO_DEVICES=4``: 4 slots of the one card),
     the one-worker start and the rounds' batches, both drawn on the card
     from seeds, and the flat layout."""
     cfg = replace(get_config(TRAIN_ARCH), use_flash_kernel=True)
-    slots = os.environ.get("REPRO_DEVICES")
-    os.environ["REPRO_DEVICES"] = str(TRAIN_WORKERS)
-    try:
-        mesh = trainer.build_mesh(TRAIN_WORKERS, device="cuda")
-    finally:
-        if slots is None:
-            os.environ.pop("REPRO_DEVICES")
-        else:
-            os.environ["REPRO_DEVICES"] = slots
-    if mesh.shape != {"data": TRAIN_WORKERS, "model": 1} or \
-            set(mesh.devices) != {torch.device("cuda", 0)}:
-        raise AssertionError(f"phase 7 mesh {mesh}")
+    mesh = _trainer_mesh(TRAIN_WORKERS, TRAIN_WORKERS, 1)
     gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
     p1 = registry.init_params(cfg, gen)
     stream = trainer.random_batches(cfg, TRAIN_SHAPE, TRAIN_SEED + 1, "cuda")
@@ -3117,9 +3226,12 @@ def run_trainer() -> dict[str, int]:
     dense, distinct = [], []
     noise = torch.Generator(device="cuda").manual_seed(TRAIN_SEED + 2)
 
+    round0 = {}
+
     def after_round(h, params, rlog):
         if h == 0:
             holds.stop()
+            round0["params"] = params.clone()          # (d)'s reference
         x, w = mix_in.pop("x"), mix_in.pop("w")
         dense.append(_dense_mix_gap(x, params, rlog.adj))
         distinct.append(_distinct_rows_gap(x, w, rlog.adj, noise))
@@ -3256,11 +3368,266 @@ def run_trainer() -> dict[str, int]:
         path_kernel_times=codec_holds.timed)
     for k, v in counts.items():
         total[k] += v
-    del run, run_b, run_c, p1, batches
+    del run, run_b, run_c
     torch.cuda.empty_cache()
+
+    # (d) and (e): the model axis
+    t0 = time.perf_counter()
+    counts, fails = run_model_dp(cfg, p1, batches, a0, round0.pop("params"),
+                                 cycles)
+    log("timing", phase7d_s=f"{time.perf_counter() - t0:.3f}")
+    failures += fails
+    for k, v in counts.items():
+        total[k] += v
+    del p1, batches
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts, fails = run_model_tp(cycles)
+    log("timing", phase7e_s=f"{time.perf_counter() - t0:.3f}")
+    failures += fails
+    for k, v in counts.items():
+        total[k] += v
     if failures:
         raise AssertionError("phase 7: " + "; ".join(failures))
     return total
+
+
+def _rel_norm(pairs) -> float:
+    """||a - b|| / ||b|| over the (a, b) pairs, summed in f64 a column
+    chunk at a time."""
+    num = den = 0.0
+    for a, b in pairs:
+        a2, b2 = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+        for c0 in range(0, a2.shape[1], HOLD_COLS):
+            ca = a2[:, c0:c0 + HOLD_COLS].double()
+            cb = b2[:, c0:c0 + HOLD_COLS].double()
+            num += float((ca - cb).square().sum())
+            den += float(cb.square().sum())
+    return math.sqrt(num / den)
+
+
+def _launch_check(name: str, counts: dict, mix: int, flash: int) -> None:
+    """A model-axis run launches gossip_mix (bf16-rounded) and
+    consensus_dist ``mix`` times (a slot a round), flash ``flash`` times
+    (the bf16 tile), no codec or edge kernel."""
+    if counts["gossip_mix"] != mix or \
+            ops.INSTANCE_LAUNCHES["gossip_mix:bf16round"] != mix or \
+            counts["consensus_dist"] != mix or \
+            counts["flash_attention"] != flash or \
+            counts["flash_attention:bf16_tile"] != flash or \
+            counts["quantize_block"] or counts["gossip_edges"]:
+        raise AssertionError(f"{name}: launched {counts}; the path launches "
+                             f"gossip_mix (bf16round) and consensus_dist "
+                             f"{mix} times, flash {flash}")
+
+
+def run_model_dp(cfg, p1, batches, a0, round0: torch.Tensor,
+                 cycles: float) -> tuple[dict[str, int], list[str]]:
+    """Phase 7 (d): smollm-360m as published over (data, model) = (4, 2),
+    8 slots of the one card (``within_worker="dp"``: each slot the whole
+    replica and 1 sequence of its worker's 2): a held round from (a)'s
+    init and first batch — every kernel call held as in (a), its FLOPs on
+    the card equal to the dry run's of this cell — against (a)'s first
+    round at (4, 1) (loss, distances over sqrt(2): the reference counts a
+    whole leaf once a slot, and the parameters), the two slots' replicas
+    bit-equal; then a timed round -> (launches, failures)."""
+    mesh = _trainer_mesh(TRAIN_WORKERS, MODEL_DP_SLOTS, 2)
+    layout = steps.train_layout(cfg, TRAIN_SHAPE, mesh)
+    b_slot = TRAIN_SHAPE.global_batch // TRAIN_WORKERS // layout.model
+    pass_workers = layout.workers_per_pass(torch.empty(
+        TRAIN_WORKERS, b_slot, TRAIN_SHAPE.seq_len, device="meta"))
+    flash_step = 2 * registry.attention_calls(cfg) * layout.model * \
+        -(-TRAIN_WORKERS // pass_workers)
+    base = topo.make_base_topology(TRAIN_WORKERS, "full", TRAIN_SEED)
+    dry, _ = _phase7_dry_run(cfg, mesh, base, pass_workers, layout.model)
+    holds = _TrainHolds(cycles)
+    held = {}
+
+    def after_round(h, params, rlog):
+        if h:
+            return
+        holds.stop()
+        held["replicas_equal"] = all(torch.equal(params[0], q)
+                                     for q in params[1:])
+        held["params"] = _rel_norm([(params[0], round0)])
+
+    holds.start()
+    try:
+        with _FirstStepCount() as held_count:
+            run, counts, peak = _train_run(cfg, mesh, p1, batches, 2,
+                                           on_round=after_round)
+    finally:
+        holds.stop()
+    name = f"{TRAIN_ARCH}/bf16/W={TRAIN_WORKERS}/model=2/dp/S=4096/flash"
+    caps = [int(max(r.taus.max(), 1)) for r in run.rounds]
+    _launch_check(name, counts, 2 * layout.model,
+                  flash_step * sum(caps))
+    d0, timed = run.rounds
+    gaps = dict(loss=abs(d0.loss - a0.loss) / abs(a0.loss),
+                dists=float(np.max(np.abs(d0.dists / math.sqrt(2.0)
+                                          - a0.dists) / np.abs(a0.dists))),
+                params=held["params"])
+    failures = holds.failures()
+    if holds.held["flash_attention"] != flash_step * caps[0]:
+        failures.append(f"(d) held {holds.held['flash_attention']} flash "
+                        "calls")
+    if held_count.flops != dry["hlo_flops"]:
+        failures.append(f"(d) the held round counted {held_count.flops} "
+                        f"FLOPs on the card, the dry run "
+                        f"{dry['hlo_flops']:.0f}")
+    if not (np.array_equal(d0.adj, base) and caps[0] == TRAIN_TAU):
+        failures.append("(d) the held round is not the dry run's cell")
+    if not held["replicas_equal"]:
+        failures.append("(d) the slots' replicas differ after a round")
+    if not (gaps["loss"] <= MODEL_LOSS_RTOL and gaps["dists"] <=
+            MODEL_DIST_RTOL and gaps["params"] <= MODEL_PARAM_RTOL):
+        failures.append(f"(d) against (a)'s first round: {gaps}")
+    tokens = TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len * caps[1]
+    log("phase7", run=name, P=layout.param_count, mesh=mesh.shape,
+        slots=len(mesh.devices), worker_passes_a_slot=-(-TRAIN_WORKERS //
+                                                        pass_workers),
+        held_round_s=f"{d0.seconds:.3f}", timed_round_s=f"{timed.seconds:.3f}",
+        timed_tau_cap=caps[1], tokens_per_s=f"{tokens / timed.seconds:.1f}",
+        peak_gb_card=f"{peak:.3f}",
+        peak_gb_a_slot=f"{peak / len(mesh.devices):.3f}",
+        dry_run_peak_gb=f"{dry['peak_bytes_per_device'] / 1e9:.3f}",
+        dry_run_args_gb=f"{dry['bytes_per_device'] / 1e9:.3f}",
+        held_round_flops=held_count.flops,
+        dry_run_flops=f"{dry['hlo_flops']:.0f}",
+        loss=[f"{r.loss:.6f}" for r in run.rounds], a_loss=f"{a0.loss:.6f}",
+        dists=d0.dists.tolist(), a_dists=a0.dists.tolist(),
+        gaps={k: f"{v:.3e}" for k, v in gaps.items()},
+        bounds=dict(loss=MODEL_LOSS_RTOL, dists=MODEL_DIST_RTOL,
+                    params=MODEL_PARAM_RTOL),
+        launches={k: v for k, v in counts.items() if v}, held=holds.held,
+        held_worst=holds.worst,
+        flash_call_max_abs_err=max((f[2] for f in holds.flash), default=0.0),
+        path_kernel_times=holds.timed)
+    del run
+    torch.cuda.empty_cache()
+    return counts, failures
+
+
+def run_model_tp(cycles: float) -> tuple[dict[str, int], list[str]]:
+    """Phase 7 (e): internlm2-20b at its published widths, depth 2, over
+    (data, model) = (2, 2) (``within_worker="tp"``: every leaf but the
+    norms split by the spec rules, 24 / 4 heads a slot), one held round
+    (every kernel call held as in (a)), then the same round at (2, 1) from
+    the same init and batch: loss, the parameters (relative in norm) and
+    the distances against the reference's rule on the (2, 1) rows,
+    sqrt(d^2 + d^2 of the leaves every slot holds whole), as each slot
+    counts those once -> (launches, failures)."""
+    cfg = replace(get_config(TP_ARCH), num_layers=TP_LAYERS,
+                  use_flash_kernel=True)
+    # the (2, 1) round's gradients are 15.3 GB blocks: its peak (the dry
+    # run's 72.1 GB) fits the card only where the allocator can grow a
+    # segment in place of leaving reserved blocks it cannot join
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        return _model_tp(cfg, cycles)
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+
+
+def _model_tp(cfg, cycles: float) -> tuple[dict[str, int], list[str]]:
+    """``run_model_tp``'s runs and checks."""
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    p1 = registry.init_params(cfg, gen)
+    batches = [next(trainer.random_batches(cfg, TP_SHAPE, TRAIN_SEED + 1,
+                                           "cuda"))]
+    runs, total, failures = {}, None, []
+    orig_dist = ops.consensus_dist
+    for model in (2, 1):
+        mesh = _trainer_mesh(TP_WORKERS, TP_WORKERS * model, model)
+        layout = steps.train_layout(cfg, TP_SHAPE, mesh)
+        pass_workers = layout.workers_per_pass(torch.empty(
+            TP_WORKERS, TP_SHAPE.global_batch // TP_WORKERS,
+            TP_SHAPE.seq_len, device="meta"))
+        flash_step = 2 * registry.attention_calls(cfg) * model * \
+            -(-TP_WORKERS // pass_workers)
+        holds = _TrainHolds(cycles, TP_ARCH)
+        whole = []
+        if model == 2:
+            holds.start()
+            whole_names = {l.name for l in layout.leaf_offsets()
+                           if layout.splits.get(l.name) is None}
+        else:
+            # the (2, 1) rows' squared distance over the leaves the (2, 2)
+            # slots hold whole
+            spans = [(l.start, l.stop) for l in layout.leaf_offsets()
+                     if l.name in whole_names]
+
+            def spy(x, u):
+                with _disable_current_modes():
+                    whole.append(sum(
+                        (x[a:b].double() - u[:, a:b].double()).square()
+                        .sum(dim=1) for a, b in spans))
+                return orig_dist(x, u)
+
+            ops.consensus_dist = spy
+        try:
+            run, counts, peak = _train_run(cfg, mesh, p1, batches, 1,
+                                           shape=TP_SHAPE)
+        finally:
+            holds.stop()
+            ops.consensus_dist = orig_dist
+        r0 = run.rounds[0]
+        _launch_check(f"{TP_ARCH}/model={model}", counts, model,
+                      flash_step * TRAIN_TAU)
+        failures += holds.failures()
+        if model == 2 and holds.held["flash_attention"] != \
+                flash_step * TRAIN_TAU:
+            failures.append(f"(e) held {holds.held['flash_attention']} "
+                            "flash calls")
+        runs[model] = dict(
+            loss=r0.loss, dists=r0.dists, seconds=r0.seconds, peak=peak,
+            layout=layout, whole=whole,
+            params=tuple(q.cpu() for q in run.params) if model == 2
+            else run.params)
+        total = counts if total is None else \
+            {k: total[k] + v for k, v in counts.items()}
+        log("phase7", run=f"{TP_ARCH}/bf16/layers={TP_LAYERS}/W={TP_WORKERS}"
+            f"/model={model}/S=4096/flash", P_a_slot=layout.param_count,
+            mesh=mesh.shape, round_s=f"{r0.seconds:.3f}",
+            peak_gb_card=f"{peak:.3f}", loss=f"{r0.loss:.6f}",
+            dists=r0.dists.tolist(), worker_passes=-(-TP_WORKERS //
+                                                     pass_workers),
+            launches={k: v for k, v in counts.items() if v},
+            held=holds.held, held_worst=holds.worst,
+            flash_call_max_abs_err=max((f[2] for f in holds.flash),
+                                       default=0.0),
+            path_kernel_times=holds.timed)
+        del run
+        torch.cuda.empty_cache()
+    t, o = runs[2], runs[1]
+    want = np.sqrt(o["dists"].astype(np.float64) ** 2
+                   + torch.stack(o["whole"]).sum(0).cpu().numpy())
+    pairs = []
+    for l in t["layout"].leaf_offsets():
+        l1 = next(m for m in o["layout"].leaf_offsets() if m.name == l.name)
+        one = o["params"][:, l1.start:l1.stop].view(TP_WORKERS, *l1.shape)
+        pieces = sharding.cut_leaf(one, t["layout"].splits.get(l.name), 2,
+                                   lead=1)
+        for j, piece in enumerate(pieces):
+            pairs.append((t["params"][j][:, l.start:l.stop].cuda()
+                          .view(TP_WORKERS, *l.shape), piece))
+    gaps = dict(loss=abs(t["loss"] - o["loss"]) / abs(o["loss"]),
+                dists=float(np.max(np.abs(t["dists"] - want) / want)),
+                params=_rel_norm(pairs))
+    log("phase7", tp_against_one_slot=TP_ARCH, dists=t["dists"].tolist(),
+        one_slot_dists=o["dists"].tolist(), rule_dists=want.tolist(),
+        gaps={k: f"{v:.3e}" for k, v in gaps.items()},
+        bounds=dict(loss=MODEL_LOSS_RTOL, dists=MODEL_DIST_RTOL,
+                    params=MODEL_PARAM_RTOL))
+    if not (gaps["loss"] <= MODEL_LOSS_RTOL and gaps["dists"] <=
+            MODEL_DIST_RTOL and gaps["params"] <= MODEL_PARAM_RTOL):
+        failures.append(f"(e) (2, 2) against (2, 1): {gaps}")
+    del runs, pairs, p1
+    torch.cuda.empty_cache()
+    return total, failures
 
 
 def trace_lm_rounds(adapter, data) -> None:
@@ -3381,7 +3748,8 @@ def main() -> int:
         check_gossip_mix, check_gossip_mix_lanes, check_codecs,
         check_gossip_edges, check_robust_gossip, check_flash_attention)]
     checks += [("check_flash_attention_bf16", lambda c: check_flash_attention(
-        c, torch.bfloat16)), ("check_consensus_dist", check_consensus_dist)]
+        c, torch.bfloat16)), ("check_consensus_dist", check_consensus_dist),
+        ("check_gossip_mix_trainer", check_gossip_mix_trainer)]
     t0 = time.perf_counter()
     launch_floor(cycles_per_ms)
     phase2_s["launch_floor"] = f"{time.perf_counter() - t0:.1f}"

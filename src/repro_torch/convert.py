@@ -13,12 +13,18 @@ side. ``params_to_numpy`` is its inverse, back to nested dicts of f32
 numpy arrays (exact for bf16 leaves; the reference casts them back). The
 tests hand the reference's ``adapter.init(PRNGKey(seed))`` to the port's
 engines (``init_params=``) and compare trajectories from identical
-weights. Nothing here imports JAX.
+weights. ``slot_pieces`` cuts whole leaves into a model axis's slot
+pieces by the spec rules (``runtime/sharding.leaf_splits`` /
+``cut_leaf``, as the round step lays them out), so one init from the
+reference feeds both packages on such a mesh. Nothing here imports
+JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.runtime import sharding
 
 
 def _flat_items(tree, prefix: str = ""):
@@ -57,4 +63,18 @@ def params_to_numpy(params) -> dict:
         for key in parents:
             node = node.setdefault(key, {})
         node[leaf] = v.detach().to("cpu", torch.float32).numpy()
+    return out
+
+
+def slot_pieces(params: dict, cfg, mesh, *, lead: int = 0) -> list[dict]:
+    """{name: whole leaf} (``lead`` leading dims, e.g. 1 for a
+    worker-stacked tree) -> each model-axis slot's {name: piece} of
+    ``mesh`` (views; a leaf the rules keep whole is every slot's)."""
+    shapes = {k: tuple(v.shape[lead:]) for k, v in params.items()}
+    m = sharding.model_extent(cfg, mesh)
+    splits = sharding.leaf_splits(cfg, mesh, shapes)
+    out: list[dict] = [{} for _ in range(m)]
+    for k, v in params.items():
+        for j, piece in enumerate(sharding.cut_leaf(v, splits[k], m, lead)):
+            out[j][k] = piece
     return out

@@ -57,6 +57,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data import synthetic
 from repro_torch.models import layers as _layers
 from repro_torch.models import registry as _registry
+from repro_torch.runtime import sharding as _sharding
 from repro_torch.simulation import model as _mlp
 
 FP32_BITS = 32
@@ -356,6 +357,78 @@ class RegistryAdapter(ModelAdapter):
         tokens = x[0].numel() * (x.shape[-1] - 1) // x.shape[-1]
         need = max(tokens, 1) * self.activation_bytes_per_token()
         return max(1, min(x.shape[0], ACTIVATION_BUDGET_BYTES // need))
+
+
+class SlotAdapter(RegistryAdapter):
+    """A registry model's flat layout on each of the ``model`` slots of a
+    worker's model axis (launch/train's round step): slot j's fleet
+    matrix ``[W, P_slot]`` holds, worker by worker, slot j's piece of
+    every leaf in the reference's leaf order. ``splits`` {name: dim or
+    None} says which dim of one worker's leaf the model axis splits into
+    ``model`` equal contiguous pieces (``runtime/sharding.leaf_splits``),
+    None for a leaf every slot holds whole. The pieces of slot j have the
+    same shapes on every slot, so one table (``leaf_offsets``,
+    ``narrow_spans``, ``views``, ``round_leaves_``) serves each slot's
+    matrix; with ``model`` 1 it is exactly ``RegistryAdapter``'s layout.
+    ``cut`` / ``flatten_slots`` / ``join`` go between whole
+    worker-stacked leaves and the slots' pieces."""
+
+    def __init__(self, cfg: ModelConfig, seq_len: int, spec: str,
+                 splits: dict | None = None, model: int = 1):
+        super().__init__(cfg, seq_len, 0, spec)
+        self.model = model
+        self.splits = dict(splits or {})
+
+    def whole_shapes(self) -> dict[str, tuple[int, ...]]:
+        """One worker's whole leaf shapes."""
+        return _registry.leaf_shapes(self.cfg)
+
+    def leaf_shapes(self) -> dict[str, tuple[int, ...]]:
+        """A slot's piece of each leaf."""
+        return {k: _sharding.piece_shape(s, self.splits.get(k), self.model)
+                for k, s in self.whole_shapes().items()}
+
+    def whole_spans(self) -> tuple[tuple[int, int], ...]:
+        """The column spans (start, stop) of the leaves every slot holds
+        whole, adjacent ones merged (all of them with ``model`` 1)."""
+        spans: list[list[int]] = []
+        for l in self.leaf_offsets():
+            if self.splits.get(l.name) is not None:
+                continue
+            if spans and spans[-1][1] == l.start:
+                spans[-1][1] = l.stop
+            else:
+                spans.append([l.start, l.stop])
+        return tuple(tuple(s) for s in spans)
+
+    def cut(self, stacked: dict[str, torch.Tensor]) -> list[dict]:
+        """Worker-stacked whole leaves {name: [W, *shape]} -> each slot's
+        pieces {name: [W, *piece]} (views)."""
+        out: list[dict] = [{} for _ in range(self.model)]
+        for k, v in stacked.items():
+            for j, piece in enumerate(_sharding.cut_leaf(
+                    v, self.splits.get(k), self.model, lead=1)):
+                out[j][k] = piece
+        return out
+
+    def flatten_slots(self, stacked: dict[str, torch.Tensor]
+                      ) -> list[torch.Tensor]:
+        """Worker-stacked whole leaves -> the slots' [W, P_slot] f32
+        matrices (``flatten`` of each slot's pieces)."""
+        return [self.flatten(p) for p in self.cut(stacked)]
+
+    def join(self, slots) -> dict[str, torch.Tensor]:
+        """The slots' matrices (one [W, P] matrix for ``model`` 1) ->
+        whole worker-stacked leaves in their storage dtypes, on slot 0's
+        device (the reference's on-disk format; a whole leaf from slot 0's
+        copy)."""
+        if isinstance(slots, torch.Tensor):
+            return self.unflatten(slots)
+        home = slots[0].device
+        parts = [self.unflatten(s) for s in slots]
+        return {k: _sharding.join_leaf([p[k].to(home) for p in parts],
+                                       self.splits.get(k), lead=1)
+                for k in parts[0]}
 
 
 def _parse_kv(body: str) -> dict[str, int]:

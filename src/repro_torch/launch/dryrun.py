@@ -22,10 +22,14 @@ the call does:
 
 Then it prints the reference's lines and the roofline terms at the H100
 constants (``launch/roofline.py``). It needs no card and launches
-nothing. The port's train step refuses a model axis > 1 (ROADMAP.md
-queue 1 item 4), so a cell is traced with the production mesh's
-workers (``sharding.num_workers``: 16 on 16 x 16 for smollm-360m) on a
-mesh of ``meta`` slots whose other axes have size 1; the counts are
+nothing. A train cell the port's step executes on the model axis (the
+dense family without FSDP, b_w a multiple of the axis under dp:
+``sharding.model_extent``, ``sharding.batch_slots``) is traced on the
+production mesh's worker and model axes of ``meta`` slots, its bytes a
+device read from the executed layout (a slot's [W, P_slot] pieces and
+batch share), which must equal the spec rules' sum; any other cell with
+the production mesh's workers (``sharding.num_workers``: 16 on 16 x 16
+for smollm-360m) on a mesh whose other axes have size 1. The counts are
 global quantities over the mesh's chips, as the reference stores them.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m \\
@@ -202,11 +206,32 @@ def count_unrolled(fn, *args, unroll: bool = True) -> Counts:
                   peak=three.peak, args=three.args)
 
 
-def _trace_mesh(cfg, prod):
-    """``prod``'s worker axes at their sizes, every other axis of size 1,
-    over ``meta`` slots: the mesh the port's train step can run."""
-    workers = sharding.worker_axes_in_mesh(cfg, prod)
-    sizes = [s if a in workers else 1 for a, s in prod.shape.items()]
+def executes_model_axis(cfg, mesh, shape: InputShape) -> bool:
+    """Whether the port's round step runs ``shape``'s train cell over
+    ``mesh``'s model axis (a serving step runs one replica whole)."""
+    if shape.kind != "train":
+        return False
+    try:
+        if sharding.model_extent(cfg, mesh) == 1:
+            return False
+        sharding.leaf_splits(cfg, mesh, registry.leaf_shapes(cfg))
+        w = sharding.num_workers(cfg, mesh)
+        for k, (s, _) in sharding.split_batch_shapes(
+                registry.batch_shapes(cfg, shape), w).items():
+            sharding.batch_slots(cfg, mesh, k, s)
+    except NotImplementedError:
+        return False
+    return True
+
+
+def _trace_mesh(cfg, prod, shape: InputShape):
+    """``prod``'s worker axes at their sizes, and its model axis where the
+    port executes it on this cell (``executes_model_axis``), every other
+    axis of size 1, over ``meta`` slots: the mesh the port's step runs."""
+    keep = set(sharding.worker_axes_in_mesh(cfg, prod))
+    if executes_model_axis(cfg, prod, shape):
+        keep.add(next(a for a in cfg.tp_axes if a in prod.shape))
+    sizes = [s if a in keep else 1 for a, s in prod.shape.items()]
     return make_mesh(sizes, tuple(prod.shape),
                      devices=[META] * math.prod(sizes))
 
@@ -216,6 +241,12 @@ def _per_slot(leaves: dict, specs: dict, mesh) -> float:
     its spec splits it over."""
     return sum(_nbytes(t) / sharding.spec_shards(mesh, specs[k])
                for k, t in leaves.items())
+
+
+def _train_rows(params) -> int:
+    """W of a train step's parameter argument ([W, P], or a model axis's
+    tuple of [W, P_slot])."""
+    return (params[0] if isinstance(params, tuple) else params).shape[0]
 
 
 def argument_bytes_per_slot(cfg, mesh, shape: InputShape, bundle) -> float:
@@ -228,9 +259,9 @@ def argument_bytes_per_slot(cfg, mesh, shape: InputShape, bundle) -> float:
     args = bundle.abstract_args
     if shape.kind == "train":
         params, batch, taus, lr = args
-        w = params.shape[0]
-        leaves = {l.name: torch.empty((w, *l.shape), device=META)
-                  for l in bundle.layout.leaf_offsets()}
+        w = _train_rows(params)
+        leaves = {k: torch.empty((w, *s), device=META)
+                  for k, s in bundle.layout.whole_shapes().items()}
         tot = _per_slot(leaves, sharding.param_pspecs(
             cfg, mesh, {k: t.shape for k, t in leaves.items()}), mesh)
         split = sharding.split_batch_shapes(
@@ -256,6 +287,24 @@ def argument_bytes_per_slot(cfg, mesh, shape: InputShape, bundle) -> float:
         shape.global_batch), mesh)
     return tot + _nbytes(args[2]) / sharding.spec_shards(
         mesh, sharding.serve_batch_spec(cfg, mesh, args[2].shape[1:]))
+
+
+def executed_bytes_per_slot(cfg, mesh, shape: InputShape, bundle) -> float:
+    """A train step's arguments as the port lays them out on a model
+    axis, a slot's share: its matrix of pieces ([W, P_slot] f32, W over
+    the worker axes' slots), its share of the batch (``batch_slots``
+    along b_w, the tau dim unsplit) over the worker axes' slots, and the
+    taus and lr every slot reads."""
+    params, batch, taus, lr = bundle.abstract_args
+    w = _train_rows(params)
+    wslots = math.prod(s for a, s in mesh.shape.items()
+                       if a in sharding.worker_axes_in_mesh(cfg, mesh))
+    tot = w * bundle.layout.param_count * 4 / wslots
+    split = sharding.split_batch_shapes(registry.batch_shapes(cfg, shape), w)
+    for k, t in batch.items():
+        tot += _nbytes(t) / wslots / sharding.batch_slots(
+            cfg, mesh, k, split[k][0])
+    return tot + _nbytes(taus) + _nbytes(lr)
 
 
 def step_args(bundle, shape: InputShape) -> tuple:
@@ -294,7 +343,7 @@ def run_cell(arch: str, shape_name, *, multi_pod: bool = False,
         size = 512 if multi_pod else 256
         spec_mesh = make_production_mesh(multi_pod=multi_pod,
                                          devices=[META] * size)
-        trace_mesh, chips = _trace_mesh(cfg, spec_mesh), size
+        trace_mesh, chips = _trace_mesh(cfg, spec_mesh, shape), size
         mesh_name = "2x16x16" if multi_pod else "16x16"
     else:
         spec_mesh = trace_mesh = mesh
@@ -312,20 +361,28 @@ def run_cell(arch: str, shape_name, *, multi_pod: bool = False,
 
     coll = rl.CollectiveStats()
     if shape.kind == "train":
-        w = args[0].shape[0]
+        w = _train_rows(args[0])
         adj = train_kw.get("adj")
         adj = steps_mod._default_adj(w) if adj is None else adj
         mixfn = (topo.mixing_matrix_metropolis
                  if train_kw.get("mixing") == "metropolis"
                  else topo.mixing_matrix_uniform)
+        # every model-axis slot sends its pieces (a whole leaf once a slot)
         coll = rl.collective_bytes_from_tables(
             adj, mixfn(adj) if w > 1 else np.ones((1, 1)),
-            4 * bundle.layout.param_count)
+            4 * bundle.layout.param_count * bundle.layout.model)
     roof = rl.roofline_from_counts(counts.flops, counts.bytes,
                                    coll.total_bytes, chips, coll)
     mf = rl.model_flops(cfg, shape)
-    per_device = argument_bytes_per_slot(cfg, spec_mesh, shape, bundle) \
-        * slots_a_chip
+    per_slot = argument_bytes_per_slot(cfg, spec_mesh, shape, bundle)
+    if shape.kind == "train" and bundle.layout.model > 1:
+        executed = executed_bytes_per_slot(cfg, trace_mesh, shape, bundle)
+        if not math.isclose(executed, per_slot, rel_tol=1e-12):
+            raise AssertionError(f"{arch} x {shape.name}: the executed "
+                                 f"layout holds {executed} bytes a slot, "
+                                 f"the spec rules {per_slot}")
+        per_slot = executed
+    per_device = per_slot * slots_a_chip
     temp = (counts.peak - counts.args) / chips
     rec = {
         "arch": arch, "shape": shape.name, "mesh": mesh_name,

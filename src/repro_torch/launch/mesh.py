@@ -13,7 +13,10 @@ makes n slots of the one device a run is on (``host_devices``).
 - ``make_debug_mesh`` / ``make_production_mesh`` -> ``DeviceMesh``:
   launch/train's named-axis mesh (``("data", "model")``; ``("pod",
   "data", "model")`` multi-pod), slots laid out row-major over the axes
-  as ``jax.make_mesh`` lays out devices.
+  as ``jax.make_mesh`` lays out devices; ``slot_groups`` names the
+  slots that hold each DFL worker's pieces (its model-axis slots), and
+  ``model_devices`` where the trainer keeps each model-axis slot's
+  matrix of the fleet's pieces.
 """
 from __future__ import annotations
 
@@ -92,6 +95,28 @@ class DeviceMesh:
     def shape(self) -> dict[str, int]:
         """{axis name: size}, in axis order (``jax.sharding.Mesh.shape``)."""
         return dict(zip(self.axis_names, self.axis_sizes))
+
+
+def slot_groups(mesh: DeviceMesh, worker_axes) -> list[list[int]]:
+    """The slots that hold each DFL worker's pieces: for worker i (row-major
+    over ``worker_axes``, in mesh order, as the reference's
+    ``axis_index(worker_axes)``), the indices into ``mesh.devices`` of its
+    slots along the other axes, in row-major order. On a ``(data, model)
+    = (4, 2)`` mesh worker i holds slots [2 i, 2 i + 1]; on a mesh whose
+    other axes have size 1, one slot a worker."""
+    names = mesh.axis_names
+    ids = torch.arange(len(mesh.devices)).reshape(mesh.axis_sizes)
+    lead = [i for i, a in enumerate(names) if a in worker_axes]
+    rest = [i for i, a in enumerate(names) if a not in worker_axes]
+    w = math.prod(mesh.axis_sizes[i] for i in lead)
+    return ids.permute(*lead, *rest).reshape(w, -1).tolist()
+
+
+def model_devices(mesh: DeviceMesh, worker_axes) -> list[torch.device]:
+    """The device of each model-axis slot of worker 0's group
+    (``slot_groups``): where the fleet's matrix of that slot's pieces
+    lives while the whole fleet is on one device."""
+    return [mesh.devices[s] for s in slot_groups(mesh, worker_axes)[0]]
 
 
 def host_devices(device=None) -> list[torch.device]:

@@ -17,13 +17,21 @@ At smoke scale on the CPU::
 Without ``--device`` it runs on the card. ``REPRO_DEVICES=n`` makes the
 mesh n slots of the one device (the reference's fake host devices), and
 the mesh is ``(data, model)`` with the data axis as the DFL workers, as
-the reference builds it; without it the slots are the visible cards. The
-fleet's [W, P] matrix lives on one device: a mesh whose slots span more
-than one device, a ``model`` axis of size > 1 (``REPRO_DEVICES`` past
-``--workers``), ``--production`` and ``--multi-pod`` raise
-``NotImplementedError`` (the model axis and the multi-process launcher,
-ROADMAP.md queue 1, item 4). Wall-clock heterogeneity is synthesized by
-the SimCluster profile, as in the reference.
+the reference builds it; without it the slots are the visible cards.
+Past ``--workers`` the mesh grows a model axis: a worker's replica lives
+on its model-axis slots (``runtime/sharding``'s rules; the dense family,
+as data parallelism within the worker under ``within_worker="dp"`` and
+tensor parallelism under ``"tp"``), e.g. on the CPU::
+
+    REPRO_DEVICES=8 PYTHONPATH=src python -m repro_torch.launch.train \
+        --smoke --workers 4 --device cpu
+
+The fleet lives on one device: a mesh whose slots span more than one
+device, ``--production`` and ``--multi-pod`` raise
+``NotImplementedError`` (the multi-process launcher, ROADMAP.md queue 1,
+items 4.5 and 4.6), as does a model axis the port does not execute
+(other families, FSDP; item 4.4). Wall-clock heterogeneity is
+synthesized by the SimCluster profile, as in the reference.
 """
 from __future__ import annotations
 
@@ -44,7 +52,8 @@ from repro_torch.core.controller import AdaptiveController
 from repro_torch.core.engine import resolve_device
 from repro_torch.core.topology import make_base_topology, \
     matching_decomposition
-from repro_torch.launch.mesh import DeviceMesh, host_devices, make_mesh
+from repro_torch.launch.mesh import (DeviceMesh, host_devices,
+                                     make_mesh, model_devices)
 from repro_torch.models import registry
 from repro_torch.runtime import sharding, steps
 from repro_torch.simulation.cluster import SimCluster
@@ -58,9 +67,9 @@ def build_mesh(workers: int, *, production: bool = False,
     ``production`` / ``multi_pod`` raise ``NotImplementedError``."""
     if production or multi_pod:
         raise NotImplementedError(
-            "--production / --multi-pod need the pod meshes' model axis "
-            "and a multi-process launcher, which are not ported to "
-            "repro_torch yet (ROADMAP.md queue 1, item 4)")
+            "--production / --multi-pod need a multi-process launcher, "
+            "which is not ported to repro_torch yet (ROADMAP.md queue 1, "
+            "items 4.5 and 4.6)")
     devices = host_devices(device)
     n = len(devices)
     model = 1
@@ -98,8 +107,10 @@ class RoundLog:
 
 @dataclass
 class TrainRun:
-    """A run's result: the rounds it ran, the final [W, P] matrix and its
-    layout, and the next round's (topology, taus)."""
+    """A run's result: the rounds it ran, the final [W, P] matrix (a
+    tuple of the slots' [W, P_slot] matrices on a model axis; whole leaves
+    by ``layout.join``) and its layout, and the next round's (topology,
+    taus)."""
 
     rounds: list[RoundLog] = field(default_factory=list)
     params: torch.Tensor | None = None
@@ -123,22 +134,28 @@ def train(cfg: ModelConfig, shape: InputShape, mesh: DeviceMesh, *,
           log: Callable[[str], None] = print) -> TrainRun:
     """The reference's round loop (``launch/train.py:main`` after the
     arguments) over ``mesh``, whose slots must share one device, where
-    the run lives.
+    the run lives. On a model axis of m > 1 slots the state is one
+    [W, P_slot] matrix a slot (``steps.train_layout``), slot j's on the
+    device of worker 0's j-th slot (``mesh.model_devices``).
 
-    ``init_params``: one worker's parameters {name: tensor}, broadcast to
-    every worker (default ``registry.init_params`` from ``seed``);
-    ``batches``: one global batch {name: [b, ...]} a round
-    (default ``random_batches`` from ``seed + 1``, restarted on resume as
-    the reference's stream is); ``on_round(h, params, log)`` sees every
-    round's result. Checkpoints hold the worker-stacked leaves by name
-    (the reference's on-disk format)."""
+    ``init_params``: one worker's whole parameters {name: tensor},
+    broadcast to every worker and cut into the slots' pieces (default
+    ``registry.init_params`` from ``seed``); ``batches``: one global
+    batch {name: [b, ...]} a round (default ``random_batches`` from
+    ``seed + 1``, restarted on resume as the reference's stream is);
+    ``on_round(h, params, log)`` sees every round's result. Checkpoints
+    hold the whole worker-stacked leaves by name, the slots' pieces
+    joined (the reference's on-disk format), so a run resumes at any
+    model extent."""
     if len(set(mesh.devices)) != 1:
         raise NotImplementedError(
             f"the mesh's slots span {len(set(mesh.devices))} devices; the "
             "port keeps the fleet on one (a multi-card mesh needs the "
-            "multi-process launcher, ROADMAP.md queue 1, item 4)")
-    dev = mesh.devices[0]
-    w = sharding.mesh_workers(mesh, sharding.worker_axes_in_mesh(cfg, mesh))
+            "multi-process launcher, ROADMAP.md queue 1, item 4.6)")
+    worker_axes = sharding.worker_axes_in_mesh(cfg, mesh)
+    w = sharding.mesh_workers(mesh, worker_axes)
+    slot_devs = model_devices(mesh, worker_axes)
+    dev = slot_devs[0]
     log(f"mesh {mesh.shape} -> {w} DFL workers; arch={cfg.name} "
         f"seq={shape.seq_len} batch={shape.global_batch}")
 
@@ -151,23 +168,29 @@ def train(cfg: ModelConfig, shape: InputShape, mesh: DeviceMesh, *,
     cluster = SimCluster(w, model_bits=32.0 * cfg.param_count(), seed=seed)
 
     # --- init state -------------------------------------------------------
-    layout = steps.train_layout(cfg, shape)
+    layout = steps.train_layout(cfg, shape, mesh)
     if init_params is None:
         init_params = registry.init_params(
             cfg, torch.Generator(device=dev).manual_seed(seed))
-    one = layout.flatten({k: torch.as_tensor(v).to(dev)[None]
-                          for k, v in init_params.items()})
-    params = layout.round_leaves_(one.expand(w, -1).contiguous())
-    del one
+
+    def place(stacked: dict):
+        """Whole worker-stacked leaves -> the run's state: [W, P], or a
+        tuple of the slots' matrices, each on its slot's device."""
+        slots = [layout.round_leaves_(f.to(d).expand(w, -1).contiguous())
+                 for f, d in zip(layout.flatten_slots(stacked), slot_devs)]
+        return slots[0] if layout.model == 1 else tuple(slots)
+
+    params = place({k: torch.as_tensor(v).to(dev)[None]
+                    for k, v in init_params.items()})
     ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
     start_round = 0
     if ckpt and resume and ckpt.latest_step() is not None:
-        template = {l.name: torch.empty((w, *l.shape),
-                                        dtype=l.torch_dtype, device="meta")
-                    for l in layout.leaf_offsets()}
+        dtypes = registry.leaf_dtypes(cfg)
+        template = {k: torch.empty((w, *s), dtype=dtypes[k], device="meta")
+                    for k, s in layout.whole_shapes().items()}
         state, meta = ckpt.restore(template)
-        params = layout.flatten({k: v.to(dev) for k, v in
-                                 elastic_reshard(state, w).items()})
+        params = place({k: v.to(dev) for k, v in
+                        elastic_reshard(state, w).items()})
         start_round = int(meta["step"]) + 1
         log(f"resumed from step {meta['step']} "
             f"(elastic reshard -> {w} workers)")
@@ -230,10 +253,10 @@ def train(cfg: ModelConfig, shape: InputShape, mesh: DeviceMesh, *,
             on_round(h, params, run.rounds[-1])
 
         if ckpt and (h + 1) % checkpoint_every == 0:
-            ckpt.save(h, layout.unflatten(params),
+            ckpt.save(h, layout.join(params),
                       meta={"arch": cfg.name, "loss": loss})
     if ckpt:
-        ckpt.save(steps_total - 1, layout.unflatten(params),
+        ckpt.save(steps_total - 1, layout.join(params),
                   meta={"arch": cfg.name, "loss": loss})
     run.params, run.adj, run.taus = params, adj, taus
     return run
@@ -251,7 +274,7 @@ def main(argv=None) -> int:
     ap.add_argument("--lr", type=float, default=0.01)
     ap.add_argument("--production", action="store_true",
                     help="the pod mesh: not ported (ROADMAP.md queue 1, "
-                    "item 4); raises")
+                    "item 4.5); raises")
     ap.add_argument("--multi-pod", action="store_true",
                     help="with --production, the multi-pod mesh: not "
                     "ported; raises")

@@ -174,8 +174,80 @@ def remat_block(cfg: ModelConfig, bp: dict, x, positions, *, window: int,
                    cfg)(x, bp)
 
 
+def block_pieces(cfg: ModelConfig, bps: list, x, positions, *,
+                 window: int):
+    """``block`` over a worker's model-axis slots (tensor parallelism by
+    the spec rules): ``bps[j]`` one block's leaves on slot j ([W, ...]
+    pieces on its device), x [W, B, S, D] on slot 0's. The norms read
+    slot 0's copy (every slot holds them whole); the attention runs on
+    each slot's heads (``layers.attention_pieces``) and the MLP on each
+    slot's d_ff columns, column-parallel in and row-parallel out, the
+    slots' outputs added (``layers.slot_sum``). A part whose leaves the
+    rule keeps whole (heads or d_ff that do not divide m) runs once, on
+    slot 0's copy."""
+    home = x.device
+    hd = cfg.resolved_head_dim
+    attn = [L.sub(bp, "attn") for bp in bps]
+    h = L.rms_norm(x, bps[0]["ln1"], cfg.norm_eps)
+    kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+              head_dim=hd, positions=positions, theta=cfg.rope_theta,
+              window=window,
+              attn_fn=L.pick_attn_fn(cfg, causal=True, window=window))
+    if attn[0]["wq"].shape[-1] == cfg.num_heads * hd:
+        a = L.multi_head_attention(attn[0], h, causal=True, **kw)
+    else:
+        a = L.attention_pieces(
+            attn, h, kv_whole=attn[0]["wk"].shape[-1] ==
+            cfg.num_kv_heads * hd, **kw)
+    x = x + a
+    h = L.rms_norm(x, bps[0]["ln2"], cfg.norm_eps)
+    mlp = [L.sub(bp, "mlp") for bp in bps]
+    if mlp[0]["w_up"].shape[-1] == cfg.d_ff:
+        return x + L.apply_mlp(mlp[0], h, cfg.act)
+    # under remat its recompute, which stops at the block's last saved
+    # activation (the last slot's w_down input), redoes the other slots'
+    # w_down products: m - 1 of them a block, which the unsplit block skips
+    return x + L.slot_sum([L.apply_mlp(mp, h.to(mp["w_up"].device), cfg.act)
+                           for mp in mlp], home)
+
+
+def loss_fn_pieces(cfg: ModelConfig, slots: list, batch: dict):
+    """``loss_fn`` of a worker's replica held over its model-axis slots
+    (``within_worker="tp"``): ``slots[j]`` slot j's leaves {name: [W,
+    *piece]} in their storage dtypes on its device (``core/modelspec.
+    SlotAdapter``'s views), a piece where the spec rules split the leaf
+    and the whole leaf where they keep it whole; the batch [W, B, S] on
+    slot 0's device, whole (every slot reads it). The embedding and the
+    head split over the vocabulary (``layers.embed_pieces``, the loss's
+    logsumexp over the slots' pieces), each block by ``block_pieces``
+    under ``cfg.remat``. A leaf every slot holds whole is read from slot
+    0's copy, so its gradient lands there once (the caller copies it to
+    the other slots). Returns (loss [W], {"tokens": count [W]}) on slot
+    0's device."""
+    L.check_trainable(cfg)
+    tokens = batch["tokens"]
+    home = tokens.device
+    if slots[0]["embed"].shape[1] == cfg.vocab_size:
+        x = L.embed(slots[0]["embed"], tokens)
+    else:
+        x = L.embed_pieces([p["embed"] for p in slots], tokens, home)
+    positions = torch.arange(tokens.shape[2], device=home)
+    for stack, idx, window in layer_order(cfg):
+        x = L.remat(lambda h, ps, w=window: block_pieces(
+            cfg, ps, h, positions, window=w), cfg)(
+            x, [L.layer(p, stack, idx) for p in slots])
+    h = L.rms_norm(x, slots[0]["ln_f"], cfg.norm_eps)
+    heads = [head_matrix(cfg, p) for p in slots]
+    if heads[0].shape[-1] == cfg.vocab_size:
+        heads = heads[0]
+    loss, cnt = L.chunked_softmax_xent(h, heads, batch["labels"].long(),
+                                       batch.get("loss_mask"))
+    return loss, {"tokens": cnt}
+
+
 def attention_calls(cfg: ModelConfig) -> int:
-    """Attention layers one forward pass runs (every layer attends)."""
+    """Attention layers one forward pass runs (every layer attends; on a
+    model axis, the layers each slot runs on its own heads)."""
     return cfg.num_layers
 
 
@@ -224,12 +296,14 @@ def head_matrix(cfg: ModelConfig, params: dict) -> torch.Tensor:
             else params["lm_head"])
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, count=None):
     """Per-worker next-token loss: batch ``tokens`` and ``labels`` [W, B,
     S] (optional ``loss_mask``) -> (loss [W], {"tokens": count [W]}).
     A vlm batch adds ``vision_embeds`` [W, B, S_vis, D] and
     ``mrope_positions`` [W, B, 3, S_vis + S]; the loss reads the text
-    positions only."""
+    positions only. ``count`` [W]: the token count the loss sum is
+    divided by (``layers.chunked_softmax_xent``; default the batch's
+    own)."""
     mp = batch.get("mrope_positions")
     if mp is not None:                    # stored batch-leading [.., 3, S]
         mp = torch.movedim(mp, -2, 0)
@@ -239,7 +313,7 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
         h = h[:, :, batch["vision_embeds"].shape[2]:]
     loss, cnt = L.chunked_softmax_xent(h, head_matrix(cfg, params),
                                        batch["labels"].long(),
-                                       batch.get("loss_mask"))
+                                       batch.get("loss_mask"), count=count)
     return loss, {"tokens": cnt}
 
 

@@ -318,12 +318,22 @@ def pick_attn_fn(cfg, *, causal: bool, window: int):
     return flash
 
 
+def kv_projection(p: dict, src: torch.Tensor, num_kv_heads: int,
+                  head_dim: int):
+    """k and v of ``src`` [W, B, S, D] by wk / wv -> [W * B, S, Hkv, hd]
+    each, before any rotation."""
+    wn, b, sk, _ = src.shape
+    shape = (wn * b, sk, num_kv_heads, head_dim)
+    return (matmul(src, p["wk"]).reshape(shape),
+            matmul(src, p["wv"]).reshape(shape))
+
+
 def multi_head_attention(p: dict, x: torch.Tensor, *, num_heads: int,
                          num_kv_heads: int, head_dim: int,
                          positions: torch.Tensor | None = None,
                          theta: float = 1e4, causal: bool = True,
                          window: int = 0, mrope_positions=None, kv_x=None,
-                         attn_fn=None, return_kv: bool = False):
+                         attn_fn=None, return_kv: bool = False, kv=None):
     """Full-sequence GQA attention of a fleet: x [W, B, S, D] with one
     layer's worker-stacked wq / wk / wv / wo -> [W, B, S, D]. The
     attention sees the W * B sequences as one batch.
@@ -333,19 +343,24 @@ def multi_head_attention(p: dict, x: torch.Tensor, *, num_heads: int,
     ``kv_x`` [W, B, Sk, D] is a cross-attention source: k and v come
     from it, only q is rotated, and no mask applies. ``return_kv`` also
     returns the post-rotation k and v [W * B, Sk, Hkv, hd] (what
-    serving's prefill caches)."""
+    serving's prefill caches). ``kv``: the post-rotation k and v
+    [W * B, S, Hkv, hd] computed elsewhere (a slot's kv heads on the
+    model axis, ``attention_pieces``); then ``p`` needs only wq and wo."""
     wn, b, s, _ = x.shape
     src = x if kv_x is None else kv_x
     sk = src.shape[2]
     q = matmul(x, p["wq"]).reshape(wn * b, s, num_heads, head_dim)
-    k = matmul(src, p["wk"]).reshape(wn * b, sk, num_kv_heads, head_dim)
-    v = matmul(src, p["wv"]).reshape(wn * b, sk, num_kv_heads, head_dim)
+    if kv is None:
+        k, v = kv_projection(p, src, num_kv_heads, head_dim)
+    else:
+        k, v = kv
     if mrope_positions is not None:
         q = apply_mrope(q, mrope_positions, theta)
-        k = apply_mrope(k, mrope_positions, theta)
+        if kv is None:
+            k = apply_mrope(k, mrope_positions, theta)
     elif positions is not None:
         q = apply_rope(q, positions, theta)
-        if kv_x is None:
+        if kv_x is None and kv is None:
             k = apply_rope(k, positions, theta)
     mask = None
     if kv_x is None and (causal or window):
@@ -419,16 +434,20 @@ def apply_mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
 # Loss
 # ---------------------------------------------------------------------------
 
-def chunked_softmax_xent(h: torch.Tensor, w_emb: torch.Tensor,
-                         labels: torch.Tensor, mask=None,
-                         chunk: int = 512):
+def chunked_softmax_xent(h: torch.Tensor, w_emb, labels: torch.Tensor,
+                         mask=None, chunk: int = 512, count=None):
     """Per-worker cross-entropy over the vocabulary in chunks along S.
 
-    h: [W, B, S, D] final hidden states; w_emb: [W, D, V]; labels: [W, B,
+    h: [W, B, S, D] final hidden states; w_emb: [W, D, V] — or, for a head
+    split over the vocabulary on the model axis, the slots' pieces, a list
+    of [W, D, V_j] in vocabulary order (``head_pieces``); labels: [W, B,
     S] int. The reference's chunking: max(S // chunk, 1) chunks of equal
     length, whose masked sums of logsumexp(z) - z[gold] add in chunk
-    order; the logits are cast to f32. Returns (mean loss [W], token
-    count [W]), f32."""
+    order; the logits are cast to f32. Returns (the loss sum over
+    ``count`` [W] — by default the token count, the mean loss — and the
+    token count [W]), f32: the model axis's dp slots pass the worker's
+    count over all its slots, so that their losses add up to the
+    worker's."""
     wn, b, s, _ = h.shape
     f32 = torch.float32
     if mask is None:
@@ -442,10 +461,108 @@ def chunked_softmax_xent(h: torch.Tensor, w_emb: torch.Tensor,
     cnt = torch.zeros(wn, dtype=f32, device=h.device)
     for c in range(n_chunks):
         part = slice(c * chunk, (c + 1) * chunk)
-        logits = matmul(h[:, :, part], w_emb).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, labels[:, :, part, None]).squeeze(-1)
+        if isinstance(w_emb, torch.Tensor):
+            logits = matmul(h[:, :, part], w_emb).float()
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, labels[:, :, part, None]).squeeze(-1)
+        else:
+            logz, gold = head_pieces(h[:, :, part], w_emb, labels[:, :, part])
         mx = mask[:, :, part]
         tot = tot + ((logz - gold) * mx).sum(dim=(1, 2))
         cnt = cnt + mx.sum(dim=(1, 2))
-    return tot / torch.clamp(cnt, min=1.0), cnt
+    return tot / torch.clamp(cnt if count is None else count, min=1.0), cnt
+
+
+# ---------------------------------------------------------------------------
+# The model axis: a worker's replica over its slots (runtime/sharding's
+# spec rules; models/dense.loss_fn_pieces)
+# ---------------------------------------------------------------------------
+
+def slot_sum(parts, home: torch.device) -> torch.Tensor:
+    """The sum over the model axis of the slots' partials (the row-parallel
+    products' outputs, a split embedding's rows), each moved to ``home``
+    and added in slot order in f32, cast back to the partials' dtype."""
+    out = parts[0].to(home, torch.float32)
+    for part in parts[1:]:
+        out = out + part.to(home, torch.float32)
+    return out.to(parts[0].dtype)
+
+
+def embed_pieces(tables, tokens: torch.Tensor,
+                 home: torch.device) -> torch.Tensor:
+    """A lookup in an embedding split over the vocabulary: slot j holds
+    rows [o_j, o_j + V_j) of the table (``tables[j]`` [W, V_j, D], in
+    vocabulary order); it looks up the tokens in its range, zero for the
+    rest, and the rows add over the slots (``slot_sum``: one non-zero term
+    a token, exact)."""
+    parts, off = [], 0
+    for t in tables:
+        local = tokens.to(t.device).long() - off
+        hit = (local >= 0) & (local < t.shape[1])
+        rows = embed(t, torch.where(hit, local, 0))
+        parts.append(rows * hit[..., None].to(rows.dtype))
+        off += t.shape[1]
+    return slot_sum(parts, home)
+
+
+def head_pieces(h: torch.Tensor, heads, labels: torch.Tensor):
+    """logsumexp and the gold logit of h [W, B, c, D] against an output
+    projection split over the vocabulary (``heads[j]`` [W, D, V_j], in
+    vocabulary order), a slot at a time on its device: the max over the
+    slots' maxima (held out of the gradient, as ``jax.nn.logsumexp``
+    does), the slots' sums of exp(z - max) added, and the gold logit from
+    the slot whose range holds the label -> (logz, gold) [W, B, c] f32 on
+    h's device."""
+    home = h.device
+    logits, off = [], 0
+    for w in heads:
+        logits.append(matmul(h.to(w.device), w).float())
+    top = torch.stack([z.amax(dim=-1).to(home) for z in logits]).amax(0)
+    top = top.detach()
+    sumexp = slot_sum([torch.exp(z - top.to(z.device)[..., None])
+                       .sum(dim=-1) for z in logits], home)
+    gold = []
+    for z in logits:
+        local = labels.to(z.device).long() - off
+        hit = (local >= 0) & (local < z.shape[-1])
+        g = z.gather(-1, torch.where(hit, local, 0)[..., None]).squeeze(-1)
+        gold.append(g * hit)
+        off += z.shape[-1]
+    return top + torch.log(sumexp), slot_sum(gold, home)
+
+
+def attention_pieces(ps, x: torch.Tensor, *, num_heads: int,
+                     num_kv_heads: int, head_dim: int, positions, theta,
+                     window: int, attn_fn, kv_whole: bool) -> torch.Tensor:
+    """GQA attention with its heads split over the model axis: slot j
+    holds the columns of ``wq`` for its num_heads / m heads and the rows of
+    ``wo`` for them (``ps[j]``, its device the leaves'), and the columns of
+    ``wk`` / ``wv`` for its kv heads — or, with ``kv_whole`` (the kv heads
+    do not divide m: the rule replicates them), both whole: then k and v
+    are computed once from slot 0's copy on x's device and each slot takes
+    the kv heads its q heads read. Each slot runs the attention on its own
+    heads; the slots' row-parallel outputs add over the model axis
+    (``slot_sum``). x: [W, B, S, D] on slot 0's device."""
+    m, home = len(ps), x.device
+    hq = num_heads // m
+    group = num_heads // num_kv_heads
+    if kv_whole:
+        k_all, v_all = kv_projection(ps[0], x, num_kv_heads, head_dim)
+        k_all = apply_rope(k_all, positions, theta)
+    parts = []
+    for j, p in enumerate(ps):
+        dev = p["wq"].device
+        kv = None
+        if kv_whole:
+            need = torch.arange(j * hq, (j + 1) * hq) // group
+            heads = torch.unique_consecutive(need)
+            if not torch.equal(need, heads.repeat_interleave(
+                    hq // len(heads))):
+                heads = need         # q heads straddle kv heads unevenly
+            kv = (k_all.to(dev)[:, :, heads], v_all.to(dev)[:, :, heads])
+        parts.append(multi_head_attention(
+            p, x.to(dev), num_heads=hq,
+            num_kv_heads=kv[0].shape[2] if kv else num_kv_heads // m,
+            head_dim=head_dim, positions=positions.to(dev), theta=theta,
+            causal=True, window=window, attn_fn=attn_fn, kv=kv))
+    return slot_sum(parts, home)

@@ -71,9 +71,22 @@ def leaf_dtypes(cfg: ModelConfig) -> dict[str, torch.dtype]:
             for name in model.leaf_shapes(cfg)}
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
-    """Per-worker training loss of ``cfg``'s family."""
-    return get_model(cfg.family).loss_fn(cfg, params, batch)
+def loss_fn(cfg: ModelConfig, params, batch, count=None):
+    """Per-worker training loss of ``cfg``'s family; ``count`` [W] (the
+    dense family's only) divides the loss sum in place of the batch's
+    token count."""
+    if count is None:
+        return get_model(cfg.family).loss_fn(cfg, params, batch)
+    return get_model(cfg.family).loss_fn(cfg, params, batch, count=count)
+
+
+def loss_fn_pieces(cfg: ModelConfig, slots: list, batch):
+    """Per-worker training loss of a replica split over its model-axis
+    slots (``dense.loss_fn_pieces``; the dense family's only)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the {cfg.family} family over a model "
+                                  "axis (ROADMAP.md queue 1, item 4.4)")
+    return dense.loss_fn_pieces(cfg, slots, batch)
 
 
 def attention_calls(cfg: ModelConfig) -> int:

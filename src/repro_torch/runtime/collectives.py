@@ -30,9 +30,11 @@ The functions take the flat [W, P] f32 matrix in the reference's leaf
 order (``ModelAdapter``'s layout; the reference takes a tree of
 worker-stacked leaves), with its leaves' column spans where they matter
 (``leaf_spans``, and ``narrow_spans`` as ``ModelAdapter.narrow_spans``
-gives them), and return f32; the mesh only sets the worker count: its
-non-worker axes must have size 1 (``sharding.mesh_workers``: the model
-axis is ROADMAP.md queue 1 item 4).
+gives them), and return f32; the mesh only sets the worker count. On a
+model axis a worker's replica is a tuple of its slots' matrices
+(``modelspec.SlotAdapter``): the gossip runs a slot at a time and the
+distances add the slots' squared partials, as the reference's ``psum``
+over the within-worker axes does.
 
 **Sharded edge gossip** (``worker_shard_extent``, ``edge_shard_tables``,
 ``routed_mix_delta`` and the two sharded edge-gossip functions).
@@ -177,18 +179,42 @@ def worker0_distances(rows: torch.Tensor, pairs) -> torch.Tensor:
     return ops.consensus_dist(rows[0], rows.index_select(0, partners))
 
 
+def slot_distances(slots, pairs) -> torch.Tensor:
+    """Worker 0's distances over a model axis (``gossip_fn``'s, the
+    reference's ``psum`` of each slot's squared partial over the
+    within-worker axes): each slot's ``worker0_distances`` (one
+    ``consensus_dist`` launch a slot) squared, added over the slots in
+    order on slot 0's device, then the root. A leaf every slot holds
+    whole counts once a slot, as in the reference. Squaring the kernel's
+    root costs about 2 f32 ulps of each partial."""
+    home = slots[0].device
+    d2 = [worker0_distances(x, pairs).square().to(home) for x in slots]
+    return torch.stack(d2).sum(dim=0).sqrt()
+
+
 def gossip_fn(mesh, worker_axes: tuple[str, ...],
               pairs: list[list[tuple[int, int]]], weight_table: np.ndarray,
               *, measure_distances: bool = False, narrow_spans=()):
     """gossip(x) -> mixed, or (mixed, dists [M]) with
-    ``measure_distances``: x the flat [W, P] f32 matrix, ``narrow_spans``
-    its bf16 leaves' columns (module doc). The reference's
-    ``param_specs`` argument has no counterpart: a worker's replica is
-    never split."""
+    ``measure_distances``: x the flat [W, P] f32 matrix, or a tuple of a
+    model axis's slot matrices ([W, P_slot] each, ``SlotAdapter``'s
+    layout), mixed a slot at a time (one ``gossip_mix`` launch a slot:
+    the mix is elementwise, so it is the unsplit mix) with the distances
+    summed over the slots (``slot_distances``); ``narrow_spans`` the
+    bf16 leaves' columns (module doc; a slot's, on a model axis). The
+    reference's ``param_specs`` argument is the slots' layout."""
     n = sharding.mesh_workers(mesh, worker_axes)
     weights = _MixWeights(pairs, weight_table, n)
 
     def gossip(x):
+        if isinstance(x, (tuple, list)):
+            for slot in x:
+                _check_rows(slot, n)
+            mixed = tuple(matching_mix(slot, weights, narrow_spans)
+                          for slot in x)
+            if measure_distances:
+                return mixed, slot_distances(x, pairs)
+            return mixed
         _check_rows(x, n)
         mixed = matching_mix(x, weights, narrow_spans)
         if measure_distances:
@@ -223,7 +249,10 @@ def gossip_compressed_fn(mesh, worker_axes: tuple[str, ...],
     payload as u and centre; on the columns of ``narrow_spans`` (bf16
     leaves) each matching's term and sum round to bf16, as the
     reference's do. ``err`` is a [W, P] f32 matrix, or None for zeros (a
-    fresh residual, as the reference's train step passes every round)."""
+    fresh residual, as the reference's train step passes every round).
+    On a model axis x (and err) is a tuple of the slots' matrices, each
+    coded on its own pieces (``leaf_spans`` a slot's): the reference
+    codes a leaf shard at a time, so a tile follows the piece."""
     codec = compression.parse_mode(mode)
     if codec.kind == "none":
         raise ValueError("use gossip_fn for uncompressed exchange")
@@ -235,6 +264,11 @@ def gossip_compressed_fn(mesh, worker_axes: tuple[str, ...],
     skey = compression.sparsify_base_key(seed)
 
     def gossip(x, err, step: int = 0):
+        if isinstance(x, (tuple, list)):       # a model axis: each slot's
+            out = [gossip(slot, None if err is None else e, step)   # pieces
+                   for slot, e in zip(x, err or [None] * len(x))]
+            return tuple(y for y, _ in out), \
+                None if err is None else tuple(e for _, e in out)
         _check_rows(x, n)
         if err is not None:
             _check_rows(err, n)

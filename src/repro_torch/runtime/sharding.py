@@ -14,9 +14,19 @@ names (the dim split over their product). The rules are pure functions
 of leaf names, shapes and a mesh's ``.shape`` dict ({axis: size}), so
 any object with one serves: a ``DeviceMesh`` of ``meta`` slots stands
 for the 256-chip pod (``launch/dryrun.py`` reads its bytes per device
-from them). Executing them — tensor parallelism within a worker over the
-``model`` axis — is not ported: ``mesh_workers`` raises for a model axis
-of size > 1 (ROADMAP.md queue 1 item 4).
+from them).
+
+The model axis (``model_extent``): a worker's replica over the m slots
+of the mesh axis beside the worker axes. The round step executes the
+rules there for the dense family: under ``within_worker="tp"`` a slot
+holds the piece of each leaf that ``param_spec`` gives it
+(``leaf_splits``, ``cut_leaf``, ``join_leaf``: one dim split into m
+equal contiguous pieces, or the leaf whole where the rule replicates it
+or ``_dims_divisible`` keeps it whole); under ``"dp"`` every slot holds
+the whole replica and takes its share of the worker's batch
+(``batch_slots``, ``train_batch_spec``'s split over ``model``). Other
+families, FSDP axes and dp's fallback to a sequence split raise
+``NotImplementedError`` (``MODEL_AXIS``: ROADMAP.md queue 1, item 4.4).
 """
 from __future__ import annotations
 
@@ -250,26 +260,118 @@ def num_workers(cfg, mesh) -> int:
     return max(n, 1)
 
 
-MODEL_AXIS = ("a mesh axis beside the worker axes of size > 1 splits a "
-              "worker's replica (tensor parallelism over the model axis), "
-              "which is not ported to repro_torch yet (ROADMAP.md queue 1, "
-              "item 4)")
+MODEL_AXIS = ("is not ported to repro_torch yet (ROADMAP.md queue 1, item "
+              "4.4: the model axis runs the dense family without FSDP "
+              "axes)")
 
 
 def mesh_workers(mesh, worker_axes) -> int:
-    """``num_workers`` over ``worker_axes``: the product of their sizes,
-    for a mesh whose other axes all have size 1 — a worker's replica
-    lives whole on one slot. Raises ``NotImplementedError``
-    (``MODEL_AXIS``) otherwise."""
-    n, rest = 1, 1
-    for a, size in mesh.shape.items():
-        if a in worker_axes:
-            n *= size
-        else:
-            rest *= size
-    if rest > 1:
-        raise NotImplementedError(MODEL_AXIS)
-    return n
+    """``num_workers`` over ``worker_axes``: the product of their sizes."""
+    return math.prod(size for a, size in mesh.shape.items()
+                     if a in worker_axes)
+
+
+def model_extent(cfg, mesh) -> int:
+    """m, the slots a worker's replica spans: the size of the mesh's
+    model axis (``cfg.tp_axes``'s first present axis), 1 where every
+    axis beside the worker axes has size 1. Raises
+    ``NotImplementedError`` (``MODEL_AXIS``) for what the port does not
+    execute: a model axis under a family other than dense, an FSDP axis
+    of size > 1, or any other axis of size > 1 beside the workers."""
+    workers = worker_axes_in_mesh(cfg, mesh)
+    rest = {a: s for a, s in mesh.shape.items()
+            if a not in workers and s > 1}
+    if not rest:
+        return 1
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the model axis {rest} on the "
+                                  f"{cfg.family} family " + MODEL_AXIS)
+    fsdp = [a for a in cfg.fsdp_axes if a in rest]
+    if fsdp:
+        raise NotImplementedError(f"FSDP over {fsdp} " + MODEL_AXIS)
+    tp = _present(cfg.tp_axes, mesh)
+    if set(rest) != {tp}:
+        raise NotImplementedError(f"mesh axes {rest} beside the worker "
+                                  f"axes {workers} " + MODEL_AXIS)
+    return rest[tp]
+
+
+def batch_slots(cfg, mesh, name: str, leaf_shape) -> int:
+    """The pieces the model axis cuts a worker's batch leaf ``[W, b_w,
+    ...]`` into along b_w (``train_batch_spec``): m under
+    ``within_worker="dp"`` (slot j takes rows [j b_w / m, (j + 1) b_w /
+    m)), 1 under tp (every slot reads the whole batch). Raises
+    ``NotImplementedError`` where dp falls back to a sequence split (b_w
+    does not divide by m)."""
+    m = model_extent(cfg, mesh)
+    if m == 1:
+        return 1
+    tp = _present(cfg.tp_axes, mesh)
+    spec = train_batch_spec(cfg, mesh, name, leaf_shape)
+    if len(spec) > 1 and spec[1] == tp:
+        return m
+    if any(e == tp or (isinstance(e, tuple) and tp in e) for e in spec):
+        raise NotImplementedError(
+            f"batch leaf {name!r} of {tuple(leaf_shape)}: {leaf_shape[1]} "
+            f"sequences a worker do not split over {m} slots and dp falls "
+            "back to a sequence split, which " + MODEL_AXIS)
+    return 1
+
+
+def leaf_split(name: str, leaf_shape, cfg, mesh) -> int | None:
+    """The dim of one worker's leaf ``leaf_shape`` (no worker dim) that
+    ``param_spec`` splits over the model axis, or None where every slot
+    holds the leaf whole."""
+    spec = param_spec(name, leaf_shape, cfg, mesh, worker_dim=False)
+    dims = [i for i, ax in enumerate(spec) if ax is not None]
+    if len(dims) > 1:
+        raise NotImplementedError(f"leaf {name!r} split over {spec} "
+                                  + MODEL_AXIS)
+    return dims[0] if dims else None
+
+
+def leaf_splits(cfg, mesh, shapes: dict) -> dict[str, int | None]:
+    """{name: ``leaf_split``} over one worker's ``shapes``. Raises
+    ``NotImplementedError`` where the attention's split is not on head
+    boundaries (a slot would hold part of a head)."""
+    m = model_extent(cfg, mesh)
+    out = {k: leaf_split(k, s, cfg, mesh) if m > 1 else None
+           for k, s in shapes.items()}
+    for k, dim in out.items():
+        if dim is not None and k.endswith("attn/wq") and \
+                cfg.num_heads % m:
+            raise NotImplementedError(
+                f"{cfg.num_heads} heads over {m} slots split a head; that "
+                + MODEL_AXIS)
+    return out
+
+
+def piece_shape(shape, dim: int | None, m: int) -> tuple[int, ...]:
+    """A slot's piece of a leaf of ``shape`` split along ``dim`` over m
+    slots (the whole shape where ``dim`` is None)."""
+    shape = tuple(shape)
+    if dim is None:
+        return shape
+    return shape[:dim] + (shape[dim] // m,) + shape[dim + 1:]
+
+
+def cut_leaf(t: torch.Tensor, dim: int | None, m: int,
+             lead: int = 0) -> list[torch.Tensor]:
+    """The m slots' pieces of ``t`` (views): equal contiguous blocks of its
+    dim ``lead + dim`` (``lead`` leading dims, such as the worker dim,
+    come before the leaf's own), or ``t`` itself for every slot where
+    ``dim`` is None."""
+    if dim is None:
+        return [t] * m
+    return list(torch.chunk(t, m, dim=lead + dim))
+
+
+def join_leaf(pieces, dim: int | None, lead: int = 0) -> torch.Tensor:
+    """Inverse of ``cut_leaf``: the whole leaf from its m pieces (the first
+    slot's copy where ``dim`` is None)."""
+    if dim is None:
+        return pieces[0]
+    return torch.cat(list(pieces), dim=lead + dim)
 
 
 def _stacked(spec, w: int):

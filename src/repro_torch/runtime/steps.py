@@ -10,7 +10,13 @@ then gossips along the round topology's matchings (Eq. 5,
 ``collectives.gossip_fn``; with ``compressed`` the int8 codec a leaf,
 ``collectives.gossip_compressed_fn``). The topology and tau_max are
 fixed when the step is built, as the reference compiles one step per
-(topology, tau_max).
+(topology, tau_max). On a mesh with a model axis of m > 1 slots a
+worker's replica lives over its slots (``modelspec.SlotAdapter``, one
+[W, P_slot] matrix a slot): under ``within_worker="dp"`` each slot holds
+the whole replica and takes its share of the worker's batch, the
+gradient summed over the slots; under ``"tp"`` each slot holds its
+pieces by the spec rules and the forward runs over them
+(``dense.loss_fn_pieces``); the gossip runs a slot at a time.
 
 It reproduces the reference's arithmetic where the result depends on
 it: each SGD write is p − (lr·mask·g) with the update rounded to the
@@ -56,10 +62,10 @@ class StepBundle:
     ``views``; None for the serving steps).
 
     The reference's ``in_shardings`` / ``out_shardings`` have no
-    counterpart: a worker's replica and its batch live whole on one
-    device (a model axis of size > 1 raises, ROADMAP.md queue 1 item 4),
-    so there is nothing to place. Nor has its ``donate_argnums``, a hint
-    to XLA: here the train step updates its parameter matrix in place
+    counterpart: a train step's model-axis slots are its arguments' own
+    devices (one matrix a slot, ``layout.flatten_slots``), and a serving
+    step runs one replica whole. Nor has its ``donate_argnums``, a hint
+    to XLA: here the train step updates its parameter matrices in place
     and the decode step its cache, whatever the caller keeps."""
 
     fn: Callable
@@ -71,22 +77,29 @@ class StepBundle:
 # Training
 # ---------------------------------------------------------------------------
 
-def train_layout(cfg: ModelConfig, shape: InputShape):
-    """The flat [W, P] layout of ``cfg``'s leaves, sized for ``shape``'s
-    sequences (its ``workers_per_pass`` budgets S tokens a sequence)."""
-    return modelspec.RegistryAdapter(cfg, shape.seq_len + 1, 0,
-                                     f"{cfg.name}@{shape.name}")
+def train_layout(cfg: ModelConfig, shape: InputShape, mesh=None):
+    """The flat layout of ``cfg``'s leaves a slot of ``mesh``'s model axis
+    (``modelspec.SlotAdapter``; ``mesh=None`` or a model extent of 1: the
+    whole replica's [W, P] layout), sized for ``shape``'s sequences (its
+    ``workers_per_pass`` budgets S tokens a sequence)."""
+    m = 1 if mesh is None else sharding.model_extent(cfg, mesh)
+    splits = sharding.leaf_splits(cfg, mesh, registry.leaf_shapes(cfg)) \
+        if m > 1 else {}
+    return modelspec.SlotAdapter(cfg, shape.seq_len + 1,
+                                 f"{cfg.name}@{shape.name}", splits, m)
 
 
 def loss_and_grad(cfg: ModelConfig, layout, flat: torch.Tensor,
-                  batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+                  batch: dict, count=None) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
     """Per-worker losses [W] and gradients [W, P] of ``registry.loss_fn``
     on each worker's batch ([W, b_w, ...] leaves): autograd on the sum of
     the independent per-worker losses, in groups of ``workers_per_pass``
-    workers."""
+    workers (``count`` [W]: the token counts the loss sums divide by,
+    default each batch's own)."""
     n = flat.shape[0]
     step = layout.workers_per_pass(batch["tokens"])
-    grads = torch.empty_like(flat)
+    grads = torch.empty_like(flat) if step < n else None
     losses = []
     with torch.enable_grad():
         for lo in range(0, n, step):
@@ -94,11 +107,90 @@ def loss_and_grad(cfg: ModelConfig, layout, flat: torch.Tensor,
             p = flat[lo:hi].detach().requires_grad_(True)
             part, _ = registry.loss_fn(
                 cfg, layout.cast_params(layout.views(p)),
-                {k: v[lo:hi] for k, v in batch.items()})
+                {k: v[lo:hi] for k, v in batch.items()},
+                count=None if count is None else count[lo:hi])
             (g,) = torch.autograd.grad(part.sum(), p)
-            grads[lo:hi] = g
+            if grads is None:          # one pass: its gradient is the whole
+                grads = g
+            else:
+                grads[lo:hi] = g
             losses.append(part.detach())
             del p, part, g
+    return torch.cat(losses), grads
+
+
+def token_counts(batch: dict) -> torch.Tensor:
+    """Each worker's count of the tokens its loss averages over ([W] f32:
+    the ``loss_mask``'s sum, else b_w x S) — the count
+    ``chunked_softmax_xent`` returns."""
+    if "loss_mask" in batch:
+        return batch["loss_mask"].float().sum(dim=(1, 2))
+    lab = batch["labels"]
+    return torch.full((lab.shape[0],), float(lab[0].numel()),
+                      device=lab.device)
+
+
+def loss_and_grad_slots(cfg: ModelConfig, layout, flats, batch: dict
+                        ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """Per-worker losses [W] (on slot 0's device) and each slot's gradient
+    [W, P_slot] of a worker's replica held over its ``layout.model``
+    model-axis slots (``flats[j]`` slot j's matrix on its device; the
+    batch [W, b_w, ...] on slot 0's).
+
+    ``within_worker="dp"``: slot j runs the whole forward and backward of
+    its replica on rows [j b_w / m, (j + 1) b_w / m) of each worker's
+    batch, its loss sum divided by the worker's token count over all the
+    slots (``token_counts``), so the slots' losses add up to the worker's
+    and their gradients to the worker's gradient, which every slot then
+    holds (an all-reduce over the model axis: the sum in slot order on
+    slot 0's device, copied to each slot).
+
+    ``within_worker="tp"``: one forward and backward over the slots'
+    pieces (``registry.loss_fn_pieces``) in ``workers_per_pass`` groups;
+    each slot's gradient is that of its pieces, and the columns of the
+    leaves every slot holds whole (``layout.whole_spans``) take slot 0's,
+    the one gradient of those leaves."""
+    home, m = flats[0].device, layout.model
+    n = flats[0].shape[0]
+    if cfg.within_worker == "dp":
+        share = batch["tokens"].shape[1] // m
+        count = token_counts(batch)
+        losses = torch.zeros(n, device=home)
+        total = None
+        for j, flat in enumerate(flats):
+            dev = flat.device
+            part = {k: v[:, j * share:(j + 1) * share].to(dev)
+                    for k, v in batch.items()}
+            loss, g = loss_and_grad(cfg, layout, flat, part, count.to(dev))
+            losses += loss.to(home)
+            if total is None:
+                total = g
+            else:
+                total += g.to(home)
+            del g
+        return losses, [total] + [total.to(f.device, copy=True)
+                                  for f in flats[1:]]
+    step = layout.workers_per_pass(batch["tokens"])
+    grads = [torch.empty_like(f) for f in flats] if step < n else None
+    losses = []
+    with torch.enable_grad():
+        for lo in range(0, n, step):
+            hi = min(lo + step, n)
+            ps = [f[lo:hi].detach().requires_grad_(True) for f in flats]
+            part, _ = registry.loss_fn_pieces(
+                cfg, [layout.cast_params(layout.views(p)) for p in ps],
+                {k: v[lo:hi] for k, v in batch.items()})
+            gs = torch.autograd.grad(part.sum(), ps)
+            if grads is None:
+                grads = list(gs)
+            else:
+                for grad, g in zip(grads, gs):
+                    grad[lo:hi] = g
+            losses.append(part.detach())
+            del ps, part, gs
+    for grad in grads[1:]:
+        for a, b in layout.whole_spans():
+            grad[:, a:b] = grads[0][:, a:b].to(grad.device)
     return torch.cat(losses), grads
 
 
@@ -110,15 +202,23 @@ def make_train_step(cfg: ModelConfig, mesh, shape: InputShape, *,
     ``fn(params, batch, taus, lr) -> (params, loss, aux)``.
 
     params: the flat [W, P] f32 matrix (``bundle.layout.flatten`` of
-    worker-stacked leaves), updated in place; batch: {name: [W, b_w,
-    ...]}, with a tau dim after W ([W, tau_max, b_w, ...]) when tau_max >
-    1 (an ``expand``ed view when every step takes the same batch); taus:
-    [W] int; lr: the f32 learning rate (0-d tensor or float); loss: the
-    0-d f32 mean over workers and tau_max steps; aux: {"neighbor_dists":
-    [M]} with ``measure_distances`` (worker 0's distance to its partner
-    in each matching). adj: the round topology (default: a ring)."""
+    worker-stacked leaves), updated in place — or, on a mesh whose model
+    axis has m > 1 slots, a tuple of the m slots' [W, P_slot] matrices
+    (``bundle.layout.flatten_slots``), each on its slot's device (the
+    step runs each slot's work where its matrix lives); batch: {name:
+    [W, b_w, ...]}, with a tau dim after W ([W, tau_max, b_w, ...]) when
+    tau_max > 1 (an ``expand``ed view when every step takes the same
+    batch), on slot 0's device; taus: [W] int; lr: the f32 learning rate
+    (0-d tensor or float); loss: the 0-d f32 mean over workers and
+    tau_max steps; aux: {"neighbor_dists": [M]} with
+    ``measure_distances`` (worker 0's distance to its partner in each
+    matching, summed over the model axis as the reference's: a leaf
+    every slot holds whole counts once a slot). adj: the round topology
+    (default: a ring)."""
     worker_axes = sharding.worker_axes_in_mesh(cfg, mesh)
     w = sharding.mesh_workers(mesh, worker_axes)
+    layout = train_layout(cfg, shape, mesh)
+    m = layout.model
     if adj is None:
         adj = _default_adj(w)
     mixfn = (topo.mixing_matrix_metropolis if mixing == "metropolis"
@@ -127,12 +227,15 @@ def make_train_step(cfg: ModelConfig, mesh, shape: InputShape, *,
     pairs = collectives.matchings_as_pairs(adj) if w > 1 else []
     wt = (collectives.matching_weight_tables(adj, mix) if w > 1
           else np.zeros((0, 1), np.float32))
-    layout = train_layout(cfg, shape)
 
     # --- abstract arguments ----------------------------------------------
-    params_sds = torch.empty(w, layout.param_count, device=META)
+    slots = [torch.empty(w, layout.param_count, device=META)
+             for _ in range(m)]
+    params_sds = tuple(slots) if m > 1 else slots[0]
     split = sharding.split_batch_shapes(
         registry.batch_shapes(cfg, shape), w)
+    for k, (s, _) in split.items():
+        sharding.batch_slots(cfg, mesh, k, s)       # raises where refused
     batch_sds = {k: torch.empty((s[0], tau_max, *s[1:]) if tau_max > 1
                                 else s, dtype=dt, device=META)
                  for k, (s, dt) in split.items()}
@@ -150,24 +253,31 @@ def make_train_step(cfg: ModelConfig, mesh, shape: InputShape, *,
                     narrow_spans=layout.narrow_spans())
                 if compressed and w > 1 and pairs else None)
 
-    def local_steps(flat, batch, taus, lr):
-        tot = torch.zeros((), device=flat.device)
+    def local_steps(flats, batch, taus, lr):
+        tot = torch.zeros((), device=flats[0].device)
         for k in range(tau_max):
             bk = {n: v[:, k] for n, v in batch.items()} if tau_max > 1 \
                 else batch
             mask = (taus > k).to(torch.float32)            # Eq. 3, masked
-            loss, g = loss_and_grad(cfg, layout, flat, bk)
-            flat.sub_(layout.round_leaves_(g.mul_((lr * mask)[:, None])))
-            layout.round_leaves_(flat)
+            if m == 1:
+                loss, g = loss_and_grad(cfg, layout, flats[0], bk)
+                grads = [g]
+            else:
+                loss, grads = loss_and_grad_slots(cfg, layout, flats, bk)
+            for flat, g in zip(flats, grads):
+                scale = (lr * mask).to(flat.device)[:, None]
+                flat.sub_(layout.round_leaves_(g.mul_(scale)))
+                layout.round_leaves_(flat)
             tot = tot + loss.mean()
-            del g               # before the next step allocates its own
-        return flat, tot / tau_max
+            del g, grads        # before the next step allocates its own
+        return tot / tau_max
 
     def train_step(params, batch, taus, lr):
-        dev = params.device
+        flats = list(params) if m > 1 else [params]
+        dev = flats[0].device
         taus = torch.as_tensor(taus, device=dev)
         lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
-        params, loss = local_steps(params, batch, taus, lr)
+        loss = local_steps(flats, batch, taus, lr)
         aux = {}
         if gossip_c is not None:
             params, _ = gossip_c(params, None, 0)

@@ -23,6 +23,15 @@ writes ``OUT_DIR/<case>.npz`` for each case:
   tokens), f32, 2 rounds, each at its ``FAMILY_CASES`` lr
   (``FAMILY@LR`` at another; ``FAMILY:nudge`` from the init moved one
   ulp a weight).
+- ``model_dp``, ``model_tp``, ``model_tp_kv1``: the same loop on a
+  ``(2, 2)`` ``("data", "model")`` mesh — W = 2 workers, each over 2
+  model slots — f32, 2 rounds, tau_max 2, S = 64, a global batch of 8:
+  smollm-360m's smoke config (``within_worker="dp"``: the worker's 4
+  sequences split 2 a slot), internlm2-20b's (``"tp"``: every leaf
+  split by the spec rules) and internlm2-20b's with ``num_kv_heads=1``
+  (the kv heads do not divide the model axis: wk / wv replicate);
+  ``model_tp_int8``: internlm2-20b's with ``--compressed`` (int8 a leaf
+  shard: each slot codes its own pieces).
 - ``collectives``: ``gossip_fn`` (with and without distances, and on
   the tree cast to bf16), ``gossip_compressed_fn`` (int8, top-k, rand-k
   at two steps; int8 and rand-k also on the tree cast to bf16) and
@@ -69,6 +78,14 @@ from repro.simulation.cluster import SimCluster  # noqa: E402
 
 W, SEQ, TAU_MAX, LR, SEED = 4, 64, 2, 0.01, 0
 ROUNDS = 4
+# the model-axis cases: case -> (arch, config fields), each on a (2, 2)
+# mesh for MODEL_ROUNDS rounds
+MODEL_CASES = {"model_dp": ("smollm-360m", {}),
+               "model_tp": ("internlm2-20b", {}),
+               "model_tp_kv1": ("internlm2-20b", {"num_kv_heads": 1}),
+               "model_tp_int8": ("internlm2-20b", {})}
+MODEL_MESH = (2, 2)
+MODEL_ROUNDS = 2
 # the families past the dense one: case -> (arch, lr), each run on its
 # smoke config in f32 for FAMILY_ROUNDS rounds. ``CASE@LR`` runs it at
 # another lr, ``CASE:nudge`` from the init moved one ulp (the witness of
@@ -129,14 +146,15 @@ def _flat(tree, prefix: str = "") -> dict[str, np.ndarray]:
 def train_loop(cfg, rounds: int, out: dict, tag: str, *,
                lr: float = LR, compressed: bool = False, ckpt_dir: str = "",
                ckpt_every: int = 5, resume: bool = False,
-               nudge: bool = False) -> None:
+               nudge: bool = False, mesh_shape=(W, 1)) -> None:
     """``launch/train.py``'s ``main`` after argument parsing, recording
-    into ``out`` under ``tag``. ``nudge``: every weight of the init moved
-    one f32 ulp up (``np.nextafter``), the run the reference's gap from
-    itself is measured on."""
+    into ``out`` under ``tag``, on a ``mesh_shape`` ``("data", "model")``
+    mesh. ``nudge``: every weight of the init moved one f32 ulp up
+    (``np.nextafter``), the run the reference's gap from itself is
+    measured on."""
     shape = InputShape("train_4k", seq_len=SEQ, global_batch=2 * W,
                        kind="train")
-    mesh = jax.make_mesh((W, 1), ("data", "model"))
+    mesh = jax.make_mesh(mesh_shape, ("data", "model"))
     w = sharding.num_workers(cfg, mesh)
     fcfg = FedHPConfig(num_workers=w, rounds=rounds, tau_max=TAU_MAX,
                        tau_init=TAU_MAX, lr=lr, seed=SEED)
@@ -336,6 +354,11 @@ def main(argv) -> int:
             train_loop(get_smoke_config(arch), FAMILY_ROUNDS, out, "run",
                        lr=float(lr) if lr else base_lr,
                        nudge=variant == "nudge")
+        elif case in MODEL_CASES:
+            arch, fields = MODEL_CASES[case]
+            train_loop(dataclasses.replace(get_smoke_config(arch), **fields),
+                       MODEL_ROUNDS, out, "run", mesh_shape=MODEL_MESH,
+                       compressed=case.endswith("int8"))
         elif case == "collectives":
             collectives_cases(out)
         else:

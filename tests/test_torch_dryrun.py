@@ -20,6 +20,10 @@ path (``repro_torch.kernels.ops``), on the CPU.
   specs and ``jax.eval_shape`` leaf shapes (the port's train rows in
   f32, the serving leaves in their dtypes) on the 16 x 16 mesh, for a
   train, a prefill and a decode cell of smollm-360m cut to 2 layers.
+- A dense train cell the step executes on the 16 x 16 mesh's model axis
+  (smollm-360m in dp, internlm2-20b in tp, depth 1) is traced with it,
+  its bytes a device from the executed layout equal to the reference's
+  specs' sum.
 - The CLI prints the reference's last line and writes its records.
 """
 from __future__ import annotations
@@ -39,11 +43,11 @@ from jax.sharding import AbstractMesh
 from repro.configs import get_config as ref_get_config
 from repro.models import registry as ref_registry
 from repro.runtime import sharding as ref_sharding
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import InputShape
 from repro_torch.kernels import ops
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
 from repro_torch.models import registry
 from repro_torch.runtime import sharding, steps
 
@@ -332,11 +336,12 @@ def _shards(mesh, spec) -> int:
                      for e in spec if e is not None)
 
 
-def _ref_bytes_per_device(shape: InputShape) -> float:
+def _ref_bytes_per_device(shape: InputShape, arch: str = "smollm-360m",
+                          cut=CUT) -> float:
     """The cell's argument bytes a device from the reference's specs and
     ``jax.eval_shape`` leaves: train rows in f32 (the port's flat [W, P]
     matrix), every other leaf in its own dtype."""
-    cfg = replace(ref_get_config("smollm-360m"), **CUT)
+    cfg = replace(ref_get_config(arch), **cut)
     mesh = AbstractMesh((16, 16), ("data", "model"))
     params = jax.eval_shape(
         lambda: ref_registry.init_params(cfg, jax.random.PRNGKey(0)))
@@ -400,6 +405,36 @@ def test_record_has_the_references_keys(records, kind):
 def test_bytes_per_device_from_the_references_specs(records, kind):
     want = _ref_bytes_per_device(RECORD_CELLS[kind])
     assert np.isclose(records[kind]["bytes_per_device"], want,
+                      rtol=1e-12, atol=0)
+
+
+# train cells the step executes over the 16 x 16 mesh's model axis: 16
+# sequences a worker (one a slot under smollm-360m's dp), S = 64, depth 1
+MODEL_AXIS_CELL = InputShape("train_4k", seq_len=64, global_batch=256,
+                             kind="train")
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "internlm2-20b"])
+def test_model_axis_cell_bytes_from_the_executed_layout(arch):
+    """A dense train cell is traced with its model axis (dp: every slot
+    the whole replica and a sequence of its worker's 16; tp: each slot
+    its pieces, internlm2-20b's 8 kv heads replicated over 16 slots):
+    its bytes a device, read from the executed layout, equal the
+    reference's spec rules' sum; under dp the cell of one sequence a
+    worker (dp's sequence fallback) is traced without it."""
+    cut = {"num_layers": 1}
+    cfg = replace(get_config(arch), **cut)
+    prod = make_production_mesh(devices=[META] * 256)
+    assert dryrun.executes_model_axis(cfg, prod, MODEL_AXIS_CELL)
+    # one sequence a worker: dp would split it over the sequence (refused,
+    # so traced on the workers alone); tp reads the batch whole
+    assert dryrun.executes_model_axis(cfg, prod, RECORD_CELLS["train"]) \
+        == (cfg.within_worker == "tp")
+    rec = dryrun.run_cell(arch, MODEL_AXIS_CELL, cfg_overrides=cut,
+                          verbose=False, train_kw={"tau_max": 1})
+    assert rec["ok"] and rec["hlo_flops"] > 0
+    assert np.isclose(rec["bytes_per_device"],
+                      _ref_bytes_per_device(MODEL_AXIS_CELL, arch, cut),
                       rtol=1e-12, atol=0)
 
 

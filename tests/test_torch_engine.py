@@ -103,7 +103,8 @@ def _remat_block_through_an_adapter(cfg):
     from repro_torch.core.algorithms import make_strategy
     from repro_torch.core.topology import make_base_topology
     model = dc_replace(get_smoke_config("smollm-360m"), remat="block")
-    cfg = dc_replace(cfg, model="dense:d=16")
+    # 4 workers, as the LM cases below: the measurement stack is W x W
+    cfg = dc_replace(cfg, model="dense:d=16", num_workers=4)
     train, tx, ty, shards, cluster = setup_experiment(cfg, device="cpu")
     strategy = make_strategy(cfg, make_base_topology(
         cfg.num_workers, cfg.base_topology, cfg.seed))

@@ -44,8 +44,12 @@ slots of one mesh. Held:
 - ``experiment.model_bits_for`` and ``synthetic.worker_batch_iterator``
   as the reference's (the iterator bit-equal), ``replace_dataset``;
 - ``python -m repro_torch.launch.train --smoke --device cpu`` with
-  ``REPRO_DEVICES=4`` exits 0; a model axis > 1, ``--production`` and a
-  mesh over two devices raise ``NotImplementedError``.
+  ``REPRO_DEVICES=4`` exits 0, and on a model axis of 2 (``REPRO_DEVICES``
+  past ``--workers``: smollm-360m in dp, internlm2-20b in tp) runs to
+  ``done``; ``--production``, ``--multi-pod``, a mesh over two devices
+  and a model axis the port does not execute (olmoe-1b-7b, FSDP, dp's
+  sequence fallback) raise ``NotImplementedError``. The trajectories on
+  a model axis are in ``tests/test_torch_train_model_axis.py``.
 
 The bf16 and ``--compressed`` trajectories are in
 ``tests/test_torch_train_bf16.py`` and
@@ -225,19 +229,56 @@ def test_cli_smoke_exits_zero(monkeypatch, capsys):
     (["--workers", "4", "--production"], "4"),
     (["--workers", "4", "--multi-pod"], "4"),
 ])
-def test_cli_refuses_the_model_axis(monkeypatch, argv, env):
+def test_cli_refuses_the_model_axis(monkeypatch, capsys, argv, env):
+    """The model axis runs (smollm-360m's dp layout past ``--workers``);
+    the pod meshes stay refused (ROADMAP.md queue 1, items 4.5-4.6)."""
     monkeypatch.setenv("REPRO_DEVICES", env)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        trainer.main(["--smoke", "--steps", "1", "--device", "cpu", *argv])
+    cmd = ["--smoke", "--steps", "1", "--device", "cpu", *argv]
+    if "--production" in argv or "--multi-pod" in argv:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+            trainer.main(cmd)
+        return
+    assert trainer.main(cmd) == 0
+    lines = capsys.readouterr().out.splitlines()
+    w = int(argv[1])
+    assert lines[0].startswith(f"mesh {{'data': {w}, 'model': 2}} -> {w} "
+                               "DFL workers; arch=smollm-360m")
+    assert lines[1].startswith("round 0:") and lines[-1] == "done"
+
+
+def test_cli_runs_tensor_parallel(monkeypatch, capsys):
+    monkeypatch.setenv("REPRO_DEVICES", "4")
+    assert trainer.main(["--smoke", "--steps", "2", "--workers", "2",
+                         "--device", "cpu", "--arch", "internlm2-20b"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("mesh {'data': 2, 'model': 2} -> 2 DFL "
+                               "workers; arch=internlm2-20b")
+    assert [ln.split(":")[0] for ln in lines[1:3]] == ["round 0", "round 1"]
+    assert lines[-1] == "done"
 
 
 def test_step_refuses_the_model_axis():
-    cfg = get_smoke_config("smollm-360m")
+    """The model axis raises where the port does not execute it: another
+    family than dense (olmoe-1b-7b's experts over ``model``), FSDP
+    axes, dp's fallback to a sequence split."""
     mesh = meshlib.make_debug_mesh((2, 2), devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="model axis"):
-        steps.make_train_step(cfg, mesh, SHAPE)
-    with pytest.raises(NotImplementedError, match="model axis"):
-        collectives.gossip_fn(mesh, ("data",), [], np.zeros((0, 2)))
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1, item 4.4"):
+        steps.make_train_step(get_smoke_config("olmoe-1b-7b"), mesh, SHAPE)
+    fsdp = dataclasses.replace(get_smoke_config("internlm2-20b"),
+                               worker_axes=("pod",), fsdp_axes=("data",))
+    with pytest.raises(NotImplementedError, match="FSDP"):
+        steps.make_train_step(fsdp, mesh, SHAPE)
+    one_a_worker = InputShape("t", 64, 2, "train")        # b_w 1 over 2
+    with pytest.raises(NotImplementedError, match="sequence split"):
+        steps.make_train_step(get_smoke_config("smollm-360m"), mesh,
+                              one_a_worker)
+    # a model axis of 1 and the dense family on 2 slots build
+    steps.make_train_step(get_smoke_config("olmoe-1b-7b"), cpu_mesh(),
+                          SHAPE)
+    bundle = steps.make_train_step(get_smoke_config("internlm2-20b"), mesh,
+                                   SHAPE)
+    assert bundle.layout.model == 2 and len(bundle.abstract_args[0]) == 2
 
 
 def test_train_refuses_a_mesh_over_two_devices():
