@@ -6,9 +6,10 @@ train shapes, prefill or decode for the serving shapes) on ``meta``
 arguments (shape and dtype, no storage), calls it once, and counts what
 the call does:
 
-- FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` over the call (the
-  products of PyTorch's own operations), plus the hand-written kernels'
-  own FLOPs, which their ``meta`` calls tally (``kernels/ops.WORK``);
+- FLOPs: ``FlopCount`` over the call (the products of PyTorch's own
+  operations, by ``torch.utils.flop_counter``'s formulas), plus the
+  hand-written kernels' own FLOPs, which their ``meta`` calls tally
+  (``kernels/ops.WORK``);
 - bytes: every aten operation that is not a view adds the bytes of its
   tensor inputs and outputs (``TrafficCounter``; an allocation moves
   nothing) — what an unfused eager step moves, which is the port's real
@@ -23,7 +24,8 @@ the call does:
 Then it prints the reference's lines and the roofline terms at the H100
 constants (``launch/roofline.py``). It needs no card and launches
 nothing. A train cell the port's step executes on the model axis (the
-dense family without FSDP, b_w a multiple of the axis under dp:
+dense, moe and hybrid families without FSDP, b_w a multiple of the axis
+under dp:
 ``sharding.model_extent``, ``sharding.batch_slots``) is traced on the
 production mesh's worker and model axes of ``meta`` slots, its bytes a
 device read from the executed layout (a slot's [W, P_slot] pieces and
@@ -58,7 +60,7 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config
 from repro_torch.configs.base import InputShape
@@ -151,6 +153,29 @@ class TrafficCounter(TorchDispatchMode):
         return out
 
 
+class FlopCount(TorchDispatchMode):
+    """FLOPs of the aten operations run under it, by
+    ``torch.utils.flop_counter``'s formulas (``flop_registry``: the
+    matrix products, convolutions and attention), each operation run as
+    it is. ``FlopCounterMode`` counts the same operations but decomposes
+    those it has no formula for (``func.decompose``: ``silu_backward``
+    into its elementwise steps), which on bf16 operands rounds each
+    step's result: a round counted by it is not the round run uncounted
+    to the last bit."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            self.flops += formula(*args, **kwargs, out_val=out)
+        return out
+
+
 @dataclasses.dataclass
 class Counts:
     """One counted call: FLOPs and bytes (PyTorch's operations and the
@@ -164,18 +189,18 @@ class Counts:
 
 
 def count(fn, *args, loop=None) -> Counts:
-    """Call ``fn(*args)`` once under ``FlopCounterMode`` and
+    """Call ``fn(*args)`` once under ``FlopCount`` and
     ``TrafficCounter`` (``loop``: its capped token loop), with the
     kernels' tally (``ops.WORK``) read around it."""
     arg_bytes = sum(map(_nbytes, _tensors(args)))
     work = dict(ops.WORK)
-    flop_mode = FlopCounterMode(display=False)
+    flop_mode = FlopCount()
     traffic = TrafficCounter(arg_bytes, loop)
     with flop_mode, traffic:
         out = fn(*args)
         del out
     return Counts(
-        flops=flop_mode.get_total_flops() + ops.WORK["flops"] - work["flops"],
+        flops=flop_mode.flops + ops.WORK["flops"] - work["flops"],
         bytes=traffic.bytes + ops.WORK["bytes"] - work["bytes"],
         peak=traffic.peak, args=arg_bytes)
 

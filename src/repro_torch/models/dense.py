@@ -174,18 +174,14 @@ def remat_block(cfg: ModelConfig, bp: dict, x, positions, *, window: int,
                    cfg)(x, bp)
 
 
-def block_pieces(cfg: ModelConfig, bps: list, x, positions, *,
-                 window: int):
-    """``block`` over a worker's model-axis slots (tensor parallelism by
-    the spec rules): ``bps[j]`` one block's leaves on slot j ([W, ...]
-    pieces on its device), x [W, B, S, D] on slot 0's. The norms read
-    slot 0's copy (every slot holds them whole); the attention runs on
-    each slot's heads (``layers.attention_pieces``) and the MLP on each
-    slot's d_ff columns, column-parallel in and row-parallel out, the
-    slots' outputs added (``layers.slot_sum``). A part whose leaves the
-    rule keeps whole (heads or d_ff that do not divide m) runs once, on
-    slot 0's copy."""
-    home = x.device
+def attention_half_pieces(cfg: ModelConfig, bps: list, x, positions, *,
+                          window: int):
+    """x + attn(norm(x)) over a worker's model-axis slots (``bps[j]`` one
+    block's leaves on slot j, x [W, B, S, D] on slot 0's device): the
+    norm reads slot 0's copy, the attention runs on each slot's heads
+    (``layers.attention_pieces``), or once on slot 0's copy where the
+    rule keeps the heads whole — the part a dense and a MoE block
+    share."""
     hd = cfg.resolved_head_dim
     attn = [L.sub(bp, "attn") for bp in bps]
     h = L.rms_norm(x, bps[0]["ln1"], cfg.norm_eps)
@@ -194,12 +190,25 @@ def block_pieces(cfg: ModelConfig, bps: list, x, positions, *,
               window=window,
               attn_fn=L.pick_attn_fn(cfg, causal=True, window=window))
     if attn[0]["wq"].shape[-1] == cfg.num_heads * hd:
-        a = L.multi_head_attention(attn[0], h, causal=True, **kw)
-    else:
-        a = L.attention_pieces(
-            attn, h, kv_whole=attn[0]["wk"].shape[-1] ==
-            cfg.num_kv_heads * hd, **kw)
-    x = x + a
+        return x + L.multi_head_attention(attn[0], h, causal=True, **kw)
+    return x + L.attention_pieces(
+        attn, h, kv_whole=attn[0]["wk"].shape[-1] == cfg.num_kv_heads * hd,
+        **kw)
+
+
+def block_pieces(cfg: ModelConfig, bps: list, x, positions, *,
+                 window: int):
+    """``block`` over a worker's model-axis slots (tensor parallelism by
+    the spec rules): ``bps[j]`` one block's leaves on slot j ([W, ...]
+    pieces on its device), x [W, B, S, D] on slot 0's. The norms read
+    slot 0's copy (every slot holds them whole); the attention runs on
+    each slot's heads (``attention_half_pieces``) and the MLP on each
+    slot's d_ff columns, column-parallel in and row-parallel out, the
+    slots' outputs added (``layers.slot_sum``). A part whose leaves the
+    rule keeps whole (heads or d_ff that do not divide m) runs once, on
+    slot 0's copy."""
+    home = x.device
+    x = attention_half_pieces(cfg, bps, x, positions, window=window)
     h = L.rms_norm(x, bps[0]["ln2"], cfg.norm_eps)
     mlp = [L.sub(bp, "mlp") for bp in bps]
     if mlp[0]["w_up"].shape[-1] == cfg.d_ff:
@@ -226,22 +235,15 @@ def loss_fn_pieces(cfg: ModelConfig, slots: list, batch: dict):
     0's device."""
     L.check_trainable(cfg)
     tokens = batch["tokens"]
-    home = tokens.device
-    if slots[0]["embed"].shape[1] == cfg.vocab_size:
-        x = L.embed(slots[0]["embed"], tokens)
-    else:
-        x = L.embed_pieces([p["embed"] for p in slots], tokens, home)
-    positions = torch.arange(tokens.shape[2], device=home)
+    x = L.embed_slots(slots, tokens, cfg.vocab_size)
+    positions = torch.arange(tokens.shape[2], device=tokens.device)
     for stack, idx, window in layer_order(cfg):
         x = L.remat(lambda h, ps, w=window: block_pieces(
             cfg, ps, h, positions, window=w), cfg)(
             x, [L.layer(p, stack, idx) for p in slots])
     h = L.rms_norm(x, slots[0]["ln_f"], cfg.norm_eps)
-    heads = [head_matrix(cfg, p) for p in slots]
-    if heads[0].shape[-1] == cfg.vocab_size:
-        heads = heads[0]
-    loss, cnt = L.chunked_softmax_xent(h, heads, batch["labels"].long(),
-                                       batch.get("loss_mask"))
+    loss, cnt = L.xent_slots(slots, h, batch, vocab_size=cfg.vocab_size,
+                             tie_embeddings=cfg.tie_embeddings)
     return loss, {"tokens": cnt}
 
 

@@ -97,11 +97,6 @@ def init(cfg: ModelConfig, generator: torch.Generator,
     return p
 
 
-def _mamba_apply(cfg: ModelConfig, bp: dict, h):
-    x = L.rms_norm(h, bp["ln"], cfg.norm_eps)
-    return h + ssm.apply_mamba2(L.sub(bp, "mamba"), x, cfg.ssm_state)
-
-
 def attention_calls(cfg: ModelConfig) -> int:
     """Attention layers one forward pass runs: one shared block a group."""
     return _group_shape(cfg)[0]
@@ -117,41 +112,59 @@ def activation_floats(cfg: ModelConfig, seq_len: int) -> int:
             + g * dense.attention_block_floats(cfg, cfg.d_ff))
 
 
+def _mamba_block(cfg: ModelConfig, bps: list, h):
+    """h + Mamba2(norm(h)) over a worker's model-axis slots (``bps[j]``
+    one block's leaves on slot j; ``ssm.mamba2_pieces``)."""
+    x = L.rms_norm(h, bps[0]["ln"], cfg.norm_eps)
+    return h + ssm.mamba2_pieces([L.sub(bp, "mamba") for bp in bps], x,
+                                 cfg.ssm_state)
+
+
+def forward_pieces(cfg: ModelConfig, slots: list, tokens: torch.Tensor):
+    """The forward of a worker's replica held over its model-axis slots
+    (``dense.loss_fn_pieces``' layout: ``slots[j]`` slot j's leaves, one
+    slot for an unsplit replica; tokens [W, B, S] on slot 0's device):
+    the embedding over the vocabulary pieces (``layers.embed_slots``),
+    each Mamba2 block by ``ssm.mamba2_pieces`` and each shared block (a
+    dense block with full attention) by ``dense.block_pieces``, every
+    block under ``cfg.remat``; a leaf every slot holds whole (the norms,
+    ``a_log``, ``dt_bias``, ...) is read from slot 0's copy. Returns the
+    final hidden states [W, B, S, D] on slot 0's device."""
+    L.check_trainable(cfg)
+    x = L.embed_slots(slots, tokens, cfg.vocab_size)
+    positions = torch.arange(tokens.shape[-1], device=tokens.device)
+    mamba = L.remat(lambda h, bps: _mamba_block(cfg, bps, h), cfg)
+    shared = L.remat(lambda h, bps: dense.block_pieces(
+        cfg, bps, h, positions, window=0), cfg)
+    for stack, idx, gi in _mamba_layers(cfg):
+        x = mamba(x, [L.layer(p, stack, idx) for p in slots])
+        if gi is not None:
+            x = shared(x, [L.layer(p, "shared", (gi % NUM_SHARED,))
+                           for p in slots])
+    return L.rms_norm(x, slots[0]["ln_f"], cfg.norm_eps)
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
     """Full forward to final hidden states: tokens [W, B, S] int ->
     [W, B, S, D]."""
-    L.check_trainable(cfg)
-    x = L.embed(params["embed"], tokens)
-    positions = torch.arange(tokens.shape[-1], device=tokens.device)
-    g, mpg, tail = _group_shape(cfg)
-    mamba = L.remat(lambda h, bp: _mamba_apply(cfg, bp, h), cfg)
-    for gi in range(g):
-        for j in range(mpg):
-            x = mamba(x, L.layer(params, "mamba", (gi, j)))
-        # the shared attention + MLP block: a dense block (full attention)
-        x = dense.remat_block(cfg, L.layer(params, "shared",
-                                           (gi % NUM_SHARED,)),
-                              x, positions, window=0)
-    for j in range(tail):
-        x = mamba(x, L.layer(params, "tail", (j,)))
-    return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return forward_pieces(cfg, [params], tokens)
 
 
-def head_matrix(cfg: ModelConfig, params: dict) -> torch.Tensor:
-    """The [W, D, V] output projection (the embedding's transpose when
-    tied)."""
-    return (params["embed"].transpose(1, 2) if cfg.tie_embeddings
-            else params["lm_head"])
+def loss_fn_pieces(cfg: ModelConfig, slots: list, batch: dict):
+    """``loss_fn`` of a worker's replica held over its model-axis slots
+    (``forward_pieces``, the head over the vocabulary pieces by
+    ``layers.xent_slots``) -> (loss [W], {"tokens": count [W]}) on slot
+    0's device."""
+    h = forward_pieces(cfg, slots, batch["tokens"])
+    loss, cnt = L.xent_slots(slots, h, batch, vocab_size=cfg.vocab_size,
+                             tie_embeddings=cfg.tie_embeddings)
+    return loss, {"tokens": cnt}
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
     """Per-worker next-token loss: batch ``tokens`` and ``labels`` [W, B,
     S] (optional ``loss_mask``) -> (loss [W], {"tokens": count [W]})."""
-    h = forward(cfg, params, batch["tokens"])
-    loss, cnt = L.chunked_softmax_xent(h, head_matrix(cfg, params),
-                                       batch["labels"].long(),
-                                       batch.get("loss_mask"))
-    return loss, {"tokens": cnt}
+    return loss_fn_pieces(cfg, [params], batch)
 
 
 # ---------------------------------------------------------------------------

@@ -531,6 +531,32 @@ def head_pieces(h: torch.Tensor, heads, labels: torch.Tensor):
     return top + torch.log(sumexp), slot_sum(gold, home)
 
 
+def embed_slots(slots, tokens: torch.Tensor, vocab_size: int
+                ) -> torch.Tensor:
+    """The embedding of ``tokens`` [W, B, S] (on slot 0's device) by a
+    worker's model-axis slots (``slots[j]`` slot j's leaves {name: [W,
+    ...]}): slot 0's table where every slot holds it whole, else the
+    slots' vocabulary pieces (``embed_pieces``)."""
+    if slots[0]["embed"].shape[1] == vocab_size:
+        return embed(slots[0]["embed"], tokens)
+    return embed_pieces([p["embed"] for p in slots], tokens, tokens.device)
+
+
+def xent_slots(slots, h: torch.Tensor, batch: dict, *, vocab_size: int,
+               tie_embeddings: bool):
+    """``chunked_softmax_xent`` of final hidden states h [W, B, S, D] (on
+    slot 0's device) against the head held by a worker's model-axis slots
+    (the embedding's transpose when tied, else ``lm_head``): slot 0's
+    where every slot holds it whole, else the slots' vocabulary pieces
+    (``head_pieces``) -> (loss [W], token count [W])."""
+    heads = [p["embed"].transpose(1, 2) if tie_embeddings else p["lm_head"]
+             for p in slots]
+    if heads[0].shape[-1] == vocab_size:
+        heads = heads[0]
+    return chunked_softmax_xent(h, heads, batch["labels"].long(),
+                                batch.get("loss_mask"))
+
+
 def attention_pieces(ps, x: torch.Tensor, *, num_heads: int,
                      num_kv_heads: int, head_dim: int, positions, theta,
                      window: int, attn_fn, kv_whole: bool) -> torch.Tensor:

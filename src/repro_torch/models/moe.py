@@ -94,25 +94,50 @@ def capacity(tokens: int, num_experts: int, k: int) -> int:
     return max(1, math.ceil(k * tokens / num_experts * CAPACITY_FACTOR))
 
 
-def apply_moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def apply_moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                  experts_fn=None, shared_fn=None):
     """x [W, B, S, d] -> ([W, B, S, d], aux loss [W]).
 
     ``cfg.moe_shard_groups`` G > 0 routes each worker's tokens within G
     independent groups of T / G tokens (capacity per group), when G
-    divides T = B * S; the aux loss is the groups' mean."""
+    divides T = B * S; the aux loss is the groups' mean. ``experts_fn``
+    and ``shared_fn`` replace the expert products and the shared expert
+    (``_moe_ffn_flat``; ``moe_ffn_pieces``)."""
     wn, b, s, d = x.shape
     groups = cfg.moe_shard_groups
+    kw = dict(experts_fn=experts_fn, shared_fn=shared_fn)
     if groups and (b * s) % groups == 0:
         y, aux = _moe_ffn_flat(p, x.reshape(wn, groups, (b * s) // groups,
-                                            d), cfg)
+                                            d), cfg, **kw)
         return y.reshape(wn, b, s, d), aux.mean(dim=1)
-    y, aux = _moe_ffn_flat(p, x.reshape(wn, 1, b * s, d), cfg)
+    y, aux = _moe_ffn_flat(p, x.reshape(wn, 1, b * s, d), cfg, **kw)
     return y.reshape(wn, b, s, d), aux[:, 0]
 
 
-def _moe_ffn_flat(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def expert_products(p: dict, h: torch.Tensor, act: str) -> torch.Tensor:
+    """The experts' FFN on their rows of the dispatch buffer: h [W, E', R,
+    d] the rows of E' experts, ``p``'s ``w_gate`` / ``w_up`` [W, E', d,
+    d_ff] and ``w_down`` [W, E', d_ff, d] -> [W, E', R, d], one batched
+    product over (worker, expert)."""
+    wn, e, r, d = h.shape
+    dff = p["w_gate"].shape[-1]
+    f = L.act_fn(act)
+    h = h.reshape(wn * e, r, d)
+    a = f(torch.bmm(h, p["w_gate"].reshape(wn * e, d, dff))) \
+        * torch.bmm(h, p["w_up"].reshape(wn * e, d, dff))
+    return torch.bmm(a, p["w_down"].reshape(wn * e, dff, d)) \
+        .reshape(wn, e, r, d)
+
+
+def _moe_ffn_flat(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                  experts_fn=None, shared_fn=None):
     """Routing groups x [W, G, T, d] (each group of each worker routes its
-    own T tokens) -> (y [W, G, T, d], aux loss [W, G])."""
+    own T tokens) -> (y [W, G, T, d], aux loss [W, G]). ``experts_fn(h)``
+    maps the dispatch buffer h [W, E, G C, d] (each expert's rows, a
+    worker's groups side by side) to the experts' outputs, by default
+    ``expert_products`` of ``p``'s; ``shared_fn(x)`` the shared expert's
+    output on the tokens x [W, G T, d], by default ``p``'s
+    ``shared/*`` MLP where it has one."""
     wn, ng, t, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     c = capacity(t, e, k)
@@ -152,12 +177,9 @@ def _moe_ffn_flat(p: dict, x: torch.Tensor, cfg: ModelConfig):
     # ---- expert computation: one batched product over (worker, expert),
     # a worker's groups side by side in its experts' rows ----
     h = (buf[:, :e * c].reshape(wn, ng, e, c, d).transpose(1, 2)
-         .reshape(wn * e, ng * c, d))
-    dff = p["w_gate"].shape[-1]
-    f = L.act_fn(cfg.act)
-    a = f(torch.bmm(h, p["w_gate"].reshape(wn * e, d, dff))) \
-        * torch.bmm(h, p["w_up"].reshape(wn * e, d, dff))
-    o = torch.bmm(a, p["w_down"].reshape(wn * e, dff, d))     # [W E, G C, d]
+         .reshape(wn, e, ng * c, d))
+    o = (expert_products(p, h, cfg.act) if experts_fn is None
+         else experts_fn(h))                                  # [W, E, G C, d]
     o = o.reshape(wn, e, ng, c, d).transpose(1, 2).reshape(n, e * c, d)
 
     # ---- unpack: gather back, unsort, combine with gates ----
@@ -171,9 +193,45 @@ def _moe_ffn_flat(p: dict, x: torch.Tensor, cfg: ModelConfig):
     y = (y_unsorted.reshape(n, t, k, d)
          * gate[..., None].to(x.dtype)).sum(dim=2)
 
-    if "shared/w_up" in p:
+    if shared_fn is not None:
+        y = y + shared_fn(xw).reshape(n, t, d)
+    elif "shared/w_up" in p:
         y = y + L.apply_mlp(L.sub(p, "shared"), xw, cfg.act).reshape(n, t, d)
     return y.reshape(wn, ng, t, d), aux.reshape(wn, ng)
+
+
+def moe_ffn_pieces(ps: list, x: torch.Tensor, cfg: ModelConfig):
+    """``apply_moe_ffn`` over a worker's model-axis slots (expert
+    parallelism by the spec rules): ``ps[j]`` slot j's MoE leaves ([W,
+    ...] on its device), x [W, B, S, d] on slot 0's. The routing — the
+    softmax, top-k, the aux loss, the stable sort, the capacity and the
+    dispatch buffer — runs once, on slot 0's whole ``router``. Slot j
+    runs the products of its experts [j E / m, (j + 1) E / m) on their
+    rows of the buffer (a contiguous block: the assignments are sorted by
+    expert id), and the outputs are joined in expert order (an
+    all-gather: each expert's output is computed once), then unpacked
+    and combined on slot 0. The shared expert is column-parallel in and
+    row-parallel out, the slots' outputs added (``layers.slot_sum``).
+    A part whose leaves the rule keeps whole (experts or a shared d_ff
+    that do not divide m) runs once, on slot 0's copy."""
+    home, p0 = x.device, ps[0]
+    experts_fn = shared_fn = None
+    if p0["w_gate"].shape[1] != cfg.num_experts:
+        per = p0["w_gate"].shape[1]
+
+        def experts_fn(h):
+            return torch.cat([expert_products(
+                p, h[:, j * per:(j + 1) * per].to(p["w_gate"].device),
+                cfg.act).to(home) for j, p in enumerate(ps)], dim=1)
+    dff = cfg.moe_d_ff or cfg.d_ff
+    if "shared/w_up" in p0 and \
+            p0["shared/w_up"].shape[-1] != cfg.num_shared_experts * dff:
+        def shared_fn(xs):
+            return L.slot_sum([L.apply_mlp(
+                L.sub(p, "shared"), xs.to(p["shared/w_up"].device), cfg.act)
+                for p in ps], home)
+    return apply_moe_ffn(p0, x, cfg, experts_fn=experts_fn,
+                         shared_fn=shared_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -235,8 +293,15 @@ def _block_kv(cfg: ModelConfig, bp: dict, x, positions):
     return x + y, aux, k, v
 
 
-def _block(cfg: ModelConfig, bp: dict, x, positions):
-    return _block_kv(cfg, bp, x, positions)[:2]
+def _block(cfg: ModelConfig, bps: list, x, positions):
+    """One block over a worker's model-axis slots (``bps[j]`` its leaves
+    on slot j; one slot holds the whole block): the attention half by
+    ``dense.attention_half_pieces``, the norms from slot 0's copy, the
+    FFN by ``moe_ffn_pieces`` -> (x, the aux loss [W])."""
+    x = dense.attention_half_pieces(cfg, bps, x, positions, window=0)
+    h = L.rms_norm(x, bps[0]["ln2"], cfg.norm_eps)
+    y, aux = moe_ffn_pieces([L.sub(bp, "moe") for bp in bps], h, cfg)
+    return x + y, aux
 
 
 def attention_calls(cfg: ModelConfig) -> int:
@@ -260,37 +325,49 @@ def activation_floats(cfg: ModelConfig, seq_len: int) -> int:
     return cfg.num_layers * per_layer
 
 
-def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
-    """tokens [W, B, S] int -> (final hidden states [W, B, S, D], the
-    layers' mean aux loss [W])."""
+def forward_pieces(cfg: ModelConfig, slots: list, tokens: torch.Tensor):
+    """The forward of a worker's replica held over its model-axis slots
+    (``dense.loss_fn_pieces``' layout: ``slots[j]`` slot j's leaves, one
+    slot for an unsplit replica; tokens [W, B, S] on slot 0's device):
+    the embedding over the vocabulary pieces (``layers.embed_slots``),
+    each block by ``_block`` under ``cfg.remat``; a leaf every slot holds
+    whole (the router, the norms) is read from slot 0's copy. Returns
+    (final hidden states [W, B, S, D], the layers' mean aux loss [W]) on
+    slot 0's device."""
     L.check_trainable(cfg)
-    x = L.embed(params["embed"], tokens)
+    x = L.embed_slots(slots, tokens, cfg.vocab_size)
     positions = torch.arange(tokens.shape[-1], device=tokens.device)
+    block = L.remat(lambda h, bps: _block(cfg, bps, h, positions), cfg)
     auxes = []
-    block = L.remat(lambda h, bp: _block(cfg, bp, h, positions), cfg)
     for i in range(cfg.num_layers):
-        x, aux = block(x, L.layer(params, "blocks", (i,)))
+        x, aux = block(x, [L.layer(p, "blocks", (i,)) for p in slots])
         auxes.append(aux)
-    return (L.rms_norm(x, params["ln_f"], cfg.norm_eps),
+    return (L.rms_norm(x, slots[0]["ln_f"], cfg.norm_eps),
             torch.stack(auxes).mean(dim=0))
 
 
-def head_matrix(cfg: ModelConfig, params: dict) -> torch.Tensor:
-    """The [W, D, V] output projection (the embedding's transpose when
-    tied)."""
-    return (params["embed"].transpose(1, 2) if cfg.tie_embeddings
-            else params["lm_head"])
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+    """tokens [W, B, S] int -> (final hidden states [W, B, S, D], the
+    layers' mean aux loss [W])."""
+    return forward_pieces(cfg, [params], tokens)
+
+
+def loss_fn_pieces(cfg: ModelConfig, slots: list, batch: dict):
+    """``loss_fn`` of a worker's replica held over its model-axis slots
+    (``forward_pieces``, the head over the vocabulary pieces by
+    ``layers.xent_slots``) -> (loss + 0.01 x the aux loss [W],
+    {"tokens", "aux_loss"}) on slot 0's device."""
+    h, aux = forward_pieces(cfg, slots, batch["tokens"])
+    loss, cnt = L.xent_slots(slots, h, batch, vocab_size=cfg.vocab_size,
+                             tie_embeddings=cfg.tie_embeddings)
+    return loss + 0.01 * aux, {"tokens": cnt, "aux_loss": aux}
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
     """Per-worker next-token loss plus 0.01 x the aux loss: batch
     ``tokens`` and ``labels`` [W, B, S] -> (loss [W], {"tokens": count
     [W], "aux_loss": [W]})."""
-    h, aux = forward(cfg, params, batch["tokens"])
-    loss, cnt = L.chunked_softmax_xent(h, head_matrix(cfg, params),
-                                       batch["labels"].long(),
-                                       batch.get("loss_mask"))
-    return loss + 0.01 * aux, {"tokens": cnt, "aux_loss": aux}
+    return loss_fn_pieces(cfg, [params], batch)
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,9 @@ from repro_torch.models import layers as L
 
 _FAMILY = {"dense": dense, "moe": moe, "vlm": dense, "encdec": encdec,
            "hybrid": hybrid, "xlstm": xlstm}
+# the families whose replica the round step runs over a model axis
+# (``loss_fn_pieces``; ``runtime/sharding.model_extent`` refuses the rest)
+MODEL_AXIS_FAMILIES = ("dense", "moe", "hybrid")
 
 VLM_VISION_FRACTION = 8       # S_vis = seq_len // 8
 
@@ -82,11 +85,12 @@ def loss_fn(cfg: ModelConfig, params, batch, count=None):
 
 def loss_fn_pieces(cfg: ModelConfig, slots: list, batch):
     """Per-worker training loss of a replica split over its model-axis
-    slots (``dense.loss_fn_pieces``; the dense family's only)."""
-    if cfg.family != "dense":
+    slots (the family module's ``loss_fn_pieces``; the dense, moe and
+    hybrid families)."""
+    if cfg.family not in MODEL_AXIS_FAMILIES:
         raise NotImplementedError(f"the {cfg.family} family over a model "
                                   "axis (ROADMAP.md queue 1, item 4.4)")
-    return dense.loss_fn_pieces(cfg, slots, batch)
+    return get_model(cfg.family).loss_fn_pieces(cfg, slots, batch)
 
 
 def attention_calls(cfg: ModelConfig) -> int:

@@ -62,11 +62,11 @@ def init_mamba2(gen: torch.Generator, d_model: int, ssm_state: int) -> dict:
     }
 
 
-def _split_proj(p: dict, x: torch.Tensor, d_model: int, n: int):
-    """x [W, B, S, d] -> (z, xbc, dt, d_in, heads)."""
+def _split_proj(zxbcdt: torch.Tensor, d_model: int, n: int):
+    """The input projection's output zxbcdt [W, B, S, 2 d_in + 2 n + H]
+    -> (z, xbc, dt, d_in, heads)."""
     d_in = 2 * d_model
     h = num_ssm_heads(d_in)
-    zxbcdt = L.matmul(x, p["in_proj"])
     z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * n, h], dim=-1)
     return z, xbc, dt, d_in, h
 
@@ -254,9 +254,24 @@ def _mamba2(p: dict, x: torch.Tensor, ssm_state_dim: int, chunk: int,
     """A Mamba2 block body of a fleet: x [W, B, S, d] -> (out [W, B, S,
     d], the final state [W * B, H, n, p] or None, the trailing
     convolution context [W, B, 3, C])."""
-    wn, bsz, s, d = x.shape
+    y, st, conv_state = _mamba2_mixer(p, L.matmul(x, p["in_proj"]),
+                                      x.shape[-1], ssm_state_dim, chunk,
+                                      final)
+    return L.matmul(y, p["out_proj"]), st, conv_state
+
+
+def _mamba2_mixer(p: dict, zxbcdt: torch.Tensor, d: int,
+                  ssm_state_dim: int, chunk: int, final: bool):
+    """A Mamba2 block between its two projections: the input projection's
+    output zxbcdt [W, B, S, 2 d_in + 2 n + H] -> (the gated, normed y
+    [W, B, S, d_in] that ``out_proj`` takes, the final state or None,
+    the trailing convolution context): the causal convolution, the
+    chunked SSD, the skip and the gated RMSNorm, with ``p``'s
+    ``conv_w`` / ``conv_b`` / ``dt_bias`` / ``a_log`` / ``d_skip`` /
+    ``norm``."""
+    wn, bsz, s, _ = zxbcdt.shape
     n = ssm_state_dim
-    z, xbc, dt, d_in, h = _split_proj(p, x, d, n)
+    z, xbc, dt, d_in, h = _split_proj(zxbcdt, d, n)
     xbc, conv_state = _causal_conv(p, xbc)
     xs, b, c = torch.split(xbc, [d_in, n, n], dim=-1)
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"][:, None, None])
@@ -270,9 +285,8 @@ def _mamba2(p: dict, x: torch.Tensor, ssm_state_dim: int, chunk: int,
                         chunk=chunk, final=final)
     y = y.reshape(wn, bsz, s, h, HEAD_DIM) \
         + xh.to(torch.float32) * p["d_skip"][:, None, None, :, None]
-    y = y.reshape(wn, bsz, s, d_in).to(x.dtype)
-    y = L.rms_norm(y * F.silu(z), p["norm"])
-    return L.matmul(y, p["out_proj"]), st, conv_state
+    y = y.reshape(wn, bsz, s, d_in).to(zxbcdt.dtype)
+    return L.rms_norm(y * F.silu(z), p["norm"]), st, conv_state
 
 
 def apply_mamba2(p: dict, x: torch.Tensor, ssm_state_dim: int, *,
@@ -280,6 +294,42 @@ def apply_mamba2(p: dict, x: torch.Tensor, ssm_state_dim: int, *,
     """Full-sequence Mamba2 block body of a fleet: x [W, B, S, d] with one
     block's worker-stacked leaves -> [W, B, S, d]."""
     return _mamba2(p, x, ssm_state_dim, chunk, final=False)[0]
+
+
+def mamba2_pieces(ps: list, x: torch.Tensor, ssm_state_dim: int, *,
+                  chunk: int = 256) -> torch.Tensor:
+    """``apply_mamba2`` over a worker's model-axis slots (the spec rules:
+    ``in_proj`` split on its columns, ``conv_w`` on its channels,
+    ``out_proj`` on its rows, the rest whole): ``ps[j]`` slot j's block
+    leaves ([W, ...] on its device), x [W, B, S, d] on slot 0's. Each
+    slot computes its columns of x @ in_proj and the pieces join on slot
+    0 (the contiguous cut does not fall on the z | x | B | C | dt
+    boundaries, nor ``conv_w``'s on x | B | C), where the convolution,
+    the SSD and the gated RMSNorm run with slot 0's whole leaves and the
+    joined ``conv_w``; ``out_proj`` is row-parallel, slot j taking y's
+    d_in columns [j d_in / m, (j + 1) d_in / m), the slots' outputs added
+    (``layers.slot_sum``). A leaf the rule keeps whole is read from slot
+    0's copy."""
+    home, p0 = x.device, ps[0]
+    d = x.shape[-1]
+    shapes = mamba2_shapes(d, ssm_state_dim)
+
+    def joined(name, make):
+        if p0[name].shape[-1] == shapes[name][-1]:
+            return make(p0)
+        return torch.cat([make(p).to(home) for p in ps], dim=-1)
+
+    zxbcdt = joined("in_proj", lambda p: L.matmul(
+        x.to(p["in_proj"].device), p["in_proj"]))
+    mixer = dict(p0, conv_w=joined("conv_w", lambda p: p["conv_w"]))
+    y, _, _ = _mamba2_mixer(mixer, zxbcdt, d, ssm_state_dim, chunk,
+                            final=False)
+    rows = p0["out_proj"].shape[-2]
+    if rows == shapes["out_proj"][0]:
+        return L.matmul(y, p0["out_proj"])
+    return L.slot_sum([L.matmul(y[..., j * rows:(j + 1) * rows].to(
+        p["out_proj"].device), p["out_proj"]) for j, p in enumerate(ps)],
+        home)
 
 
 # ---------------------------------------------------------------------------
@@ -321,7 +371,7 @@ def decode_mamba2(p: dict, x: torch.Tensor, state: torch.Tensor,
     wn, bsz, _, d = x.shape
     n = ssm_state_dim
     f32 = torch.float32
-    z, xbc, dt, d_in, h = _split_proj(p, x, d, n)
+    z, xbc, dt, d_in, h = _split_proj(L.matmul(x, p["in_proj"]), d, n)
     xbc, conv_state = _causal_conv(p, xbc, conv)
     xs, b, c = torch.split(xbc, [d_in, n, n], dim=-1)
     dt = F.softplus(dt.to(f32) + p["dt_bias"][:, None, None])[:, :, 0]

@@ -18,15 +18,17 @@ from them).
 
 The model axis (``model_extent``): a worker's replica over the m slots
 of the mesh axis beside the worker axes. The round step executes the
-rules there for the dense family: under ``within_worker="tp"`` a slot
+rules there for the dense, moe and hybrid families
+(``registry.MODEL_AXIS_FAMILIES``): under ``within_worker="tp"`` a slot
 holds the piece of each leaf that ``param_spec`` gives it
 (``leaf_splits``, ``cut_leaf``, ``join_leaf``: one dim split into m
 equal contiguous pieces, or the leaf whole where the rule replicates it
 or ``_dims_divisible`` keeps it whole); under ``"dp"`` every slot holds
 the whole replica and takes its share of the worker's batch
-(``batch_slots``, ``train_batch_spec``'s split over ``model``). Other
-families, FSDP axes and dp's fallback to a sequence split raise
-``NotImplementedError`` (``MODEL_AXIS``: ROADMAP.md queue 1, item 4.4).
+(``batch_slots``, ``train_batch_spec``'s split over ``model``). The
+xlstm, encdec and vlm families, FSDP axes and dp's fallback to a
+sequence split raise ``NotImplementedError`` (``MODEL_AXIS``: ROADMAP.md
+queue 1, item 4.4).
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ import re
 
 import numpy as np
 import torch
+
+from repro_torch.models.registry import MODEL_AXIS_FAMILIES
 
 
 # ---------------------------------------------------------------------------
@@ -261,8 +265,8 @@ def num_workers(cfg, mesh) -> int:
 
 
 MODEL_AXIS = ("is not ported to repro_torch yet (ROADMAP.md queue 1, item "
-              "4.4: the model axis runs the dense family without FSDP "
-              "axes)")
+              "4.4: the model axis runs the dense, moe and hybrid "
+              "families without FSDP axes)")
 
 
 def mesh_workers(mesh, worker_axes) -> int:
@@ -276,14 +280,15 @@ def model_extent(cfg, mesh) -> int:
     model axis (``cfg.tp_axes``'s first present axis), 1 where every
     axis beside the worker axes has size 1. Raises
     ``NotImplementedError`` (``MODEL_AXIS``) for what the port does not
-    execute: a model axis under a family other than dense, an FSDP axis
-    of size > 1, or any other axis of size > 1 beside the workers."""
+    execute: a model axis under a family other than
+    ``MODEL_AXIS_FAMILIES`` (xlstm, encdec, vlm), an FSDP axis of size >
+    1, or any other axis of size > 1 beside the workers."""
     workers = worker_axes_in_mesh(cfg, mesh)
     rest = {a: s for a, s in mesh.shape.items()
             if a not in workers and s > 1}
     if not rest:
         return 1
-    if cfg.family != "dense":
+    if cfg.family not in MODEL_AXIS_FAMILIES:
         raise NotImplementedError(f"the model axis {rest} on the "
                                   f"{cfg.family} family " + MODEL_AXIS)
     fsdp = [a for a in cfg.fsdp_axes if a in rest]

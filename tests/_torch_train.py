@@ -82,3 +82,71 @@ def rel_gap(port, ref) -> float:
     with np.errstate(divide="ignore", invalid="ignore"):
         gap = np.abs(port - ref) / np.abs(ref)
     return float(np.max(np.where(both0, 0.0, gap), initial=0.0))
+
+
+# ---------------------------------------------------------------------------
+# the model axis (tests/test_torch_train_model_axis*.py)
+# ---------------------------------------------------------------------------
+
+MODEL_MESH = (2, 2)
+MODEL_ROUNDS = 2
+# PERF.md section 2's f32 bounds of the trainer on a model axis
+LOSS_RTOL = DIST_RTOL = 1e-4
+PARAM_ATOL = 1e-5
+
+
+def model_mesh(shape=MODEL_MESH):
+    """A ``("data", "model")`` mesh of ``shape`` over CPU slots."""
+    return make_debug_mesh(shape, devices=["cpu"] * int(np.prod(shape)))
+
+
+def ref_init(z: dict) -> dict:
+    """The reference run's one-worker init {name: tensor}."""
+    return {k[len("run/init/"):]: torch.from_numpy(v)
+            for k, v in z.items() if k.startswith("run/init/")}
+
+
+def model_axis_run(z: dict, cfg, shape=MODEL_MESH, rounds=MODEL_ROUNDS,
+                   start=0, **kw):
+    """The port's loop from the reference's init and batches (its rounds
+    from ``start``) on a ``shape`` mesh -> (TrainRun, {round: the whole
+    worker-stacked leaves after it})."""
+    from repro_torch.runtime import steps
+    snaps = {}
+    layout = steps.train_layout(cfg, SHAPE, model_mesh(shape))
+
+    def keep(h, params, log):
+        snaps[h] = {k: v.clone() for k, v in layout.join(params).items()}
+
+    batches = iter([{k.rsplit("/", 1)[1]: torch.from_numpy(v)
+                     for k, v in z.items()
+                     if k.startswith(f"run/round{h}/batch/")}
+                    for h in range(start, rounds)])
+    run = train(cfg, SHAPE, model_mesh(shape), steps_total=rounds,
+                tau_max=TAU_MAX, init_params=ref_init(z), batches=batches,
+                on_round=keep, log=lambda line: None, **kw)
+    return run, snaps
+
+
+def check_round(z: dict, r, leaves: dict, *, dists: bool = True) -> None:
+    """Round ``r`` (a ``RoundLog``) and its whole leaves against the
+    reference's: topology and taus equal, loss and distances within
+    ``LOSS_RTOL`` / ``DIST_RTOL``, each leaf within ``PARAM_ATOL``."""
+    pre = f"run/round{r.round}"
+    np.testing.assert_array_equal(r.adj, z[f"{pre}/adj"])
+    np.testing.assert_array_equal(r.taus, z[f"{pre}/taus"])
+    assert rel_gap(r.loss, z[f"{pre}/loss"]) <= LOSS_RTOL
+    if dists:
+        assert rel_gap(r.dists, z[f"{pre}/dists"]) <= DIST_RTOL
+    for k, v in leaves.items():
+        np.testing.assert_allclose(v.float().numpy(), z[f"{pre}/params/{k}"],
+                                   rtol=0, atol=PARAM_ATOL, err_msg=k)
+
+
+def int8_quanta(z: dict, snaps: dict, h: int) -> float:
+    """The largest gap of round h's leaves from the reference's, in int8
+    quanta of the leaf (max |x| / 127)."""
+    pre = f"run/round{h}/params"
+    return max(float(np.abs(v.numpy() - z[f"{pre}/{k}"]).max()
+                     / (np.abs(z[f"{pre}/{k}"]).max() / 127.0))
+               for k, v in snaps[h].items())

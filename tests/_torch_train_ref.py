@@ -31,7 +31,16 @@ writes ``OUT_DIR/<case>.npz`` for each case:
   split by the spec rules) and internlm2-20b's with ``num_kv_heads=1``
   (the kv heads do not divide the model axis: wk / wv replicate);
   ``model_tp_int8``: internlm2-20b's with ``--compressed`` (int8 a leaf
-  shard: each slot codes its own pieces).
+  shard: each slot codes its own pieces); ``model_moe``,
+  ``model_moe_shared``, ``model_moe_int8`` and ``model_hybrid``: the same
+  on olmoe-1b-7b's smoke config (its experts over the model axis; int8
+  with ``--compressed``), kimi-k2-1t-a32b's (a shared expert besides)
+  and zamba2-7b's (Mamba2's projections split; at its family lr,
+  ``MODEL_LRS``). ``CASE:nudge`` runs a model-axis case from the init
+  moved one ulp, ``CASE:nofma`` with XLA's CPU code built without fused
+  multiply-adds (a process of its own: the flag holds for the whole
+  process), and ``CASE:fromTAG`` one round step of the case's config
+  from the state in ``OUT_DIR/CASE:fromTAG.in.npz`` (``step_from``).
 - ``collectives``: ``gossip_fn`` (with and without distances, and on
   the tree cast to bf16), ``gossip_compressed_fn`` (int8, top-k, rand-k
   at two steps; int8 and rand-k also on the tree cast to bf16) and
@@ -54,6 +63,12 @@ import os
 import sys
 
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+# ``CASE:nofma`` (a model-axis case): XLA's CPU code generated for AVX, an
+# instruction set without fused multiply-adds, so that no product and sum
+# is contracted into one rounding (the whole process: the flag is read
+# when JAX starts)
+if any(c.endswith(":nofma") for c in sys.argv[2:]):
+    os.environ["XLA_FLAGS"] += " --xla_cpu_max_isa=AVX"
 
 import dataclasses  # noqa: E402
 import shutil  # noqa: E402
@@ -83,9 +98,15 @@ ROUNDS = 4
 MODEL_CASES = {"model_dp": ("smollm-360m", {}),
                "model_tp": ("internlm2-20b", {}),
                "model_tp_kv1": ("internlm2-20b", {"num_kv_heads": 1}),
-               "model_tp_int8": ("internlm2-20b", {})}
+               "model_tp_int8": ("internlm2-20b", {}),
+               "model_moe": ("olmoe-1b-7b", {}),
+               "model_moe_shared": ("kimi-k2-1t-a32b", {}),
+               "model_moe_int8": ("olmoe-1b-7b", {}),
+               "model_hybrid": ("zamba2-7b", {})}
 MODEL_MESH = (2, 2)
 MODEL_ROUNDS = 2
+# a model-axis case's lr where it is not LR: its family's (FAMILY_CASES)
+MODEL_LRS = {"model_hybrid": 0.002}
 # the families past the dense one: case -> (arch, lr), each run on its
 # smoke config in f32 for FAMILY_ROUNDS rounds. ``CASE@LR`` runs it at
 # another lr, ``CASE:nudge`` from the init moved one ulp (the witness of
@@ -143,6 +164,65 @@ def _flat(tree, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
+def _round_step(cfg, mesh, shape, compiled_cache: dict, params, batch,
+                adj, taus, lr, *, compressed: bool):
+    """One call of the reference's round step (``make_train_step``,
+    compiled once a topology and tau cap into ``compiled_cache``) on host
+    arrays: ``batch`` the global batch {name: [W b, ...]} -> (params,
+    loss, aux)."""
+    w = sharding.num_workers(cfg, mesh)
+    tau_cap = int(max(taus.max(), 1))
+    key = (tuple(map(tuple, adj)), tau_cap)
+    if key not in compiled_cache:
+        bundle = steps.make_train_step(
+            cfg, mesh, shape, adj=adj, tau_max=tau_cap,
+            compressed=compressed,
+            measure_distances=not compressed and w > 1)
+        compiled_cache[key] = _compile_on_first_call(jax.jit(
+            bundle.fn, in_shardings=bundle.in_shardings,
+            out_shardings=bundle.out_shardings))
+    batch = jax.tree.map(
+        lambda x: x.reshape((w, x.shape[0] // w) + x.shape[1:]), batch)
+    if tau_cap > 1:
+        batch = jax.tree.map(
+            lambda x: jnp.broadcast_to(
+                x[:, None], (w, tau_cap) + x.shape[1:]), batch)
+    params = jax.tree.map(np.asarray, params)
+    return compiled_cache[key](params, batch, jnp.asarray(taus, jnp.int32),
+                               lr)
+
+
+def _unflat(flat: dict) -> dict:
+    """``_flat``'s inverse: {"a/b": array} -> {"a": {"b": array}}."""
+    tree: dict = {}
+    for name, v in flat.items():
+        *path, leaf = name.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = v
+    return tree
+
+
+def step_from(cfg, z: dict, out: dict, *, compressed: bool) -> None:
+    """One round step of ``cfg`` on the ``MODEL_MESH`` from a given state:
+    ``z`` holds the worker-stacked ``params/<leaf>``, the round's
+    ``adj``, ``taus``, ``lr`` and global ``batch/<name>``; ``out`` gets
+    the step's ``loss`` and ``params/<leaf>``."""
+    shape = InputShape("train_4k", seq_len=SEQ, global_batch=2 * W,
+                       kind="train")
+    mesh = jax.make_mesh(MODEL_MESH, ("data", "model"))
+    params = _unflat({k[len("params/"):]: v for k, v in z.items()
+                      if k.startswith("params/")})
+    batch = {k[len("batch/"):]: jnp.asarray(v) for k, v in z.items()
+             if k.startswith("batch/")}
+    params, loss, _ = _round_step(
+        cfg, mesh, shape, {}, params, batch, z["adj"], z["taus"],
+        jnp.float32(z["lr"]), compressed=compressed)
+    out["loss"] = np.float64(float(loss))
+    out.update({f"params/{k}": v for k, v in _flat(params).items()})
+
+
 def train_loop(cfg, rounds: int, out: dict, tag: str, *,
                lr: float = LR, compressed: bool = False, ckpt_dir: str = "",
                ckpt_every: int = 5, resume: bool = False,
@@ -190,32 +270,13 @@ def train_loop(cfg, rounds: int, out: dict, tag: str, *,
         r = f"{tag}/round{h}"
         out[f"{r}/adj"], out[f"{r}/taus"] = adj.copy(), taus.copy()
         lr = jnp.float32(fcfg.lr * (fcfg.lr_decay ** h))
-        tau_cap = int(max(taus.max(), 1))
-        key = (tuple(map(tuple, adj)), tau_cap)
-        if key not in compiled_cache:
-            bundle = steps.make_train_step(
-                cfg, mesh, shape, adj=adj, tau_max=tau_cap,
-                compressed=compressed,
-                measure_distances=not compressed and w > 1)
-            compiled_cache[key] = _compile_on_first_call(jax.jit(
-                bundle.fn, in_shardings=bundle.in_shardings,
-                out_shardings=bundle.out_shardings))
-        step_fn = compiled_cache[key]
-
         data_rng, k = jax.random.split(data_rng)
         batch = registry.make_batch(cfg, shape, k)
         out.update({f"{r}/batch/{n}": np.asarray(v)
                     for n, v in batch.items()})
-        batch = jax.tree.map(
-            lambda x: x.reshape((w, x.shape[0] // w) + x.shape[1:]), batch)
-        if tau_cap > 1:
-            batch = jax.tree.map(
-                lambda x: jnp.broadcast_to(
-                    x[:, None], (w, tau_cap) + x.shape[1:]), batch)
-
-        params = jax.tree.map(np.asarray, params)
-        params, loss, aux = step_fn(params, batch,
-                                    jnp.asarray(taus, jnp.int32), lr)
+        params, loss, aux = _round_step(
+            cfg, mesh, shape, compiled_cache, params, batch, adj, taus, lr,
+            compressed=compressed)
         loss = float(loss)
         out[f"{r}/lr"], out[f"{r}/loss"] = np.float32(lr), np.float64(loss)
         out.update({f"{r}/params/{k}": v for k, v in _flat(params).items()})
@@ -354,11 +415,19 @@ def main(argv) -> int:
             train_loop(get_smoke_config(arch), FAMILY_ROUNDS, out, "run",
                        lr=float(lr) if lr else base_lr,
                        nudge=variant == "nudge")
-        elif case in MODEL_CASES:
-            arch, fields = MODEL_CASES[case]
-            train_loop(dataclasses.replace(get_smoke_config(arch), **fields),
-                       MODEL_ROUNDS, out, "run", mesh_shape=MODEL_MESH,
-                       compressed=case.endswith("int8"))
+        elif case.partition(":")[0] in MODEL_CASES:
+            head, _, variant = case.partition(":")
+            arch, fields = MODEL_CASES[head]
+            cfg = dataclasses.replace(get_smoke_config(arch), **fields)
+            if variant.startswith("from"):
+                with np.load(os.path.join(out_dir, f"{case}.in.npz")) as z:
+                    step_from(cfg, dict(z), out,
+                              compressed=head.endswith("int8"))
+            else:
+                train_loop(cfg, MODEL_ROUNDS, out, "run",
+                           mesh_shape=MODEL_MESH, lr=MODEL_LRS.get(head, LR),
+                           compressed=head.endswith("int8"),
+                           nudge=variant == "nudge")
         elif case == "collectives":
             collectives_cases(out)
         else:

@@ -47,8 +47,9 @@ slots of one mesh. Held:
   ``REPRO_DEVICES=4`` exits 0, and on a model axis of 2 (``REPRO_DEVICES``
   past ``--workers``: smollm-360m in dp, internlm2-20b in tp) runs to
   ``done``; ``--production``, ``--multi-pod``, a mesh over two devices
-  and a model axis the port does not execute (olmoe-1b-7b, FSDP, dp's
-  sequence fallback) raise ``NotImplementedError``. The trajectories on
+  and a model axis the port does not execute (xlstm-1.3b, FSDP, dp's
+  sequence fallback) raise ``NotImplementedError``, where olmoe-1b-7b,
+  kimi-k2-1t-a32b and zamba2-7b build on it. The trajectories on
   a model axis are in ``tests/test_torch_train_model_axis.py``.
 
 The bf16 and ``--compressed`` trajectories are in
@@ -258,13 +259,16 @@ def test_cli_runs_tensor_parallel(monkeypatch, capsys):
 
 
 def test_step_refuses_the_model_axis():
-    """The model axis raises where the port does not execute it: another
-    family than dense (olmoe-1b-7b's experts over ``model``), FSDP
-    axes, dp's fallback to a sequence split."""
+    """The model axis raises where the port does not execute it: the
+    xlstm, encdec and vlm families (xlstm-1.3b's mLSTM / sLSTM split,
+    whisper-large-v3, qwen2-vl-2b), FSDP axes, dp's
+    fallback to a sequence split; the dense, moe and hybrid families
+    build on it."""
     mesh = meshlib.make_debug_mesh((2, 2), devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 4.4"):
-        steps.make_train_step(get_smoke_config("olmoe-1b-7b"), mesh, SHAPE)
+    for arch in ("xlstm-1.3b", "whisper-large-v3", "qwen2-vl-2b"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue 1, item 4.4"):
+            steps.make_train_step(get_smoke_config(arch), mesh, SHAPE)
     fsdp = dataclasses.replace(get_smoke_config("internlm2-20b"),
                                worker_axes=("pod",), fsdp_axes=("data",))
     with pytest.raises(NotImplementedError, match="FSDP"):
@@ -273,12 +277,13 @@ def test_step_refuses_the_model_axis():
     with pytest.raises(NotImplementedError, match="sequence split"):
         steps.make_train_step(get_smoke_config("smollm-360m"), mesh,
                               one_a_worker)
-    # a model axis of 1 and the dense family on 2 slots build
-    steps.make_train_step(get_smoke_config("olmoe-1b-7b"), cpu_mesh(),
+    # a model axis of 1, and the dense, moe and hybrid families on 2 slots
+    steps.make_train_step(get_smoke_config("xlstm-1.3b"), cpu_mesh(),
                           SHAPE)
-    bundle = steps.make_train_step(get_smoke_config("internlm2-20b"), mesh,
-                                   SHAPE)
-    assert bundle.layout.model == 2 and len(bundle.abstract_args[0]) == 2
+    for arch in ("internlm2-20b", "olmoe-1b-7b", "kimi-k2-1t-a32b",
+                 "zamba2-7b"):
+        bundle = steps.make_train_step(get_smoke_config(arch), mesh, SHAPE)
+        assert bundle.layout.model == 2 and len(bundle.abstract_args[0]) == 2
 
 
 def test_train_refuses_a_mesh_over_two_devices():

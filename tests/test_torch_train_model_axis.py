@@ -40,8 +40,9 @@ mesh. Held, with PERF.md §2's f32 trainer bounds:
   parameters 1e-5);
 - ``launch/mesh.slot_groups``: worker i's slots row-major, as
   ``jax.make_mesh`` lays devices out;
-- a model axis the port does not execute raises (olmoe-1b-7b on (2, 2),
-  ``tests/test_torch_train.py``).
+- a model axis the port does not execute raises (xlstm-1.3b on (2, 2),
+  ``tests/test_torch_train.py``). The moe and hybrid families' model
+  axis is ``tests/test_torch_train_model_axis_families.py``'s.
 """
 from __future__ import annotations
 
@@ -53,22 +54,19 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_train import SHAPE, TAU_MAX, reference, rel_gap
+from _torch_train import (MODEL_MESH as MESH, MODEL_ROUNDS as ROUNDS,
+                          PARAM_ATOL, LOSS_RTOL, check_round, int8_quanta,
+                          model_axis_run, model_mesh, ref_init, reference,
+                          rel_gap)
 from repro_torch import convert
 from repro_torch.checkpoint import list_steps, load_checkpoint
 from repro_torch.configs import get_smoke_config
-from repro_torch.launch.mesh import (make_debug_mesh, make_mesh,
-                                     model_devices, slot_groups)
-from repro_torch.launch.train import train
-from repro_torch.runtime import sharding, steps
+from repro_torch.launch.mesh import make_mesh, model_devices, slot_groups
+from repro_torch.runtime import sharding
 
 # xdist runs one test file a worker (--dist loadfile): keep each on one core
 torch.set_num_threads(1)
 
-LOSS_RTOL = DIST_RTOL = 1e-4
-PARAM_ATOL = 1e-5
-ROUNDS = 2
-MESH = (2, 2)
 W = MESH[0]
 # case of tests/_torch_train_ref.py -> (arch, config fields)
 CASES = {"model_dp": ("smollm-360m", {}),
@@ -81,35 +79,8 @@ def _cfg(case: str):
     return dataclasses.replace(get_smoke_config(arch), **fields)
 
 
-def _mesh(shape=MESH):
-    return make_debug_mesh(shape, devices=["cpu"] * math.prod(shape))
-
-
-def _init(z) -> dict:
-    return {k[len("run/init/"):]: torch.from_numpy(v)
-            for k, v in z.items() if k.startswith("run/init/")}
-
-
-def _batches(z, rounds):
-    return iter([{k.rsplit("/", 1)[1]: torch.from_numpy(v)
-                  for k, v in z.items()
-                  if k.startswith(f"run/round{h}/batch/")} for h in rounds])
-
-
-def _port(z, case, shape=MESH, rounds=ROUNDS, start=0, **kw):
-    """The port's loop from the reference's init and batches on ``shape``
-    -> (TrainRun, {round: the whole worker-stacked leaves after it})."""
-    cfg, snaps = _cfg(case.removesuffix("_int8")), {}
-    layout = steps.train_layout(cfg, SHAPE, _mesh(shape))
-
-    def keep(h, params, log):
-        snaps[h] = {k: v.clone() for k, v in layout.join(params).items()}
-
-    run = train(cfg, SHAPE, _mesh(shape), steps_total=rounds,
-                tau_max=TAU_MAX, init_params=_init(z),
-                batches=_batches(z, range(start, rounds)), on_round=keep,
-                log=lambda line: None, **kw)
-    return run, snaps
+def _port(z, case, shape=MESH, **kw):
+    return model_axis_run(z, _cfg(case.removesuffix("_int8")), shape, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -123,25 +94,13 @@ def runs(refs):
     return {case: _port(refs[case], case) for case in CASES}
 
 
-def _check_round(z, r, leaves, *, dists=True):
-    pre = f"run/round{r.round}"
-    np.testing.assert_array_equal(r.adj, z[f"{pre}/adj"])
-    np.testing.assert_array_equal(r.taus, z[f"{pre}/taus"])
-    assert rel_gap(r.loss, z[f"{pre}/loss"]) <= LOSS_RTOL
-    if dists:
-        assert rel_gap(r.dists, z[f"{pre}/dists"]) <= DIST_RTOL
-    for k, v in leaves.items():
-        np.testing.assert_allclose(v.float().numpy(), z[f"{pre}/params/{k}"],
-                                   rtol=0, atol=PARAM_ATOL, err_msg=k)
-
-
 @pytest.mark.parametrize("case", list(CASES))
 def test_model_axis_trajectory(refs, runs, case):
     z, (run, snaps) = refs[case], runs[case]
     assert run.layout.model == 2 and isinstance(run.params, tuple)
     assert [r.round for r in run.rounds] == list(range(ROUNDS))
     for r in run.rounds:
-        _check_round(z, r, snaps[r.round])
+        check_round(z, r, snaps[r.round])
     np.testing.assert_array_equal(run.adj, z["run/final_adj"])
     np.testing.assert_array_equal(run.taus, z["run/final_taus"])
 
@@ -149,7 +108,7 @@ def test_model_axis_trajectory(refs, runs, case):
 @pytest.mark.parametrize("case", list(CASES))
 def test_slot_pieces_have_param_spec_shapes(refs, runs, case):
     run, _ = runs[case]
-    cfg, mesh = _cfg(case), _mesh()
+    cfg, mesh = _cfg(case), model_mesh()
     layout = run.layout
     whole = layout.whole_shapes()
     split = 0
@@ -169,7 +128,7 @@ def test_slot_pieces_have_param_spec_shapes(refs, runs, case):
     assert split == {"model_dp": 0, "model_tp": 9, "model_tp_kv1": 7}[case]
     # convert.slot_pieces cuts the reference's init as the layout does
     init = {k: v[None].expand(W, *v.shape)
-            for k, v in _init(refs[case]).items()}
+            for k, v in ref_init(refs[case]).items()}
     for j, pieces in enumerate(convert.slot_pieces(init, cfg, mesh,
                                                    lead=1)):
         assert torch.equal(layout.flatten(pieces),
@@ -184,16 +143,7 @@ def test_dp_distances_are_sqrt2_times_one_slot(refs, runs):
     for a, b in zip(run22.rounds, run21.rounds):
         assert rel_gap(a.dists, math.sqrt(2.0) * b.dists) <= 1e-6
         # the loss and the trajectory are the worker's, whatever the axis
-        _check_round(z, b, snaps21[b.round], dists=False)
-
-
-def _quanta(z, snaps, h) -> float:
-    """The largest gap of round h's leaves from the reference's, in int8
-    quanta of the leaf (max |x| / 127)."""
-    pre = f"run/round{h}/params"
-    return max(float(np.abs(v.numpy() - z[f"{pre}/{k}"]).max()
-                     / (np.abs(z[f"{pre}/{k}"]).max() / 127.0))
-               for k, v in snaps[h].items())
+        check_round(z, b, snaps21[b.round], dists=False)
 
 
 def test_compressed_codes_each_slots_pieces(refs):
@@ -206,10 +156,10 @@ def test_compressed_codes_each_slots_pieces(refs):
     z = refs["model_tp_int8"]
     run, snaps = _port(z, "model_tp_int8", compressed=True)
     for r in run.rounds:
-        _check_round(z, r, {}, dists=False)
-        assert r.dists is None and _quanta(z, snaps, r.round) <= 1.0
+        check_round(z, r, {}, dists=False)
+        assert r.dists is None and int8_quanta(z, snaps, r.round) <= 1.0
     _, whole = _port(z, "model_tp_int8", shape=(2, 1), compressed=True)
-    assert _quanta(z, whole, ROUNDS - 1) > 1.0
+    assert int8_quanta(z, whole, ROUNDS - 1) > 1.0
 
 
 def test_checkpoint_at_two_slots_resumes_at_one(refs, tmp_path):
