@@ -82,8 +82,9 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    beside the f32 path's, and on one of its worker groups the loss and
    gradients under each remat policy (bit-equal) with each one's memory;
    FedHP on the moe, hybrid and xlstm families at published widths
-   (``FAMILY_PATHS``: olmoe-1b-7b 1 layer at W = 4, zamba2-7b 6 layers
-   at W = 2, xlstm-1.3b 8 layers at W = 4; vocabulary 6,144, the flash
+   (``FAMILY_PATHS``: olmoe-1b-7b 1 layer at W = 4, zamba2-7b one
+   Mamba2 block and the shared block at W = 2, xlstm-1.3b one mLSTM and
+   one sLSTM block at W = 4; vocabulary 6,144, the flash
    kernel on; zamba2 and xlstm at a lower learning rate), its flash
    launches held to the family's attention calls a forward pass times
    the passes, with P, W and peak memory;
@@ -170,7 +171,7 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    laid out matching-major: u the 4 rows, K = 12 weight columns)
    bit-equal, consensus_dist (worker 0's distances) within 1e-6
    relative, every flash call (the bf16 tile, 512 a round) within one
-   bf16 ulp —, then 2 rounds timed unheld, every round's gossip result
+   bf16 ulp —, then a round timed unheld, every round's gossip result
    within its bound of the dense mix ``mixing_matrix_uniform(adj) @ x``,
    and the round's own gossip_mix weights, on rows made distinct, within
    the bf16 and f32 bounds of that dense mix (where rows left unmixed
@@ -190,24 +191,29 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    FLOPs on the card equal to the dry run's of this cell) within the
    bf16 bounds of (a)'s first round (loss 2e-3, distances over sqrt(2)
    2e-2 — the reference counts a whole leaf once a slot —, parameters
-   1e-3 relative in norm), then a timed round: seconds, tokens a second,
-   peak memory; (e), (f), (g) tp, each at its published widths (bf16,
-   remat "block") over ``(2, 2)`` (``REPRO_DEVICES=4``, ``--workers 2``;
-   a global batch of 2, 1 sequence a worker; ``MODEL_PIECE_CASES``):
-   (e) internlm2-20b depth 2 of 48 (d 6,144, 48 / 8 heads of 128, d_ff
-   16,384, vocabulary 92,544), (f) olmoe-1b-7b depth 2 of 16 (its 64
-   experts over the model axis, routing once on slot 0), (g) zamba2-7b
-   one group of 6 Mamba2 blocks and the shared blocks (Mamba2's
-   projections split): a held round (its FLOPs on the card equal to the
-   dry run's of this cell; its distances within 1e-5 of the reference's
-   rule on its own slots' inputs, sqrt of the sum over the slots of each
-   slot's d^2 in f64, the leaves every slot holds whole equal on every
-   slot), then the same round at ``(2, 1)`` from the same init and
-   batch, loss and parameters within those bounds and, for (e) and (f),
-   the distances against the reference's rule on the (2, 1) rows,
-   sqrt(d^2 + d^2 of the leaves every slot holds whole) (for (g) that
-   gap is printed, not held: a one-ulp nudge moves it 7.7%, ROADMAP.md
-   item 4.4.2): seconds a
+   1e-3 relative in norm): seconds net of its checks, tokens a second,
+   peak memory; (e)-(j) at published widths (bf16, remat "block") over
+   ``(2, 2)`` (``REPRO_DEVICES=4``, ``--workers 2``;
+   ``MODEL_PIECE_CASES``), tp on a global batch of 2 (1 sequence a
+   worker): (e) internlm2-20b depth 2 of 48 (d 6,144, 48 / 8 heads of
+   128, d_ff 16,384, vocabulary 92,544), (f) olmoe-1b-7b depth 2 of 16
+   (its 64 experts over the model axis, routing once on slot 0), (g)
+   zamba2-7b one group of 6 Mamba2 blocks and the shared blocks
+   (Mamba2's projections split), (h) xlstm-1.3b one group of 7 mLSTM
+   and 1 sLSTM block at S = 512 (the mLSTM's and sLSTM's projections
+   split); dp on a global batch of 4 (each slot 1 of its worker's 2
+   sequences): (i) whisper-large-v3 16 + 16 layers of 32 + 32, (j)
+   qwen2-vl-2b depth 22 of 28: a held round (its FLOPs on the card equal
+   to the dry run's of this cell; its distances within 1e-5 of the
+   reference's rule on its own slots' inputs, sqrt of the sum over the
+   slots of each slot's d^2 in f64, the leaves every slot holds whole
+   equal on every slot), then the same round at ``(2, 1)`` from the
+   same init and batch, loss and parameters within those bounds and the
+   distances
+   against the reference's rule on the (2, 1) rows, sqrt(d^2 + d^2 of
+   the leaves every slot holds whole) (sqrt(2) d in dp), within the
+   case's own bound, twice the largest move of a one-bf16-ulp nudge of
+   the start (``ModelCase``, ``tools/model_axis_witness.py``): seconds a
    round (the held one's net of its checks), tokens a second, peak
    memory beside the dry run's bound and estimate. Each run's launches
    counted from zero and held to the path's: gossip_mix and
@@ -231,7 +237,7 @@ phase 6 alone (after building the registry corpus);
 
     python3 chip_smoke.py --train
 
-phase 7 alone ((d) to (g) included; ``[timing]`` gives them apart), and
+phase 7 alone ((d) to (j) included; ``[timing]`` gives them apart), and
 with ``--trace`` a traced round of its trainer.
 
     python3 chip_smoke.py --trace
@@ -254,6 +260,7 @@ import sys
 import time
 from dataclasses import replace
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -394,7 +401,9 @@ LM_CLASSES = 8
 LM_CFG = FedHPConfig(num_workers=8, tau_init=6, tau_max=12, lr=0.05,
                      seed=5, model=LM_SPEC)
 LM_KW = dict(non_iid_p=0.4)
-LM_ROUNDS = 3
+# the registry path's timed rounds (phase 3) and rounds held (phase 4):
+# 2, part of the room phase 7's (h)-(j) need
+LM_ROUNDS = 2
 LM_WARMUP_ROUNDS = 1
 # phase 4 over a sparse base (17 of 28 links at W = 8, seed 5): on a
 # complete or near-complete mix (erdos:0.9, 27 links) the fleet ends the
@@ -404,30 +413,35 @@ LM_WARMUP_ROUNDS = 1
 # 0.25-0.29 and they agree within 2e-6 (PERF.md, section 6, PR 14)
 LM_PARITY_FIELDS = dict(base_topology="erdos:0.5")
 # the moe, hybrid and xlstm families on the registry path: each at its
-# published widths, its depth cut to the fewest layers that run every
+# published widths, its depth cut to the fewest blocks that run every
 # block kind and its vocabulary to the path's 6,144, trained in f32 with
 # the flash kernel on, under LM_CFG's settings apart from the fleet size
-# W and, for zamba2 and xlstm, the learning rate: (arch, layers, P from
-# jax.eval_shape on the reference, W, lr). W is 4 where the peak stays
-# under about 70 GB of the card's 80, else 2 (zamba2 at W = 4: five
-# [4, P] f32 matrices alone are 73.8 GB). At LM_CFG's lr 0.05 xlstm-1.3b's
-# loss turns NaN in both engines (its input gates exp(i) are unbounded, as
-# in the reference), and at 0.05 (zamba2-7b) or 0.01 (xlstm) the engines
-# part by about 6e-4 in loss, past the parity contract, where the fused
-# engine from a start moved by one ulp parts from itself by 1.3-1.8e-3
-# (tools/family_witness.py; PERF.md §6, PR 21): there the trajectory
+# W and, for zamba2 and xlstm, the learning rate: (arch, the config's
+# depth fields, P, W, lr). W is 4 where the peak stays under about 70 GB
+# of the card's 80, else 2 (zamba2 at W = 4 and 6 Mamba2 blocks: five
+# [4, P] f32 matrices alone are 73.8 GB). At LM_CFG's lr 0.05
+# xlstm-1.3b's loss turns NaN in both engines (its input gates exp(i) are
+# unbounded, as in the reference), and at 0.05 (zamba2-7b) or 0.01
+# (xlstm) the engines part by about 6e-4 in loss, past the parity
+# contract, where the fused engine from a start moved by one ulp parts
+# from itself by 1.3-1.8e-3 (tools/family_witness.py; PERF.md §6, at
+# zamba2's 6 Mamba2 blocks and xlstm's 8 layers): there the trajectory
 # itself amplifies the engines' last-ulp differences. Phase 4 holds at
 # these lr.
 # olmoe-1b-7b: one layer (attention at head width 128, 64 experts, 8 a
-# token); zamba2-7b: one group of 6 Mamba2 blocks and shared block A
-# (attention at head width 112); xlstm-1.3b: one group of 7 mLSTM blocks
-# and an sLSTM block (no attention). kimi-k2-1t-a32b holds 17.16 G
-# parameters in one layer, 68.6 GB in f32 for one worker: it waits for
-# the model axis of launch/train's mesh (ROADMAP.md queue 1, item 4; the
-# sharded path splits workers, not a worker's layers)
-FAMILY_PATHS = (("olmoe-1b-7b", 1, 444_733_440, 4, LM_CFG.lr),
-                ("zamba2-7b", 6, 922_968_288, 2, 0.01),
-                ("xlstm-1.3b", 8, 474_241_080, 4, 5e-4))
+# token); zamba2-7b: one Mamba2 block and shared block A after it
+# (ssm_every 1; attention at head width 112); xlstm-1.3b: one mLSTM and
+# one sLSTM block (slstm_every 1; no attention): the room phase 7's
+# (h)-(j) need; phase 7 (g) and (h) run a whole group of each (6 Mamba2
+# blocks; 7 mLSTM blocks and an sLSTM) at published widths.
+# kimi-k2-1t-a32b holds 17.16 G parameters in one layer, 68.6 GB in f32
+# for one worker: phase 7 runs its family's model axis on olmoe-1b-7b
+FAMILY_PATHS = (("olmoe-1b-7b", {"num_layers": 1}, 444_733_440, 4,
+                 LM_CFG.lr),
+                ("zamba2-7b", {"num_layers": 1, "ssm_every": 1},
+                 533_077_968, 2, 0.01),
+                ("xlstm-1.3b", {"num_layers": 2, "slstm_every": 1},
+                 121_686_024, 4, 5e-4))
 # phase 3 runs the family paths one round and phase 4 holds their two
 # engines over one: the room the script's time limit leaves phase 7's
 # model-axis runs (a cut of the paths' rounds, not of a width)
@@ -1946,15 +1960,22 @@ def check_remat_policies(adapter, data) -> None:
     torch.cuda.empty_cache()
 
 
-def family_adapter(arch: str, layers: int, params: int):
-    """``arch``'s published widths, ``layers`` deep, with the registry
-    path's vocabulary, in f32 with the flash kernel on."""
-    cfg = replace(get_config(arch), num_layers=layers,
-                  vocab_size=LM_MODEL.vocab_size, dtype="float32",
-                  remat="none", use_flash_kernel=True)
+def _depth_tag(depth: dict) -> str:
+    """A path name's depth: ``layers=N`` and any other depth field."""
+    return ",".join(f"{'layers' if k == 'num_layers' else k}={v}"
+                    for k, v in depth.items())
+
+
+def family_adapter(arch: str, depth: dict, params: int):
+    """``arch``'s published widths at ``depth`` (its config's depth
+    fields), with the registry path's vocabulary, in f32 with the flash
+    kernel on."""
+    cfg = replace(get_config(arch), vocab_size=LM_MODEL.vocab_size,
+                  dtype="float32", remat="none", use_flash_kernel=True,
+                  **depth)
     adapter = modelspec.RegistryAdapter(
         cfg, LM_SEQ, LM_CLASSES,
-        spec=f"{arch}:layers={layers},vocab={cfg.vocab_size},flash")
+        spec=f"{arch}:{_depth_tag(depth)},vocab={cfg.vocab_size},flash")
     if adapter.param_count != params:
         raise AssertionError(f"{arch}: P = {adapter.param_count}, the "
                              f"reference's is {params}")
@@ -1979,8 +2000,8 @@ def run_family_paths(data) -> dict[str, int]:
     forward passes: olmoe one a layer, zamba2 one a group, xlstm none)
     and one gossip_mix a communicating round."""
     total = dict.fromkeys(_read_counts(), 0)
-    for arch, layers, params, w, lr in FAMILY_PATHS:
-        adapter = family_adapter(arch, layers, params)
+    for arch, depth, params, w, lr in FAMILY_PATHS:
+        adapter = family_adapter(arch, depth, params)
         fdata = _fleet_data(data, w)
         cfg = replace(LM_CFG, num_workers=w, lr=lr)
         torch.cuda.synchronize()
@@ -1999,7 +2020,7 @@ def run_family_paths(data) -> dict[str, int]:
         expected["gossip_mix"] = int((arr["num_links"] > 0).sum())
         expected["flash_attention"] = \
             registry.attention_calls(adapter.cfg) * forwards
-        name = f"fedhp/{arch}-{layers}l"
+        name = f"fedhp/{arch}:{_depth_tag(depth)}"
         if counts != expected:
             raise AssertionError(f"{name}: launched {counts}, the path must "
                                  f"launch {expected}")
@@ -2030,8 +2051,8 @@ def check_family_engines_agree(data) -> None:
     """Phase 4 for the moe, hybrid and xlstm families: FedHP through both
     engines at each family's published widths, over the registry path's
     ``erdos:0.5`` base, ``FAMILY_PARITY_ROUNDS`` rounds."""
-    for arch, layers, params, w, lr in FAMILY_PATHS:
-        adapter = family_adapter(arch, layers, params)
+    for arch, depth, params, w, lr in FAMILY_PATHS:
+        adapter = family_adapter(arch, depth, params)
         fdata = _fleet_data(data, w)
         hists, secs = {}, {}
         for fused_engine in (False, True):
@@ -2044,7 +2065,7 @@ def check_family_engines_agree(data) -> None:
                 **LM_PARITY_FIELDS)
             torch.cuda.synchronize()
             secs[fused_engine] = time.perf_counter() - t0
-            log("phase4", path=f"fedhp/{arch}-{layers}l",
+            log("phase4", path=f"fedhp/{arch}:{_depth_tag(depth)}",
                 engine="fused" if fused_engine else "reference",
                 peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
             # the first engine's final [W, P] parameters wait on the host
@@ -2053,8 +2074,9 @@ def check_family_engines_agree(data) -> None:
             hist.final_params = {k: v.to("cpu" if not fused_engine
                                          else "cuda")
                                  for k, v in hist.final_params.items()}
-        _compare_engines(f"fedhp/{arch}-{layers}l/W={w}/erdos:0.5", hists,
-                         secs, int8=False, rounds=FAMILY_PARITY_ROUNDS)
+        _compare_engines(f"fedhp/{arch}:{_depth_tag(depth)}/W={w}/"
+                         "erdos:0.5", hists, secs, int8=False,
+                         rounds=FAMILY_PARITY_ROUNDS)
         del hists
         torch.cuda.empty_cache()
 
@@ -2829,8 +2851,8 @@ TRAIN_P = 361_821_120
 TRAIN_TAU = 2
 TRAIN_LR = 0.01
 TRAIN_SEED = 0
-# 2 timed rounds: the room (f) and (g) need (PERF.md §4)
-TRAIN_TIMED_ROUNDS = 2
+# 1 timed round: the room (f)-(j) need (PERF.md §4)
+TRAIN_TIMED_ROUNDS = 1
 # the CPU tests' bf16 bounds (tests/test_torch_train_bf16.py): the round
 # with the flash kernel against the round with the plain attention
 TRAIN_LOSS_RTOL, TRAIN_DIST_RTOL = 2e-3, 2e-2
@@ -2841,33 +2863,84 @@ HOLD_COLS = 1 << 24
 # whole replica and 1 of its worker's 2 sequences; a held round from (a)'s
 # init and first batch, then a timed round
 MODEL_DP_SLOTS = 8
-# (d) and (e) against their model extent of 1, the CPU tests' bf16 trainer
-# bounds: loss and distances relative, the parameters relative in norm
+# (d)-(j) against their model extent of 1, the CPU tests' bf16 trainer
+# bounds: loss relative, the parameters relative in norm; (d)'s distances
+# relative (over sqrt(2)), (e)-(j)'s each by its own bound (ModelCase)
 MODEL_LOSS_RTOL, MODEL_DIST_RTOL, MODEL_PARAM_RTOL = 2e-3, 2e-2, 1e-3
-# (e), (f), (g) the model axis in tp, each config at its published widths
-# (bf16, remat "block") over (2, 2) (REPRO_DEVICES=4, --workers 2), then
-# the same round at (2, 1). The cuts: a global batch of 2 (1 sequence a
-# worker) for train_4k's 256, and a depth each, taken from the dry run's
-# peak estimate at (2, 1) (PERF.md §4): (e) internlm2-20b (d 6,144, 48 / 8
-# heads of 128, d_ff 16,384, vocabulary 92,544) depth 2 of 48, 51.4 GB at
-# (2, 2) and 72.1 at (2, 1) (at a batch of 4, 63.5 / 99.5); (f)
-# olmoe-1b-7b (d 2,048, 16 / 16 heads of 128, 64 experts of d_ff 1,024, 8
-# a token, vocabulary 50,304; its experts over the model axis, 32 a slot)
-# depth 2 of 16, 28.9 / 41.0 GB; (g) zamba2-7b (d 3,584, 32 heads of 112,
-# d_ff 14,336, ssm_state 64, vocabulary 32,000; Mamba2's projections
-# split) one group of 6 Mamba2 blocks and the shared blocks of 81, 30.6 /
-# 34.6 GB: (label, arch, depth, the (2, 1) distances held). (g)'s are
-# printed, not held: a one-ulp nudge of the (2, 1) start moves them 7.7%
-# (tools/model_axis_witness.py), past MODEL_DIST_RTOL, until a bound is
-# set from measured readings (ROADMAP.md item 4.4.2)
-MODEL_PIECE_CASES = (("e", "internlm2-20b", 2, True),
-                     ("f", "olmoe-1b-7b", 2, True),
-                     ("g", "zamba2-7b", 6, False))
+
+
+class ModelCase(NamedTuple):
+    """A phase-7 model-axis case at published widths (bf16, remat
+    "block"), W = 2 over (2, 2) then (2, 1): its depth (whisper's encoder
+    and decoder alike), its global batch and S, lr, and the bound of its
+    (2, 2) distances against the reference's rule on the (2, 1) rows
+    (relative): twice the largest gap of a (2, 1) round from a start
+    nudged one bf16 ulp (several nudges, both signs), which the rule
+    counting a whole leaf once exceeds (tools/model_axis_witness.py,
+    PERF.md section 2)."""
+
+    label: str
+    arch: str
+    layers: int
+    batch: int
+    seq: int
+    lr: float
+    dist_rtol: float
+
+
+# (e)-(g) tp, (h) tp on the xlstm family, (i), (j) dp; each depth from the
+# dry run's peak estimate under 60 GB ((e)-(h) at (2, 1), (i), (j) at
+# (2, 2), where each slot holds the whole replica). (e) internlm2-20b (d
+# 6,144, 48 / 8 heads of 128, d_ff 16,384, vocabulary 92,544) depth 2 of
+# 48, 51.4 GB at (2, 2) and 72.1 at (2, 1) (at a batch of 4, 63.5 / 99.5);
+# (f) olmoe-1b-7b (d 2,048, 16 / 16 heads of 128, 64 experts of d_ff
+# 1,024, 8 a token, vocabulary 50,304; its experts over the model axis, 32
+# a slot) depth 2 of 16, 28.9 / 41.0 GB; (g) zamba2-7b (d 3,584, 32 heads
+# of 112, d_ff 14,336, ssm_state 64, vocabulary 32,000; Mamba2's
+# projections split) one group of 6 Mamba2 blocks and the shared blocks of
+# 81, 30.6 / 34.6 GB; (h) xlstm-1.3b (d 2,048, 4 heads, vocabulary 50,304;
+# the mLSTM's and sLSTM's projections split, 2 heads a slot) one group of
+# 7 mLSTM and 1 sLSTM block of 48 at S = 512, the largest power of two
+# under 60 GB (its sLSTM token loop holds about 68 MB a token for the
+# backward; the dry run's estimates: 42.0 GB at S = 512, 76.7 at 1,024,
+# 284 at 4,096), its family's lr; (i) whisper-large-v3 (d 1,280, 20
+# heads of 64, d_ff 5,120, vocabulary 51,866) 16 + 16 layers of 32 + 32,
+# 59.8 GB; (j)
+# qwen2-vl-2b (d 1,536, 12 / 2 heads of 128, d_ff 8,960, vocabulary
+# 151,936) depth 22 of 28, 59.7 GB. (i) and (j) take a global batch of 4:
+# 2 would leave each worker 1 sequence for 2 slots, dp's sequence
+# fallback (ROADMAP.md item 4.4)
+# The distance bounds: twice the nudges' largest gap on the card (NVIDIA
+# H100 80GB HBM3, 700.00 W; tools/model_axis_witness.py e f g h i j):
+# (e) 6.53e-3, (f) 7.68e-3, (g) 7.45e-2, (h) 6.33e-3, (i) 6.60e-3, (j)
+# 4.53e-3; a sum over the model axis left out (slot 0's partial alone)
+# parts from the rule by 0.27-0.39 on every case, the rule counting a
+# whole leaf once by 0.08-0.41 on (f), (h), (i), (j) and 2.2e-4 / 1.9e-2
+# on (e) / (g), whose whole leaves hold little of the distance.
+MODEL_PIECE_CASES = (
+    ModelCase("e", "internlm2-20b", 2, 2, 4096, 0.01, 1.31e-2),
+    ModelCase("f", "olmoe-1b-7b", 2, 2, 4096, 0.01, 1.54e-2),
+    ModelCase("g", "zamba2-7b", 6, 2, 4096, 0.01, 0.149),
+    ModelCase("h", "xlstm-1.3b", 8, 2, 512, 5e-4, 1.27e-2),
+    ModelCase("i", "whisper-large-v3", 16, 4, 4096, 0.01, 1.32e-2),
+    ModelCase("j", "qwen2-vl-2b", 22, 4, 4096, 0.01, 9.07e-3))
 # the (2, 2) round's distances against the reference's rule on its own
 # slots' inputs (each slot's d^2 in f64, summed): f32 partials
 MODEL_RULE_RTOL = 1e-5
 TP_WORKERS = 2
-TP_SHAPE = InputShape("train_4k", seq_len=4096, global_batch=2,
+
+
+def case_depth(case: ModelCase) -> dict:
+    """The config fields that set ``case``'s depth."""
+    if get_config(case.arch).family == "encdec":
+        return dict(num_layers=case.layers, encoder_layers=case.layers,
+                    decoder_layers=case.layers)
+    return dict(num_layers=case.layers)
+
+
+def case_shape(case: ModelCase) -> InputShape:
+    """``case``'s cell: train_4k at its global batch and S."""
+    return InputShape("train_4k", seq_len=case.seq, global_batch=case.batch,
                       kind="train")
 
 
@@ -3163,7 +3236,7 @@ class _FirstStepCount:
 
 
 def _train_run(cfg, mesh, p1, batches, rounds: int, shape=TRAIN_SHAPE,
-               **kw):
+               lr: float = TRAIN_LR, **kw):
     """``launch/train.train`` from the one-worker start ``p1`` on
     ``batches``, its round lines printed under phase 7 -> (run, the
     launches it made, counted from zero, peak GB)."""
@@ -3171,7 +3244,7 @@ def _train_run(cfg, mesh, p1, batches, rounds: int, shape=TRAIN_SHAPE,
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     run = trainer.train(cfg, shape, mesh, steps_total=rounds,
-                        tau_max=TRAIN_TAU, lr=TRAIN_LR, seed=TRAIN_SEED,
+                        tau_max=TRAIN_TAU, lr=lr, seed=TRAIN_SEED,
                         init_params=p1, batches=iter(batches[:rounds]),
                         log=lambda line: log("phase7", line=repr(line)),
                         **kw)
@@ -3231,9 +3304,9 @@ def trace_trainer_round() -> None:
 
 def run_trainer() -> dict[str, int]:
     """Phase 7: ``launch/train.py``'s loop at smollm-360m as published
-    (``TRAIN_*``): (a) 1 + 3 rounds with the flash kernel — the first
-    with every kernel call held (``_TrainHolds``), the other 3 timed
-    unheld, every round's gossip result held to the dense mix
+    (``TRAIN_*``): (a) 1 + ``TRAIN_TIMED_ROUNDS`` rounds with the flash
+    kernel — the first with every kernel call held (``_TrainHolds``), the
+    others timed unheld, every round's gossip result held to the dense mix
     (``_dense_mix_gap``) and its weights on distinct rows
     (``_distinct_rows_gap``); (b) its first round with the plain attention composition
     (``use_flash_kernel=False``) from the same start and batch, its loss
@@ -3425,11 +3498,11 @@ def run_trainer() -> dict[str, int]:
         total[k] += v
     del p1, batches
     torch.cuda.empty_cache()
-    for label, arch, layers, held_dists in MODEL_PIECE_CASES:
+    for case in MODEL_PIECE_CASES:
         t0 = time.perf_counter()
-        counts, fails = run_model_pieces(label, arch, layers, cycles,
-                                         held_dists)
-        log("timing", **{f"phase7{label}_s": f"{time.perf_counter() - t0:.3f}"})
+        counts, fails = run_model_pieces(case, cycles)
+        log("timing", **{f"phase7{case.label}_s":
+                         f"{time.perf_counter() - t0:.3f}"})
         failures += fails
         for k, v in counts.items():
             total[k] += v
@@ -3487,7 +3560,8 @@ def run_model_dp(cfg, p1, batches, a0, round0: torch.Tensor,
     the card equal to the dry run's of this cell — against (a)'s first
     round at (4, 1) (loss, distances over sqrt(2): the reference counts a
     whole leaf once a slot, and the parameters), the two slots' replicas
-    bit-equal; then a timed round -> (launches, failures)."""
+    bit-equal; its seconds net of its checks (no timed round: the room
+    (h)-(j) need) -> (launches, failures)."""
     mesh = _trainer_mesh(TRAIN_WORKERS, MODEL_DP_SLOTS, 2)
     layout = steps.train_layout(cfg, TRAIN_SHAPE, mesh)
     b_slot = TRAIN_SHAPE.global_batch // TRAIN_WORKERS // layout.model
@@ -3511,15 +3585,15 @@ def run_model_dp(cfg, p1, batches, a0, round0: torch.Tensor,
     holds.start()
     try:
         with _FirstStepCount() as held_count:
-            run, counts, peak = _train_run(cfg, mesh, p1, batches, 2,
+            run, counts, peak = _train_run(cfg, mesh, p1, batches, 1,
                                            on_round=after_round)
     finally:
         holds.stop()
     name = f"{TRAIN_ARCH}/bf16/W={TRAIN_WORKERS}/model=2/dp/S=4096/flash"
     caps = [int(max(r.taus.max(), 1)) for r in run.rounds]
-    _launch_check(name, counts, 2 * layout.model,
-                  flash_step * sum(caps))
-    d0, timed = run.rounds
+    _launch_check(name, counts, layout.model, flash_step * sum(caps))
+    (d0,) = run.rounds
+    net_s = d0.seconds - holds.seconds
     gaps = dict(loss=abs(d0.loss - a0.loss) / abs(a0.loss),
                 dists=float(np.max(np.abs(d0.dists / math.sqrt(2.0)
                                           - a0.dists) / np.abs(a0.dists))),
@@ -3539,19 +3613,19 @@ def run_model_dp(cfg, p1, batches, a0, round0: torch.Tensor,
     if not (gaps["loss"] <= MODEL_LOSS_RTOL and gaps["dists"] <=
             MODEL_DIST_RTOL and gaps["params"] <= MODEL_PARAM_RTOL):
         failures.append(f"(d) against (a)'s first round: {gaps}")
-    tokens = TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len * caps[1]
+    tokens = TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len * caps[0]
     log("phase7", run=name, P=layout.param_count, mesh=mesh.shape,
         slots=len(mesh.devices), worker_passes_a_slot=-(-TRAIN_WORKERS //
                                                         pass_workers),
-        held_round_s=f"{d0.seconds:.3f}", timed_round_s=f"{timed.seconds:.3f}",
-        timed_tau_cap=caps[1], tokens_per_s=f"{tokens / timed.seconds:.1f}",
+        held_round_s=f"{d0.seconds:.3f}", net_round_s=f"{net_s:.3f}",
+        tokens_per_s=f"{tokens / net_s:.1f}",
         peak_gb_card=f"{peak:.3f}",
         peak_gb_a_slot=f"{peak / len(mesh.devices):.3f}",
         dry_run_peak_gb=f"{dry['peak_bytes_per_device'] / 1e9:.3f}",
         dry_run_args_gb=f"{dry['bytes_per_device'] / 1e9:.3f}",
         held_round_flops=held_count.flops,
         dry_run_flops=f"{dry['hlo_flops']:.0f}",
-        loss=[f"{r.loss:.6f}" for r in run.rounds], a_loss=f"{a0.loss:.6f}",
+        loss=f"{d0.loss:.6f}", a_loss=f"{a0.loss:.6f}",
         dists=d0.dists.tolist(), a_dists=a0.dists.tolist(),
         gaps={k: f"{v:.3e}" for k, v in gaps.items()},
         bounds=dict(loss=MODEL_LOSS_RTOL, dists=MODEL_DIST_RTOL,
@@ -3577,44 +3651,47 @@ def _span_d2(x: torch.Tensor, u: torch.Tensor, spans) -> torch.Tensor:
     return out
 
 
-def run_model_pieces(label: str, arch: str, layers: int, cycles: float,
-                     held_dists: bool = True
+def run_model_pieces(case: ModelCase, cycles: float
                      ) -> tuple[dict[str, int], list[str]]:
-    """Phase 7 (e), (f), (g): ``arch`` at its published widths, depth
-    ``layers``, over (data, model) = (2, 2) (``within_worker="tp"``: each
-    slot its pieces by the spec rules — (e) internlm2-20b 24 / 4 heads a
-    slot, (f) olmoe-1b-7b 8 heads and 32 experts a slot, (g) zamba2-7b 16
-    heads, Mamba2's in_proj columns, conv_w channels and out_proj rows),
-    one held round (every kernel call held as in (a), its FLOPs on the
-    card equal to the dry run's of this cell, its distances within
-    ``MODEL_RULE_RTOL`` of the reference's rule on its slots' own inputs
-    and the leaves every slot holds whole equal on every slot), then the
-    same round at (2, 1) from the same init and batch: loss, the
-    parameters (relative in norm) and, where ``held_dists``, the
-    distances against the reference's rule on the (2, 1) rows, sqrt(d^2
-    + d^2 of the leaves every slot holds whole), as each slot counts
-    those once -> (launches, failures)."""
-    cfg = replace(get_config(arch), num_layers=layers,
-                  use_flash_kernel=True)
+    """Phase 7 (e)-(j): ``case.arch`` at its published widths, depth
+    ``case.layers``, over (data, model) = (2, 2) (``within_worker="tp"``:
+    each slot its pieces by the spec rules — (e) internlm2-20b 24 / 4
+    heads a slot, (f) olmoe-1b-7b 8 heads and 32 experts a slot, (g)
+    zamba2-7b 16 heads, Mamba2's in_proj columns, conv_w channels and
+    out_proj rows, (h) xlstm-1.3b 2 heads and the mLSTM's and sLSTM's
+    projections' pieces; ``"dp"``: (i) whisper-large-v3 and (j)
+    qwen2-vl-2b, each slot the whole replica and 1 of its worker's 2
+    sequences), one held round (every kernel call held as in (a), its
+    FLOPs on the card equal to the dry run's of this cell, its distances
+    within ``MODEL_RULE_RTOL`` of the reference's rule on its slots' own
+    inputs and the leaves every slot holds whole equal on every slot),
+    then the same round at (2, 1) from the same init and batch: loss, the
+    parameters (relative in norm) and the distances against the
+    reference's rule on the (2, 1) rows, sqrt(d^2 + d^2 of the leaves
+    every slot holds whole) (sqrt(2) d in dp), as each slot counts those
+    once, within ``case.dist_rtol`` -> (launches, failures)."""
+    cfg = replace(get_config(case.arch), use_flash_kernel=True,
+                  **case_depth(case))
     # (e)'s (2, 1) round's gradients are 15.3 GB blocks: its peak (the dry
     # run's 72.1 GB) fits the card only where the allocator can grow a
     # segment in place of leaving reserved blocks it cannot join
     torch.cuda.empty_cache()
     torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     try:
-        return _model_pieces(label, arch, cfg, cycles, held_dists)
+        return _model_pieces(case, cfg, cycles)
     finally:
         torch.cuda.empty_cache()
         torch.cuda.memory._set_allocator_settings(
             "expandable_segments:False")
 
 
-def _model_pieces(label: str, arch: str, cfg, cycles: float,
-                  held_dists: bool) -> tuple[dict[str, int], list[str]]:
+def _model_pieces(case: ModelCase, cfg, cycles: float
+                  ) -> tuple[dict[str, int], list[str]]:
     """``run_model_pieces``' runs and checks."""
+    label, arch, shape = case.label, case.arch, case_shape(case)
     gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
     p1 = registry.init_params(cfg, gen)
-    batches = [next(trainer.random_batches(cfg, TP_SHAPE, TRAIN_SEED + 1,
+    batches = [next(trainer.random_batches(cfg, shape, TRAIN_SEED + 1,
                                            "cuda"))]
     base = topo.make_base_topology(TP_WORKERS, "full", TRAIN_SEED)
     runs, total, failures = {}, None, []
@@ -3622,10 +3699,11 @@ def _model_pieces(label: str, arch: str, cfg, cycles: float,
     tag = f"({label}) {arch}"
     for model in (2, 1):
         mesh = _trainer_mesh(TP_WORKERS, TP_WORKERS * model, model)
-        layout = steps.train_layout(cfg, TP_SHAPE, mesh)
+        layout = steps.train_layout(cfg, shape, mesh)
+        b_slot = shape.global_batch // TP_WORKERS // \
+            (model if cfg.within_worker == "dp" else 1)
         pass_workers = layout.workers_per_pass(torch.empty(
-            TP_WORKERS, TP_SHAPE.global_batch // TP_WORKERS,
-            TP_SHAPE.seq_len, device="meta"))
+            TP_WORKERS, b_slot, shape.seq_len, device="meta"))
         flash_step = 2 * registry.attention_calls(cfg) * model * \
             -(-TP_WORKERS // pass_workers)
         holds = _TrainHolds(cycles, arch)
@@ -3633,9 +3711,8 @@ def _model_pieces(label: str, arch: str, cfg, cycles: float,
         if model == 2:
             t0 = time.perf_counter()
             dry = dryrun.run_cell(
-                arch, TP_SHAPE, mesh=mesh, verbose=False,
-                cfg_overrides={"num_layers": cfg.num_layers,
-                               "use_flash_kernel": True},
+                arch, shape, mesh=mesh, verbose=False,
+                cfg_overrides={**case_depth(case), "use_flash_kernel": True},
                 train_kw=dict(tau_max=TRAIN_TAU, adj=base,
                               measure_distances=True))
             trace_s = time.perf_counter() - t0
@@ -3671,7 +3748,7 @@ def _model_pieces(label: str, arch: str, cfg, cycles: float,
         try:
             with held_count if model == 2 else contextlib.nullcontext():
                 run, counts, peak = _train_run(cfg, mesh, p1, batches, 1,
-                                               shape=TP_SHAPE)
+                                               shape=shape, lr=case.lr)
         finally:
             holds.stop()
             ops.consensus_dist = orig_dist
@@ -3727,9 +3804,10 @@ def _model_pieces(label: str, arch: str, cfg, cycles: float,
             else run.params)
         total = counts if total is None else \
             {k: total[k] + v for k, v in counts.items()}
-        tokens = TP_SHAPE.global_batch * TP_SHAPE.seq_len * cap
+        tokens = shape.global_batch * shape.seq_len * cap
         log("phase7", run=f"{arch}/bf16/layers={cfg.num_layers}/"
-            f"W={TP_WORKERS}/model={model}/S=4096/flash", case=label,
+            f"W={TP_WORKERS}/B={shape.global_batch}/model={model}/"
+            f"{cfg.within_worker}/S={shape.seq_len}/flash", case=label,
             P_a_slot=layout.param_count, mesh=mesh.shape,
             round_s=f"{r0.seconds:.3f}", net_round_s=f"{net_s:.3f}",
             tokens_per_s=f"{tokens / net_s:.1f}",
@@ -3763,10 +3841,9 @@ def _model_pieces(label: str, arch: str, cfg, cycles: float,
         rule_dists=want.tolist(),
         gaps={k: f"{v:.3e}" for k, v in gaps.items()},
         bounds=dict(loss=MODEL_LOSS_RTOL, params=MODEL_PARAM_RTOL,
-                    **({"dists": MODEL_DIST_RTOL} if held_dists else {})))
+                    dists=case.dist_rtol))
     if not (gaps["loss"] <= MODEL_LOSS_RTOL and gaps["params"] <=
-            MODEL_PARAM_RTOL and (gaps["dists"] <= MODEL_DIST_RTOL
-                                  or not held_dists)):
+            MODEL_PARAM_RTOL and gaps["dists"] <= case.dist_rtol):
         failures.append(f"{tag} (2, 2) against (2, 1): {gaps}")
     del runs, pairs, p1
     torch.cuda.empty_cache()

@@ -23,10 +23,10 @@ the call does:
 
 Then it prints the reference's lines and the roofline terms at the H100
 constants (``launch/roofline.py``). It needs no card and launches
-nothing. A train cell the port's step executes on the model axis (the
-dense, moe and hybrid families without FSDP, b_w a multiple of the axis
-under dp:
-``sharding.model_extent``, ``sharding.batch_slots``) is traced on the
+nothing. A train cell the port's step executes on the model axis (every
+family without FSDP, b_w a multiple of the axis under dp, tp cuts on
+head boundaries: ``sharding.model_extent``, ``sharding.leaf_splits``,
+``sharding.batch_slots``) is traced on the
 production mesh's worker and model axes of ``meta`` slots, its bytes a
 device read from the executed layout (a slot's [W, P_slot] pieces and
 batch share), which must equal the spec rules' sum; any other cell with

@@ -19,23 +19,26 @@ mesh n slots of the one device (the reference's fake host devices), and
 the mesh is ``(data, model)`` with the data axis as the DFL workers, as
 the reference builds it; without it the slots are the visible cards.
 Past ``--workers`` the mesh grows a model axis: a worker's replica lives
-on its model-axis slots (``runtime/sharding``'s rules; the dense
-family as data parallelism within the worker under
-``within_worker="dp"`` and tensor parallelism under ``"tp"``, the moe
-family's experts over the axis, hybrid's Mamba2 projections split), e.g.
-on the CPU::
+on its model-axis slots (``runtime/sharding``'s rules: data parallelism
+within the worker under ``within_worker="dp"``, the dense, encdec and
+vlm families; tensor parallelism under ``"tp"``, the dense family's
+heads and projections, the moe family's experts over the axis, hybrid's
+Mamba2 projections and xlstm's mLSTM / sLSTM projections split), e.g. on
+the CPU::
 
     REPRO_DEVICES=8 PYTHONPATH=src python -m repro_torch.launch.train \
         --smoke --workers 4 --device cpu
     REPRO_DEVICES=4 PYTHONPATH=src python -m repro_torch.launch.train \
-        --arch olmoe-1b-7b --smoke --workers 2 --device cpu
+        --arch xlstm-1.3b --smoke --workers 2 --device cpu
 
 The fleet lives on one device: a mesh whose slots span more than one
 device, ``--production`` and ``--multi-pod`` raise
 ``NotImplementedError`` (the multi-process launcher, ROADMAP.md queue 1,
 items 4.5 and 4.6), as does a model axis the port does not execute
-(xlstm, encdec, vlm, FSDP; item 4.4). Wall-clock heterogeneity is
-synthesized by the SimCluster profile, as in the reference.
+(FSDP axes, dp's fallback to a sequence split where a worker's
+sequences do not divide over the axis, a tp cut inside a head; item
+4.4). Wall-clock heterogeneity is synthesized by the SimCluster
+profile, as in the reference.
 """
 from __future__ import annotations
 

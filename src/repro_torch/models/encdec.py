@@ -198,15 +198,17 @@ def decode_seq(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 head_matrix = dense.head_matrix
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, count=None):
     """Per-worker loss: batch ``frames`` [W, B, S, d], ``tokens`` and
-    ``labels`` [W, B, T] -> (loss [W], {"tokens": count [W]})."""
+    ``labels`` [W, B, T] -> (loss [W], {"tokens": count [W]}). ``count``
+    [W]: the token count the loss sum is divided by (the model axis's dp
+    slots pass their worker's; default the batch's own)."""
     L.check_trainable(cfg)
     enc_out = encode(cfg, params, batch["frames"])
     h = decode_seq(cfg, params, batch["tokens"], enc_out)
     loss, cnt = L.chunked_softmax_xent(h, head_matrix(cfg, params),
                                        batch["labels"].long(),
-                                       batch.get("loss_mask"))
+                                       batch.get("loss_mask"), count=count)
     return loss, {"tokens": cnt}
 
 

@@ -488,6 +488,16 @@ def slot_sum(parts, home: torch.device) -> torch.Tensor:
     return out.to(parts[0].dtype)
 
 
+def join_columns(ps, name: str, full: int, make, home) -> torch.Tensor:
+    """``make(ps[0])`` where slot 0 holds leaf ``name`` whole (its last
+    dim ``full``), else every slot's ``make(p)`` joined on ``home`` along
+    the last dim, in slot order: a column-parallel product's output (or
+    a leaf split on its last dim) whole on one device."""
+    if ps[0][name].shape[-1] == full:
+        return make(ps[0])
+    return torch.cat([make(p).to(home) for p in ps], dim=-1)
+
+
 def embed_pieces(tables, tokens: torch.Tensor,
                  home: torch.device) -> torch.Tensor:
     """A lookup in an embedding split over the vocabulary: slot j holds

@@ -28,9 +28,11 @@ from repro_torch.models import layers as L
 
 _FAMILY = {"dense": dense, "moe": moe, "vlm": dense, "encdec": encdec,
            "hybrid": hybrid, "xlstm": xlstm}
-# the families whose replica the round step runs over a model axis
-# (``loss_fn_pieces``; ``runtime/sharding.model_extent`` refuses the rest)
-MODEL_AXIS_FAMILIES = ("dense", "moe", "hybrid")
+# the families whose replica the round step runs over a model axis, by
+# ``within_worker``: "tp" through their ``loss_fn_pieces``, "dp" through
+# ``loss_fn(count=)`` (``runtime/sharding.model_extent`` refuses the rest)
+MODEL_AXIS_FAMILIES = {"tp": ("dense", "moe", "hybrid", "xlstm"),
+                       "dp": ("dense", "encdec", "vlm")}
 
 VLM_VISION_FRACTION = 8       # S_vis = seq_len // 8
 
@@ -76,8 +78,8 @@ def leaf_dtypes(cfg: ModelConfig) -> dict[str, torch.dtype]:
 
 def loss_fn(cfg: ModelConfig, params, batch, count=None):
     """Per-worker training loss of ``cfg``'s family; ``count`` [W] (the
-    dense family's only) divides the loss sum in place of the batch's
-    token count."""
+    families the model axis runs in dp: dense, vlm and encdec) divides
+    the loss sum in place of the batch's token count."""
     if count is None:
         return get_model(cfg.family).loss_fn(cfg, params, batch)
     return get_model(cfg.family).loss_fn(cfg, params, batch, count=count)
@@ -85,9 +87,9 @@ def loss_fn(cfg: ModelConfig, params, batch, count=None):
 
 def loss_fn_pieces(cfg: ModelConfig, slots: list, batch):
     """Per-worker training loss of a replica split over its model-axis
-    slots (the family module's ``loss_fn_pieces``; the dense, moe and
-    hybrid families)."""
-    if cfg.family not in MODEL_AXIS_FAMILIES:
+    slots (the family module's ``loss_fn_pieces``; the dense, moe,
+    hybrid and xlstm families)."""
+    if cfg.family not in MODEL_AXIS_FAMILIES["tp"]:
         raise NotImplementedError(f"the {cfg.family} family over a model "
                                   "axis (ROADMAP.md queue 1, item 4.4)")
     return get_model(cfg.family).loss_fn_pieces(cfg, slots, batch)

@@ -313,15 +313,11 @@ def mamba2_pieces(ps: list, x: torch.Tensor, ssm_state_dim: int, *,
     home, p0 = x.device, ps[0]
     d = x.shape[-1]
     shapes = mamba2_shapes(d, ssm_state_dim)
-
-    def joined(name, make):
-        if p0[name].shape[-1] == shapes[name][-1]:
-            return make(p0)
-        return torch.cat([make(p).to(home) for p in ps], dim=-1)
-
-    zxbcdt = joined("in_proj", lambda p: L.matmul(
-        x.to(p["in_proj"].device), p["in_proj"]))
-    mixer = dict(p0, conv_w=joined("conv_w", lambda p: p["conv_w"]))
+    zxbcdt = L.join_columns(ps, "in_proj", shapes["in_proj"][-1], lambda p:
+                            L.matmul(x.to(p["in_proj"].device),
+                                     p["in_proj"]), home)
+    mixer = dict(p0, conv_w=L.join_columns(
+        ps, "conv_w", shapes["conv_w"][-1], lambda p: p["conv_w"], home))
     y, _, _ = _mamba2_mixer(mixer, zxbcdt, d, ssm_state_dim, chunk,
                             final=False)
     rows = p0["out_proj"].shape[-2]

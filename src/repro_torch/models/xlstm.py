@@ -85,21 +85,25 @@ def init_mlstm_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
-def _mlstm_qkv_gates(p: dict, a: torch.Tensor):
-    """The mLSTM cell's projections of a [W, B, S, d_up]: q, k [W, B, S,
-    H, n_qk], v [W, B, S, H, hd] and the gates' pre-activations [W, B,
-    S, H]."""
-    wn, b, s, d_up = a.shape
-    h = p["w_igate"].shape[-1]
-    nqk = p["wq"].shape[-1] // h
-    hd = d_up // h
-    q = L.matmul(a, p["wq"]).reshape(wn, b, s, h, nqk) * (nqk ** -0.5)
-    k = L.matmul(a, p["wk"]).reshape(wn, b, s, h, nqk)
-    v = L.matmul(a, p["wv"]).reshape(wn, b, s, h, hd)
+def _mlstm_qkv(p: dict, a: torch.Tensor, heads: int):
+    """The mLSTM cell's projections of a [W, B, S, d_up] onto the ``heads``
+    heads of ``p``'s wq / wk / wv (all of them, or a slot's): q, k [W, B,
+    S, heads, n_qk], v [W, B, S, heads, hd]."""
+    wn, b, s, _ = a.shape
+    nqk = p["wq"].shape[-1] // heads
+    q = L.matmul(a, p["wq"]).reshape(wn, b, s, heads, nqk) * (nqk ** -0.5)
+    k = L.matmul(a, p["wk"]).reshape(wn, b, s, heads, nqk)
+    v = L.matmul(a, p["wv"]).reshape(wn, b, s, heads, -1)
+    return q, k, v
+
+
+def _mlstm_gates(p: dict, a: torch.Tensor):
+    """The gates' pre-activations [W, B, S, H] of a [W, B, S, d_up], in
+    f32 (the gate leaves' dtype)."""
     af = a.to(torch.float32)
     igate = L.matmul(af, p["w_igate"]) + p["b_igate"][:, None, None]
     fgate = L.matmul(af, p["w_fgate"]) + p["b_fgate"][:, None, None]
-    return q, k, v, igate, fgate
+    return igate, fgate
 
 
 def _v_aug(v: torch.Tensor) -> torch.Tensor:
@@ -109,39 +113,97 @@ def _v_aug(v: torch.Tensor) -> torch.Tensor:
                                  device=v.device)], dim=-1)
 
 
-def _mlstm_out(p: dict, h_res, y_aug, gate, cfg: ModelConfig):
-    """The block's output from the recurrence's y_aug [..., H, hd + 1]:
-    the numerator over max(|normaliser|, 1), normed, gated, projected
-    down, plus the residual."""
+def _hidden(y_aug: torch.Tensor, h_res: torch.Tensor) -> torch.Tensor:
+    """The recurrence's y_aug [..., heads, hd + 1] -> its numerator over
+    max(|normaliser|, 1), [W, B, S, heads * hd] in h_res's dtype."""
     num, den = y_aug[..., :-1], y_aug[..., -1:]
     # torch.maximum splits the gradient of a tie in half, as jnp.maximum
     hid = num / torch.maximum(torch.abs(den), den.new_ones(()))
-    hid = hid.reshape(*h_res.shape[:-1], -1).to(h_res.dtype)
-    hid = L.rms_norm(hid, p["ln_inner"], cfg.norm_eps)
-    return h_res + L.matmul(hid * F.silu(gate), p["w_down"])
+    return hid.reshape(*h_res.shape[:-1], -1).to(h_res.dtype)
+
+
+def _mlstm_down(ps: list, h_res, hids: list, gate, cfg: ModelConfig):
+    """The block's output from each slot's hidden heads ``hids[j]`` (one
+    slot, or each slot of ``ps`` its heads' part): ln_inner's RMS over
+    every slot's heads (joined on h_res's device), gated, projected down
+    — w_down row-parallel over the slots, their outputs added
+    (``layers.slot_sum``) —, plus the residual."""
+    home = h_res.device
+    hid = hids[0] if len(hids) == 1 else \
+        torch.cat([t.to(home) for t in hids], dim=-1)
+    hid = L.rms_norm(hid, ps[0]["ln_inner"], cfg.norm_eps) * F.silu(gate)
+    if len(hids) == 1:
+        return h_res + L.matmul(hid, ps[0]["w_down"])
+    cols = hids[0].shape[-1]
+    return h_res + L.slot_sum([L.matmul(
+        hid[..., j * cols:(j + 1) * cols].to(p["w_down"].device),
+        p["w_down"]) for j, p in enumerate(ps)], home)
+
+
+def _mlstm_pieces(ps: list, x: torch.Tensor, cfg: ModelConfig, chunk: int,
+                  final: bool):
+    """The mLSTM block over a worker's model-axis slots (``mlstm_pieces``;
+    one slot for an unsplit block) -> ([W, B, S, d] on x's device, the
+    final state [W * B, H, n_qk, hd + 1] or None)."""
+    home, p0 = x.device, ps[0]
+    wn, bsz, s, d = x.shape
+    d_up, h, hd, _ = _mlstm_dims(cfg)
+    h_res = x
+    x = L.rms_norm(x, p0["ln"], cfg.norm_eps)
+    up = L.join_columns(ps, "w_up", 2 * d_up, lambda p: L.matmul(
+        x.to(p["w_up"].device), p["w_up"]), home)
+    a, gate = torch.chunk(up, 2, dim=-1)
+    # the heads a slot: wq / wk / wv and w_down split on head boundaries
+    # (runtime/sharding.leaf_splits) or held whole, then run on slot 0;
+    # q / k / v before the gates, so that one slot sums the gradient into
+    # a in the unsplit block's order
+    heads = ps if p0["wv"].shape[-1] < d_up else ps[:1]
+    hs = h // len(heads)
+    qkv = [_mlstm_qkv(p, a.to(p["wv"].device), hs) for p in heads]
+    igate, fgate = _mlstm_gates(p0, a)
+    log_f = F.logsigmoid(fgate)                              # [W,B,S,H]
+    i_mult = torch.exp(igate)                                # update gate
+    nb = wn * bsz
+    hids, states = [], []
+    for j, (q, k, v) in enumerate(qkv):
+        dev, at = v.device, slice(j * hs, (j + 1) * hs)
+        # the normaliser: the same recurrence on an extra ones column of v
+        y_aug, st = chunked_recurrence(
+            _v_aug(v).reshape(nb, s, hs, hd + 1),
+            gate=i_mult[..., at].to(dev).reshape(nb, s, hs),
+            log_decay=log_f[..., at].to(dev).reshape(nb, s, hs),
+            b=k.reshape(nb, s, hs, -1), c=q.reshape(nb, s, hs, -1),
+            chunk=chunk, final=final)
+        hids.append(_hidden(y_aug, h_res))
+        states.append(st)
+    st = None if not final else states[0] if len(states) == 1 else \
+        torch.cat([t.to(home) for t in states], dim=1)
+    return _mlstm_down(heads, h_res, hids, gate, cfg), st
 
 
 def _mlstm(p: dict, x: torch.Tensor, cfg: ModelConfig, chunk: int,
            final: bool):
     """Full-sequence mLSTM block of a fleet: x [W, B, S, d] -> ([W, B, S,
     d], the final state [W * B, H, n_qk, hd + 1] or None)."""
-    wn, bsz, s, d = x.shape
-    h_res = x
-    x = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    a, gate = torch.chunk(L.matmul(x, p["w_up"]), 2, dim=-1)
-    q, k, v, igate, fgate = _mlstm_qkv_gates(p, a)
-    log_f = F.logsigmoid(fgate)                              # [W,B,S,H]
-    i_mult = torch.exp(igate)                                # update gate
-    # the normaliser: the same recurrence on an extra ones column of v
-    v_aug = _v_aug(v)
-    h, hd = v.shape[-2], v.shape[-1]
-    nb = wn * bsz
-    y_aug, st = chunked_recurrence(
-        v_aug.reshape(nb, s, h, hd + 1), gate=i_mult.reshape(nb, s, h),
-        log_decay=log_f.reshape(nb, s, h), b=k.reshape(nb, s, h, -1),
-        c=q.reshape(nb, s, h, -1), chunk=chunk, final=final)
-    return _mlstm_out(p, h_res, y_aug.reshape(wn, bsz, s, h, hd + 1), gate,
-                      cfg), st
+    return _mlstm_pieces([p], x, cfg, chunk, final)
+
+
+def mlstm_pieces(ps: list, x: torch.Tensor, cfg: ModelConfig,
+                 chunk: int = 256) -> torch.Tensor:
+    """``apply_mlstm`` over a worker's model-axis slots (the spec rules:
+    ``w_up``, ``wq``, ``wk``, ``wv`` split on their columns, ``w_down``
+    on its rows, the gates and norms whole): ``ps[j]`` slot j's block
+    leaves ([W, ...] on its device), x [W, B, S, d] on slot 0's. Each
+    slot computes its columns of x @ w_up and the pieces join on slot 0
+    (the cut falls on the a | gate boundary at m = 2, inside each half at
+    m = 4), which computes the gates from its whole ``w_igate`` /
+    ``w_fgate``; each slot then runs q, k, v and the chunked recurrence
+    on its heads (the whole a, its heads' gates). ``ln_inner``
+    normalises over every slot's heads, joined on slot 0; ``w_down`` is
+    row-parallel, slot j taking its heads' columns of the gated hidden
+    state, the slots' outputs added (``layers.slot_sum``). A leaf the
+    rule keeps whole is read from slot 0's copy."""
+    return _mlstm_pieces(ps, x, cfg, chunk, final=False)[0]
 
 
 def apply_mlstm(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -199,13 +261,14 @@ def init_slstm_state(cfg: ModelConfig, num_workers: int, batch: int,
             "m": torch.zeros(num_workers, batch, h, device=device)}
 
 
-def _slstm_step(p: dict, state: dict, x_proj: torch.Tensor) -> dict:
-    """One token: x_proj [W, B, 4 d] (W x + b precomputed), the state of
-    ``init_slstm_state`` -> the next state."""
+def _slstm_step(r: torch.Tensor, state: dict, x_proj: torch.Tensor) -> dict:
+    """One token: x_proj [W, B, 4 d] (W x + b precomputed), the recurrence
+    ``r`` [W, 4, H, dh, dh], the state of ``init_slstm_state`` -> the next
+    state."""
     wn, bsz = x_proj.shape[:2]
-    h_heads, dh = p["r"].shape[2], p["r"].shape[3]
+    h_heads, dh = r.shape[2], r.shape[3]
     # recurrent contribution: block-diagonal R @ h_{t-1}, per gate
-    rec = torch.einsum("wghde,wbhe->wbghd", p["r"].to(torch.float32),
+    rec = torch.einsum("wghde,wbhe->wbghd", r.to(torch.float32),
                        state["h"])                           # [W,B,4,H,dh]
     pre = x_proj.to(torch.float32).reshape(wn, bsz, 4, h_heads, dh) + rec
     z_t = torch.tanh(pre[:, :, 0])
@@ -255,10 +318,20 @@ def token_loop(trips: int):
         _TOKEN_LOOP.reset(tok)
 
 
-def apply_slstm(p: dict, x: torch.Tensor, cfg: ModelConfig, state=None):
-    """Full-sequence sLSTM block of a fleet, token by token: x [W, B, S, d]
-    -> ([W, B, S, d], the final state); under ``token_loop`` (``meta``
-    tensors only) a capped number of trips."""
+def slstm_pieces(ps: list, x: torch.Tensor, cfg: ModelConfig, state=None):
+    """``apply_slstm`` over a worker's model-axis slots (the spec rules:
+    ``w_in`` split on its columns, ``r`` on its heads, the FFN's
+    ``w_ffn_gate`` / ``w_ffn_up`` on their columns and ``w_ffn_down`` on
+    its rows where its width divides, the rest whole): ``ps[j]`` slot j's
+    block leaves, x [W, B, S, d] on slot 0's device. Each slot computes
+    its columns of x @ w_in (the cut falls on gate boundaries, z, i | f,
+    o at m = 2, not on heads); the projection and ``r``'s heads join on
+    slot 0, which runs the token loop once, as one slot does. The FFN is
+    column- and row-parallel (``layers.slot_sum``) where it is split, else
+    slot 0's. Under ``token_loop`` (``meta`` tensors only) a capped number
+    of trips. Returns ([W, B, S, d], the final state) on slot 0's
+    device."""
+    home, p0 = x.device, ps[0]
     wn, bsz, s, d = x.shape
     loop = _TOKEN_LOOP.get()
     trips = s
@@ -269,26 +342,43 @@ def apply_slstm(p: dict, x: torch.Tensor, cfg: ModelConfig, state=None):
         loop.lengths.add(s)
         trips = min(loop.trips, s)
     h_res = x
-    xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    x_proj = L.matmul(xn, p["w_in"]) + p["b"][:, None, None].to(xn.dtype)
+    xn = L.rms_norm(x, p0["ln"], cfg.norm_eps)
+    x_proj = L.join_columns(ps, "w_in", 4 * d, lambda p: L.matmul(
+        xn.to(p["w_in"].device), p["w_in"]), home) \
+        + p0["b"][:, None, None].to(xn.dtype)
+    r = p0["r"] if p0["r"].shape[2] == cfg.num_heads else \
+        torch.cat([p["r"].to(home) for p in ps], dim=2)
     st = state or init_slstm_state(cfg, wn, bsz, device=x.device)
     hs = []
     for t in range(trips):
         if loop is not None:
             loop.trip = t
-        st = _slstm_step(p, st, x_proj[:, :, t])
+        st = _slstm_step(r, st, x_proj[:, :, t])
         hs.append(st["h"])
     if loop is not None:
         loop.trip = None
     hs += hs[-1:] * (s - trips)
     hid = torch.stack(hs, dim=2).reshape(wn, bsz, s, d).to(x.dtype)
-    hid = L.rms_norm(hid, p["ln_inner"], cfg.norm_eps)
+    hid = L.rms_norm(hid, p0["ln_inner"], cfg.norm_eps)
     x = h_res + hid
     # gated FFN sub-block
-    m = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    ff = L.matmul(F.silu(L.matmul(m, p["w_ffn_gate"]))
-                  * L.matmul(m, p["w_ffn_up"]), p["w_ffn_down"])
-    return x + ff, st
+    m = L.rms_norm(x, p0["ln2"], cfg.norm_eps)
+
+    def ffn(p):
+        mj = m.to(p["w_ffn_gate"].device)
+        return L.matmul(F.silu(L.matmul(mj, p["w_ffn_gate"]))
+                        * L.matmul(mj, p["w_ffn_up"]), p["w_ffn_down"])
+
+    if p0["w_ffn_down"].shape[-2] == _slstm_shapes(cfg)["w_ffn_down"][0]:
+        return x + ffn(p0), st
+    return x + L.slot_sum([ffn(p) for p in ps], home), st
+
+
+def apply_slstm(p: dict, x: torch.Tensor, cfg: ModelConfig, state=None):
+    """Full-sequence sLSTM block of a fleet, token by token: x [W, B, S, d]
+    -> ([W, B, S, d], the final state); under ``token_loop`` (``meta``
+    tensors only) a capped number of trips."""
+    return slstm_pieces([p], x, cfg, state)
 
 
 # ---------------------------------------------------------------------------
@@ -366,38 +456,46 @@ def activation_floats(cfg: ModelConfig, seq_len: int) -> int:
     return (g * mpg + tail) * mlstm + g * slstm
 
 
+def forward_pieces(cfg: ModelConfig, slots: list, tokens: torch.Tensor):
+    """The forward of a worker's replica held over its model-axis slots
+    (``dense.loss_fn_pieces``' layout: ``slots[j]`` slot j's leaves, one
+    slot for an unsplit replica; tokens [W, B, S] on slot 0's device):
+    the embedding over the vocabulary pieces (``layers.embed_slots``),
+    each mLSTM block by ``mlstm_pieces`` and each sLSTM block by
+    ``slstm_pieces``, every block under ``cfg.remat``; a leaf every slot
+    holds whole is read from slot 0's copy. Returns the final hidden
+    states [W, B, S, D] on slot 0's device."""
+    L.check_trainable(cfg)
+    x = L.embed_slots(slots, tokens, cfg.vocab_size)
+    mlstm = L.remat(lambda h, bps: mlstm_pieces(bps, h, cfg), cfg)
+    slstm = L.remat(lambda h, bps: slstm_pieces(bps, h, cfg)[0], cfg)
+    for stack, idx, is_slstm in _cache_layers(cfg):
+        x = (slstm if is_slstm else mlstm)(
+            x, [L.layer(p, stack, idx) for p in slots])
+    return L.rms_norm(x, slots[0]["ln_f"], cfg.norm_eps)
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
     """Full forward to final hidden states: tokens [W, B, S] int ->
     [W, B, S, D]."""
-    L.check_trainable(cfg)
-    x = L.embed(params["embed"], tokens)
-    g, mpg, tail = _group_shape(cfg)
-    mlstm = L.remat(lambda h, bp: apply_mlstm(bp, h, cfg), cfg)
-    slstm = L.remat(lambda h, bp: apply_slstm(bp, h, cfg)[0], cfg)
-    for gi in range(g):
-        for j in range(mpg):
-            x = mlstm(x, L.layer(params, "mlstm", (gi, j)))
-        x = slstm(x, L.layer(params, "slstm", (gi,)))
-    for j in range(tail):
-        x = mlstm(x, L.layer(params, "tail", (j,)))
-    return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return forward_pieces(cfg, [params], tokens)
 
 
-def head_matrix(cfg: ModelConfig, params: dict) -> torch.Tensor:
-    """The [W, D, V] output projection (the embedding's transpose when
-    tied)."""
-    return (params["embed"].transpose(1, 2) if cfg.tie_embeddings
-            else params["lm_head"])
+def loss_fn_pieces(cfg: ModelConfig, slots: list, batch: dict):
+    """``loss_fn`` of a worker's replica held over its model-axis slots
+    (``forward_pieces``, the head over the vocabulary pieces by
+    ``layers.xent_slots``) -> (loss [W], {"tokens": count [W]}) on slot
+    0's device."""
+    h = forward_pieces(cfg, slots, batch["tokens"])
+    loss, cnt = L.xent_slots(slots, h, batch, vocab_size=cfg.vocab_size,
+                             tie_embeddings=cfg.tie_embeddings)
+    return loss, {"tokens": cnt}
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
     """Per-worker next-token loss: batch ``tokens`` and ``labels`` [W, B,
     S] (optional ``loss_mask``) -> (loss [W], {"tokens": count [W]})."""
-    h = forward(cfg, params, batch["tokens"])
-    loss, cnt = L.chunked_softmax_xent(h, head_matrix(cfg, params),
-                                       batch["labels"].long(),
-                                       batch.get("loss_mask"))
-    return loss, {"tokens": cnt}
+    return loss_fn_pieces(cfg, [params], batch)
 
 
 # ---------------------------------------------------------------------------
@@ -439,7 +537,8 @@ def decode_mlstm(p: dict, x: torch.Tensor, C: torch.Tensor,
     h_res = x
     x = L.rms_norm(x, p["ln"], cfg.norm_eps)
     a, gate = torch.chunk(L.matmul(x, p["w_up"]), 2, dim=-1)
-    q, k, v, igate, fgate = _mlstm_qkv_gates(p, a)
+    q, k, v = _mlstm_qkv(p, a, p["w_igate"].shape[-1])
+    igate, fgate = _mlstm_gates(p, a)
     q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]           # [W,B,H,*]
     f = torch.exp(F.logsigmoid(fgate[:, :, 0]))             # [W,B,H]
     i = torch.exp(igate[:, :, 0])
@@ -447,7 +546,8 @@ def decode_mlstm(p: dict, x: torch.Tensor, C: torch.Tensor,
         i[..., None, None] * torch.einsum("wbhn,wbhp->wbhnp",
                                           k.to(torch.float32), _v_aug(v)))
     y_aug = torch.einsum("wbhn,wbhnp->wbhp", q.to(torch.float32), C)
-    return _mlstm_out(p, h_res, y_aug[:, :, None], gate, cfg)
+    return _mlstm_down([p], h_res, [_hidden(y_aug[:, :, None], h_res)],
+                       gate, cfg)
 
 
 def decode_slstm(p: dict, x: torch.Tensor, state: dict,
@@ -459,7 +559,7 @@ def decode_slstm(p: dict, x: torch.Tensor, state: dict,
     xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
     x_proj = (L.matmul(xn, p["w_in"])
               + p["b"][:, None, None].to(xn.dtype))[:, :, 0]
-    st = _slstm_step(p, state, x_proj)
+    st = _slstm_step(p["r"], state, x_proj)
     for name in SLSTM_STATE:
         state[name].copy_(st[name])
     hid = st["h"].reshape(wn, bsz, 1, d).to(x.dtype)

@@ -18,17 +18,17 @@ from them).
 
 The model axis (``model_extent``): a worker's replica over the m slots
 of the mesh axis beside the worker axes. The round step executes the
-rules there for the dense, moe and hybrid families
-(``registry.MODEL_AXIS_FAMILIES``): under ``within_worker="tp"`` a slot
-holds the piece of each leaf that ``param_spec`` gives it
-(``leaf_splits``, ``cut_leaf``, ``join_leaf``: one dim split into m
+rules there for every family (``registry.MODEL_AXIS_FAMILIES``, by
+``within_worker``): under ``"tp"`` (the dense, moe, hybrid and xlstm
+families) a slot holds the piece of each leaf that ``param_spec`` gives
+it (``leaf_splits``, ``cut_leaf``, ``join_leaf``: one dim split into m
 equal contiguous pieces, or the leaf whole where the rule replicates it
-or ``_dims_divisible`` keeps it whole); under ``"dp"`` every slot holds
-the whole replica and takes its share of the worker's batch
-(``batch_slots``, ``train_batch_spec``'s split over ``model``). The
-xlstm, encdec and vlm families, FSDP axes and dp's fallback to a
-sequence split raise ``NotImplementedError`` (``MODEL_AXIS``: ROADMAP.md
-queue 1, item 4.4).
+or ``_dims_divisible`` keeps it whole); under ``"dp"`` (the dense,
+encdec and vlm families) every slot holds the whole replica and takes
+its share of the worker's batch (``batch_slots``, ``train_batch_spec``'s
+split over ``model``). FSDP axes, dp's fallback to a sequence split and
+a tp cut inside a head raise ``NotImplementedError`` (``MODEL_AXIS``:
+ROADMAP.md queue 1, item 4.4).
 """
 from __future__ import annotations
 
@@ -265,8 +265,8 @@ def num_workers(cfg, mesh) -> int:
 
 
 MODEL_AXIS = ("is not ported to repro_torch yet (ROADMAP.md queue 1, item "
-              "4.4: the model axis runs the dense, moe and hybrid "
-              "families without FSDP axes)")
+              "4.4: the model axis runs every family without FSDP axes, "
+              "dp's sequence fallback or a tp cut inside a head)")
 
 
 def mesh_workers(mesh, worker_axes) -> int:
@@ -280,17 +280,19 @@ def model_extent(cfg, mesh) -> int:
     model axis (``cfg.tp_axes``'s first present axis), 1 where every
     axis beside the worker axes has size 1. Raises
     ``NotImplementedError`` (``MODEL_AXIS``) for what the port does not
-    execute: a model axis under a family other than
-    ``MODEL_AXIS_FAMILIES`` (xlstm, encdec, vlm), an FSDP axis of size >
-    1, or any other axis of size > 1 beside the workers."""
+    execute: a model axis under a family and ``within_worker`` that
+    ``MODEL_AXIS_FAMILIES`` does not pair (the published configs' pairs
+    all run), an FSDP axis of size > 1, or any other axis of size > 1
+    beside the workers."""
     workers = worker_axes_in_mesh(cfg, mesh)
     rest = {a: s for a, s in mesh.shape.items()
             if a not in workers and s > 1}
     if not rest:
         return 1
-    if cfg.family not in MODEL_AXIS_FAMILIES:
-        raise NotImplementedError(f"the model axis {rest} on the "
-                                  f"{cfg.family} family " + MODEL_AXIS)
+    if cfg.family not in MODEL_AXIS_FAMILIES.get(cfg.within_worker, ()):
+        raise NotImplementedError(
+            f"the model axis {rest} on the {cfg.family} family under "
+            f"within_worker={cfg.within_worker!r} " + MODEL_AXIS)
     fsdp = [a for a in cfg.fsdp_axes if a in rest]
     if fsdp:
         raise NotImplementedError(f"FSDP over {fsdp} " + MODEL_AXIS)
@@ -335,19 +337,27 @@ def leaf_split(name: str, leaf_shape, cfg, mesh) -> int | None:
     return dims[0] if dims else None
 
 
+# the leaves whose split dim holds ``cfg.num_heads`` heads: the attention's
+# queries, the mLSTM's q / k / v columns and w_down rows, the sLSTM's
+# recurrence (split on its heads dim, so whole heads or kept whole)
+_HEAD_LEAVES = re.compile(r"(attn/wq|(mlstm|tail)/(wq|wk|wv|w_down)|"
+                          r"(^|/)r)$")
+
+
 def leaf_splits(cfg, mesh, shapes: dict) -> dict[str, int | None]:
     """{name: ``leaf_split``} over one worker's ``shapes``. Raises
-    ``NotImplementedError`` where the attention's split is not on head
-    boundaries (a slot would hold part of a head)."""
+    ``NotImplementedError`` where a split of ``_HEAD_LEAVES`` is not on
+    head boundaries (a slot would hold part of a head: xlstm-1.3b's 4
+    heads from m = 8 up)."""
     m = model_extent(cfg, mesh)
     out = {k: leaf_split(k, s, cfg, mesh) if m > 1 else None
            for k, s in shapes.items()}
     for k, dim in out.items():
-        if dim is not None and k.endswith("attn/wq") and \
+        if dim is not None and _HEAD_LEAVES.search(k) and \
                 cfg.num_heads % m:
             raise NotImplementedError(
-                f"{cfg.num_heads} heads over {m} slots split a head; that "
-                + MODEL_AXIS)
+                f"{cfg.num_heads} heads over {m} slots split a head of "
+                f"{k!r}; that " + MODEL_AXIS)
     return out
 
 

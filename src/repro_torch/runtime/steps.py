@@ -16,8 +16,8 @@ worker's replica lives over its slots (``modelspec.SlotAdapter``, one
 the whole replica and takes its share of the worker's batch, the
 gradient summed over the slots; under ``"tp"`` each slot holds its
 pieces by the spec rules and the forward runs over them
-(``registry.loss_fn_pieces``: the dense, moe and hybrid families); the
-gossip runs a slot at a time.
+(``registry.loss_fn_pieces``: the dense, moe, hybrid and xlstm
+families); the gossip runs a slot at a time.
 
 It reproduces the reference's arithmetic where the result depends on
 it: each SGD write is p − (lr·mask·g) with the update rounded to the

@@ -6,12 +6,17 @@ Inputs cross between the two packages as numpy arrays only.
 """
 from __future__ import annotations
 
+import atexit
+import contextlib
 import functools
+import shutil
+import tempfile
 from dataclasses import replace
 
 import jax
 import numpy as np
 import torch
+from jax.experimental.compilation_cache import compilation_cache
 
 from repro.configs.base import FedHPConfig as JaxConfig
 from repro.core import engine as jax_engine
@@ -123,6 +128,34 @@ class ReplayStrategy:
         pass
 
 
+_XLA_CACHE: list[str] = []
+
+
+@contextlib.contextmanager
+def xla_cache():
+    """Within: XLA's compiled executables cached on disk, in a directory of
+    this process's own (removed at exit), whatever their compile time.
+    Each reference engine run jits fresh closures, so a test file's later
+    runs of one model recompile the same programs: the cache skips XLA's
+    compile for them (the tracing stays). Outside, the process's cache
+    settings are as they were."""
+    if not _XLA_CACHE:
+        _XLA_CACHE.append(tempfile.mkdtemp(prefix="xla-cache-"))
+        atexit.register(shutil.rmtree, _XLA_CACHE[0], True)
+    keys = ("jax_compilation_cache_dir",
+            "jax_persistent_cache_min_compile_time_secs")
+    was = {k: getattr(jax.config, k) for k in keys}
+    jax.config.update(keys[0], _XLA_CACHE[0])
+    jax.config.update(keys[1], 0.0)
+    compilation_cache.reset_cache()
+    try:
+        yield
+    finally:
+        for k, v in was.items():
+            jax.config.update(k, v)
+        compilation_cache.reset_cache()
+
+
 def run_reference(algo: str, churn: bool, rounds: int = ROUNDS, *,
                   mixing: str = "uniform", **cfg_kw):
     """The reference ``engine.run_dfl`` from the JAX init; returns
@@ -134,10 +167,11 @@ def run_reference(algo: str, churn: bool, rounds: int = ROUNDS, *,
     strategy = RecordingStrategy(jax_make_strategy(
         cfg, jax_base_topology(cfg.num_workers, cfg.base_topology,
                                cfg.seed)))
-    hist = jax_engine.run_dfl(
-        train, tx, ty, shards, cluster, cfg, strategy, rounds=rounds,
-        mixing=mixing, init_params=jax_init(cfg.seed, cfg.num_workers,
-                                            model=cfg.model))
+    with xla_cache():
+        hist = jax_engine.run_dfl(
+            train, tx, ty, shards, cluster, cfg, strategy, rounds=rounds,
+            mixing=mixing, init_params=jax_init(cfg.seed, cfg.num_workers,
+                                                model=cfg.model))
     return hist, strategy
 
 
@@ -170,8 +204,9 @@ def run_reference_adpsgd(churn: bool, rounds: int = ROUNDS, **cfg_kw):
     cfg = JaxConfig(**{**CFG_KW, **cfg_kw}, algorithm="adpsgd")
     train, tx, ty, shards, cluster = jax_experiment.setup_experiment(
         cfg, churn=jax_churn(churn), rounds=rounds, **DATA_KW)
-    return jax_engine.run_adpsgd(train, tx, ty, shards, cluster, cfg,
-                                 rounds=rounds)
+    with xla_cache():
+        return jax_engine.run_adpsgd(train, tx, ty, shards, cluster, cfg,
+                                     rounds=rounds)
 
 
 def run_port_adpsgd(churn: bool, engine_name: str, *, rounds: int = ROUNDS,

@@ -36,11 +36,15 @@ writes ``OUT_DIR/<case>.npz`` for each case:
   on olmoe-1b-7b's smoke config (its experts over the model axis; int8
   with ``--compressed``), kimi-k2-1t-a32b's (a shared expert besides)
   and zamba2-7b's (Mamba2's projections split; at its family lr,
-  ``MODEL_LRS``). ``CASE:nudge`` runs a model-axis case from the init
-  moved one ulp, ``CASE:nofma`` with XLA's CPU code built without fused
-  multiply-adds (a process of its own: the flag holds for the whole
-  process), and ``CASE:fromTAG`` one round step of the case's config
-  from the state in ``OUT_DIR/CASE:fromTAG.in.npz`` (``step_from``).
+  ``MODEL_LRS``); ``model_xlstm``, ``model_whisper`` and ``model_vlm``:
+  the same on xlstm-1.3b's smoke config (``"tp"``: the mLSTM's and
+  sLSTM's projections split), whisper-large-v3's and qwen2-vl-2b's
+  (``"dp"``: each slot 2 of its worker's 4 sequences). ``CASE:nudge``
+  runs a model-axis case from the init moved one ulp, ``CASE:nofma``
+  with XLA's CPU code built without fused multiply-adds (a process of
+  its own: the flag holds for the whole process), and ``CASE:fromTAG``
+  one round step of the case's config from the state in
+  ``OUT_DIR/CASE:fromTAG.in.npz`` (``step_from``).
 - ``collectives``: ``gossip_fn`` (with and without distances, and on
   the tree cast to bf16), ``gossip_compressed_fn`` (int8, top-k, rand-k
   at two steps; int8 and rand-k also on the tree cast to bf16) and
@@ -102,7 +106,10 @@ MODEL_CASES = {"model_dp": ("smollm-360m", {}),
                "model_moe": ("olmoe-1b-7b", {}),
                "model_moe_shared": ("kimi-k2-1t-a32b", {}),
                "model_moe_int8": ("olmoe-1b-7b", {}),
-               "model_hybrid": ("zamba2-7b", {})}
+               "model_hybrid": ("zamba2-7b", {}),
+               "model_xlstm": ("xlstm-1.3b", {}),
+               "model_whisper": ("whisper-large-v3", {}),
+               "model_vlm": ("qwen2-vl-2b", {})}
 MODEL_MESH = (2, 2)
 MODEL_ROUNDS = 2
 # a model-axis case's lr where it is not LR: its family's (FAMILY_CASES)

@@ -25,9 +25,9 @@ path (``repro_torch.kernels.ops``), on the CPU.
 - A train cell the step executes on the 16 x 16 mesh's model axis
   (smollm-360m in dp; internlm2-20b, olmoe-1b-7b and zamba2-7b in tp;
   depth 1) is traced with it, its bytes a device from the executed
-  layout equal to the reference's specs' sum. A (2, 2) round of the moe
-  and hybrid smoke configs counts the same FLOPs on ``meta`` as on the
-  CPU.
+  layout equal to the reference's specs' sum. A (2, 2) round of the moe,
+  hybrid, xlstm, encdec and vlm smoke configs counts the same FLOPs on
+  ``meta`` as on the CPU.
 - The CLI prints the reference's last line and writes its records.
 """
 from __future__ import annotations
@@ -494,10 +494,12 @@ def _tallied(name: str):
     return call
 
 
-@pytest.mark.parametrize("family", ["moe", "hybrid"])
+@pytest.mark.parametrize("family", ["moe", "hybrid", "xlstm", "encdec",
+                                    "vlm"])
 def test_model_axis_round_meta_counts_as_cpu(family, monkeypatch):
     """A round of the (2, 2) step (W = 2 workers over 2 model slots, tau
-    1, measured distances) on each family's smoke config counts the same
+    1, measured distances; xlstm in tp, encdec and vlm in dp, a sequence
+    a slot) on each family's smoke config counts the same
     FLOPs traced on ``meta`` (the dry run's count, ``dryrun.count`` of
     the step on its abstract arguments) and run on CPU tensors, the
     kernels tallied on the CPU as a launch tallies them."""

@@ -28,7 +28,7 @@ from _torch_parity import (CFG_KW, DATA_KW, ROUNDS, JaxConfig,
                            RecordingStrategy, assert_parity,
                            jax_base_topology, jax_churn, jax_engine,
                            jax_experiment, jax_init, jax_make_strategy,
-                           port_config, run_port)
+                           port_config, run_port, xla_cache)
 from repro.core import fused as jax_fused
 from repro_torch.convert import params_from_jax
 from repro_torch.core import engine, experiment, fused
@@ -69,8 +69,10 @@ def run_jax(algo: str, churn: bool, engine_name: str, **cfg_kw):
                                cfg.seed)))
     run = {"reference": jax_engine.run_dfl,
            "fused": jax_fused.run_dfl_fused}[engine_name]
-    hist = run(train, tx, ty, shards, cluster, cfg, strategy, rounds=ROUNDS,
-               init_params=jax_init(cfg.seed, cfg.num_workers))
+    with xla_cache():
+        hist = run(train, tx, ty, shards, cluster, cfg, strategy,
+                   rounds=ROUNDS,
+                   init_params=jax_init(cfg.seed, cfg.num_workers))
     return hist, strategy
 
 

@@ -341,7 +341,7 @@ def test_reference_sensitivity_of_the_engine_tests_lm(spec, stable):
     initialisation stays below 1e-3 of its parameters after 5 D-PSGD
     rounds at that size, but passes 1e-2 at d 16 with 8-token sequences,
     where float noise alone would decide a comparison of two packages."""
-    from _torch_parity import CFG_KW, DATA_KW, TINY_LM, jax_init
+    from _torch_parity import CFG_KW, DATA_KW, TINY_LM, jax_init, xla_cache
     from repro.configs.base import FedHPConfig as JaxConfig
     from repro.core import engine as jax_engine
     from repro.core import experiment as jax_experiment
@@ -360,9 +360,10 @@ def test_reference_sensitivity_of_the_engine_tests_lm(spec, stable):
                                           model=spec))
         strategy = jax_make_strategy(cfg, jax_base_topology(
             cfg.num_workers, cfg.base_topology, cfg.seed))
-        finals.append(jax_engine.run_dfl(
-            train, tx, ty, shards, cluster, cfg, strategy, rounds=5,
-            init_params=init).final_params)
+        with xla_cache():
+            finals.append(jax_engine.run_dfl(
+                train, tx, ty, shards, cluster, cfg, strategy, rounds=5,
+                init_params=init).final_params)
     spread = max(float(np.abs(np.asarray(a) - np.asarray(b)).max()
                        / np.abs(np.asarray(a)).max())
                  for a, b in zip(jax.tree.leaves(finals[0]),

@@ -47,10 +47,12 @@ slots of one mesh. Held:
   ``REPRO_DEVICES=4`` exits 0, and on a model axis of 2 (``REPRO_DEVICES``
   past ``--workers``: smollm-360m in dp, internlm2-20b in tp) runs to
   ``done``; ``--production``, ``--multi-pod``, a mesh over two devices
-  and a model axis the port does not execute (xlstm-1.3b, FSDP, dp's
-  sequence fallback) raise ``NotImplementedError``, where olmoe-1b-7b,
-  kimi-k2-1t-a32b and zamba2-7b build on it. The trajectories on
-  a model axis are in ``tests/test_torch_train_model_axis.py``.
+  and a model axis the port does not execute (FSDP, dp's sequence
+  fallback, a tp cut inside a head) raise ``NotImplementedError``, where
+  every family builds on it, and xlstm-1.3b, whisper-large-v3 and
+  qwen2-vl-2b run to ``done`` on 2 slots a worker. The trajectories on a
+  model axis are in ``tests/test_torch_train_model_axis.py`` and
+  ``tests/test_torch_train_model_axis_families.py``.
 
 The bf16 and ``--compressed`` trajectories are in
 ``tests/test_torch_train_bf16.py`` and
@@ -259,31 +261,73 @@ def test_cli_runs_tensor_parallel(monkeypatch, capsys):
 
 
 def test_step_refuses_the_model_axis():
-    """The model axis raises where the port does not execute it: the
-    xlstm, encdec and vlm families (xlstm-1.3b's mLSTM / sLSTM split,
-    whisper-large-v3, qwen2-vl-2b), FSDP axes, dp's
-    fallback to a sequence split; the dense, moe and hybrid families
-    build on it."""
+    """The model axis raises where the port does not execute it, with
+    ROADMAP.md's item: FSDP axes, dp's fallback to a sequence split (b_w
+    not a multiple of the axis: whisper-large-v3 and qwen2-vl-2b with
+    one sequence a worker, smollm-360m), a tp cut inside a head
+    (xlstm-1.3b's smoke config, 2 heads, over 4 slots), a family under a
+    ``within_worker`` it does not run there (qwen2-vl-2b in tp); every
+    family builds on 2 slots in its config's mode."""
     mesh = meshlib.make_debug_mesh((2, 2), devices=["cpu"] * 4)
-    for arch in ("xlstm-1.3b", "whisper-large-v3", "qwen2-vl-2b"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1, item 4.4"):
-            steps.make_train_step(get_smoke_config(arch), mesh, SHAPE)
+    item = "ROADMAP.md queue 1, item 4.4"
     fsdp = dataclasses.replace(get_smoke_config("internlm2-20b"),
                                worker_axes=("pod",), fsdp_axes=("data",))
-    with pytest.raises(NotImplementedError, match="FSDP"):
+    with pytest.raises(NotImplementedError, match="FSDP.*" + item):
         steps.make_train_step(fsdp, mesh, SHAPE)
     one_a_worker = InputShape("t", 64, 2, "train")        # b_w 1 over 2
-    with pytest.raises(NotImplementedError, match="sequence split"):
-        steps.make_train_step(get_smoke_config("smollm-360m"), mesh,
-                              one_a_worker)
-    # a model axis of 1, and the dense, moe and hybrid families on 2 slots
+    for arch in ("smollm-360m", "whisper-large-v3", "qwen2-vl-2b"):
+        with pytest.raises(NotImplementedError,
+                           match="sequence split.*" + item):
+            steps.make_train_step(get_smoke_config(arch), mesh,
+                                  one_a_worker)
+    four = meshlib.make_debug_mesh((2, 4), devices=["cpu"] * 8)
+    with pytest.raises(NotImplementedError, match="split a head.*" + item):
+        steps.make_train_step(get_smoke_config("xlstm-1.3b"), four, SHAPE)
+    vlm_tp = dataclasses.replace(get_smoke_config("qwen2-vl-2b"),
+                                 within_worker="tp")
+    with pytest.raises(NotImplementedError, match="'tp'.*" + item):
+        steps.make_train_step(vlm_tp, mesh, SHAPE)
+    # a model axis of 1, and every family on 2 slots
     steps.make_train_step(get_smoke_config("xlstm-1.3b"), cpu_mesh(),
                           SHAPE)
     for arch in ("internlm2-20b", "olmoe-1b-7b", "kimi-k2-1t-a32b",
-                 "zamba2-7b"):
+                 "zamba2-7b", "xlstm-1.3b", "whisper-large-v3",
+                 "qwen2-vl-2b"):
         bundle = steps.make_train_step(get_smoke_config(arch), mesh, SHAPE)
         assert bundle.layout.model == 2 and len(bundle.abstract_args[0]) == 2
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "whisper-large-v3",
+                                  "qwen2-vl-2b"])
+def test_cli_runs_the_last_families_on_the_model_axis(monkeypatch, capsys,
+                                                      arch):
+    """xlstm-1.3b in tp, whisper-large-v3 and qwen2-vl-2b in dp, 2 slots
+    a worker, run to ``done``."""
+    monkeypatch.setenv("REPRO_DEVICES", "4")
+    assert trainer.main(["--smoke", "--steps", "2", "--workers", "2",
+                         "--device", "cpu", "--arch", arch]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("mesh {'data': 2, 'model': 2} -> 2 DFL "
+                               f"workers; arch={arch}")
+    assert [ln.split(":")[0] for ln in lines[1:3]] == ["round 0", "round 1"]
+    assert lines[-1] == "done"
+
+
+@pytest.mark.parametrize("arch,slots,what", [
+    ("whisper-large-v3", "8", "sequence split"),    # b_w 2 over 4 slots
+    ("qwen2-vl-2b", "8", "sequence split"),
+    ("xlstm-1.3b", "8", "split a head"),            # 2 heads over 4 slots
+    ("nemotron-4-340b", "4", "FSDP")])              # as published
+def test_cli_refuses_what_the_model_axis_does_not_run(monkeypatch, arch,
+                                                      slots, what):
+    """Each refusal raises before any weight is made (nemotron-4-340b as
+    published: its FSDP axis is refused while the step is built)."""
+    monkeypatch.setenv("REPRO_DEVICES", slots)
+    smoke = ["--smoke"] if arch != "nemotron-4-340b" else []
+    with pytest.raises(NotImplementedError,
+                       match=what + ".*ROADMAP.md queue 1, item 4.4"):
+        trainer.main([*smoke, "--steps", "1", "--workers", "2",
+                      "--device", "cpu", "--arch", arch])
 
 
 def test_train_refuses_a_mesh_over_two_devices():

@@ -40,9 +40,10 @@ mesh. Held, with PERF.md §2's f32 trainer bounds:
   parameters 1e-5);
 - ``launch/mesh.slot_groups``: worker i's slots row-major, as
   ``jax.make_mesh`` lays devices out;
-- a model axis the port does not execute raises (xlstm-1.3b on (2, 2),
-  ``tests/test_torch_train.py``). The moe and hybrid families' model
-  axis is ``tests/test_torch_train_model_axis_families.py``'s.
+- a model axis the port does not execute raises (FSDP, dp's sequence
+  fallback, a tp cut inside a head: ``tests/test_torch_train.py``). The
+  moe, hybrid, xlstm, encdec and vlm families' model axis is
+  ``tests/test_torch_train_model_axis_families.py``'s.
 """
 from __future__ import annotations
 

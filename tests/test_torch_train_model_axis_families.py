@@ -1,34 +1,47 @@
-"""The trainer's model axis for the moe and hybrid families — a DFL
-worker's replica over the slots of the mesh's ``model`` axis, its leaves
-cut by ``runtime/sharding``'s spec rules (``models/moe.loss_fn_pieces``,
-``models/hybrid.loss_fn_pieces``) — against the reference JAX package,
-on the CPU.
+"""The trainer's model axis for the moe, hybrid, xlstm, encdec and vlm
+families — a DFL worker's replica over the slots of the mesh's ``model``
+axis, its leaves cut by ``runtime/sharding``'s spec rules
+(``models/moe.loss_fn_pieces``, ``models/hybrid.loss_fn_pieces``,
+``models/xlstm.loss_fn_pieces``) or, in dp, each slot the whole replica
+and its share of the batch — against the reference JAX package, on the
+CPU.
 
 The reference runs ``launch/train.py``'s round loop on a ``(2, 2)``
 ``("data", "model")`` mesh of 4 host devices (``tests/_torch_train_ref.py``,
-cases ``model_moe``, ``model_moe_shared``, ``model_moe_int8`` and
-``model_hybrid``): W = 2 workers, f32, 2 rounds, tau_max 2, S = 64, a
+cases ``model_moe``, ``model_moe_shared``, ``model_moe_int8``,
+``model_hybrid``, ``model_xlstm``, ``model_whisper`` and ``model_vlm``,
+one subprocess): W = 2 workers, f32, 2 rounds, tau_max 2, S = 64, a
 global batch of 8, on olmoe-1b-7b's smoke config (its 8 experts over the
 model axis, 4 a slot; the router and norms whole), kimi-k2-1t-a32b's (a
-shared expert besides, column-parallel in, row-parallel out) and
+shared expert besides, column-parallel in, row-parallel out),
 zamba2-7b's at its family lr 0.002 (Mamba2's ``in_proj`` split on its
 columns, ``conv_w`` on its channels, ``out_proj`` on its rows; the
-shared attention + MLP blocks by the dense rules). The port's loop runs
-from the reference's init and batches on 4 CPU slots of one mesh.
-Held, with PERF.md section 2's f32 model-axis bounds:
+shared attention + MLP blocks by the dense rules), xlstm-1.3b's (tp: the
+mLSTM's ``w_up`` / ``wq`` / ``wk`` / ``wv`` on their columns, ``w_down``
+on its rows, the sLSTM's ``w_in`` on its columns and ``r`` on its heads;
+the FFN's width 85 does not divide and stays whole), whisper-large-v3's
+and qwen2-vl-2b's (dp: each slot the whole replica and 2 of its worker's
+4 sequences). The port's loop runs from the reference's init and
+batches on 4 CPU slots of one mesh. Held, with PERF.md section 2's f32
+model-axis bounds:
 
 - every round's topology and taus equal; the loss and the measured
   distances within 1e-4 relative, the parameters, the slots' pieces
-  joined, within 1e-5 absolute;
+  joined, within 1e-5 absolute (xlstm measured 8.3e-8, 4.5e-7, 4.8e-7;
+  whisper 0, 0, 6.0e-8; qwen2-vl 1.7e-7, 8.7e-8, 3.0e-8);
 - each leaf is split on the dim the rules give it (the expert dim, a
   projection's columns or rows, a table's vocabulary) or held whole;
+- in dp (whisper, qwen2-vl) the reference counts every leaf once a slot,
+  so the distances at (2, 2) are sqrt(2) times the port's own at
+  (2, 1), within 1e-6 relative;
 - under ``--compressed`` (``model_moe_int8``) each slot codes its own
   pieces: round 0 within 1e-4 (loss) and one int8 quantum (parameters)
   of the reference's, round 1 within 1e-4 and a tenth of a quantum of
   the reference's step from the loop's own round-0 state;
 - a checkpoint the port saves at (2, 2) holds whole leaves (the
   reference's round 0 within 1e-5) and resumes at (2, 1) into the
-  trajectory it resumes into at (2, 2) (loss 1e-4, parameters 1e-5);
+  trajectory it resumes into at (2, 2) (loss 1e-4, parameters 1e-5), on
+  olmoe-1b-7b and on xlstm-1.3b;
 - piece by piece, on the same weights and inputs: the expert-parallel
   FFN (``moe.moe_ffn_pieces``) against the unsplit ``apply_moe_ffn``
   (``_moe_ffn_flat``), its output and its gradients bit-equal (the
@@ -37,11 +50,17 @@ Held, with PERF.md section 2's f32 model-axis bounds:
   the largest magnitude (its row-parallel sum reorders); the Mamba2
   block over 2 slots (``ssm.mamba2_pieces``) against
   ``ssm.apply_mamba2`` within 1e-6 of the largest magnitude (the
-  row-parallel ``out_proj`` reorders a sum).
+  row-parallel ``out_proj`` reorders a sum); the mLSTM and sLSTM blocks
+  over 2 and 4 slots (``xlstm.mlstm_pieces``, ``xlstm.slstm_pieces``) on
+  an xLSTM of d 96 and 4 heads, where every cut divides (``w_up``'s 384
+  columns, at 4 slots a cut inside each of its a | gate halves; the
+  FFN's 128), against ``apply_mlstm`` / ``apply_slstm``, outputs and
+  gradients within 1e-6 of the largest magnitude.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import shutil
 
 import numpy as np
@@ -55,7 +74,7 @@ from _torch_train import (LOSS_RTOL, MODEL_MESH as MESH,
 from repro_torch.checkpoint import list_steps, load_checkpoint
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import layers as L
-from repro_torch.models import moe, registry, ssm
+from repro_torch.models import moe, registry, ssm, xlstm
 from repro_torch.runtime import steps
 
 # xdist runs one test file a worker (--dist loadfile): keep each on one core
@@ -65,7 +84,12 @@ W = MESH[0]
 # case of tests/_torch_train_ref.py -> (arch, lr)
 CASES = {"model_moe": ("olmoe-1b-7b", 0.01),
          "model_moe_shared": ("kimi-k2-1t-a32b", 0.01),
-         "model_hybrid": ("zamba2-7b", 0.002)}
+         "model_hybrid": ("zamba2-7b", 0.002),
+         "model_xlstm": ("xlstm-1.3b", 0.01),
+         "model_whisper": ("whisper-large-v3", 0.01),
+         "model_vlm": ("qwen2-vl-2b", 0.01)}
+# the cases in dp: every leaf whole on every slot
+DP_CASES = ("model_whisper", "model_vlm")
 # each case's leaves the rules split -> the dim of one worker's leaf
 SPLITS = {
     "model_moe": {"embed": 0, "lm_head": 1, "blocks/attn/wq": 2,
@@ -78,6 +102,12 @@ SPLITS = {
                      "shared/attn/wv": 2, "shared/attn/wo": 1,
                      "shared/mlp/w_up": 2, "shared/mlp/w_gate": 2,
                      "shared/mlp/w_down": 1}}
+SPLITS["model_xlstm"] = {
+    "embed": 0, "lm_head": 1, "mlstm/w_up": 3, "mlstm/wq": 3,
+    "mlstm/wk": 3, "mlstm/wv": 3, "mlstm/w_down": 2, "slstm/w_in": 2,
+    "slstm/r": 2, "tail/w_up": 2, "tail/wq": 2, "tail/wk": 2,
+    "tail/wv": 2, "tail/w_down": 1}
+SPLITS.update({case: {} for case in DP_CASES})
 SPLITS["model_moe_shared"] = {**SPLITS["model_moe"],
                               "blocks/moe/shared/w_up": 2,
                               "blocks/moe/shared/w_gate": 2,
@@ -119,7 +149,8 @@ def test_family_model_axis_trajectory(refs, runs, case):
 def test_family_leaves_split_by_the_rules(runs, case):
     """The leaves split, each on its rule's dim, and every other leaf
     (the router, the norms, ``a_log``, ``conv_b``, ``d_skip``,
-    ``dt_bias``) whole on both slots."""
+    ``dt_bias``, the mLSTM's gates, the sLSTM's bias and FFN; in dp
+    every leaf) whole on both slots."""
     layout = runs[case][0].layout
     assert {k: d for k, d in layout.splits.items() if d is not None} \
         == SPLITS[case]
@@ -130,6 +161,20 @@ def test_family_leaves_split_by_the_rules(runs, case):
         if dim is not None:
             want[dim] //= 2
         assert piece[k] == tuple(want), k
+
+
+@pytest.mark.parametrize("case", DP_CASES)
+def test_dp_family_distances_are_sqrt2_times_one_slot(refs, runs, case):
+    """Each slot holds every leaf whole, and the reference counts a whole
+    leaf once a slot: the (2, 2) distances are sqrt(2) times the (2, 1)
+    run's (measured 1.1e-7 and 6.8e-8 apart in round 0, 0 in round 1),
+    whose loss and trajectory are the reference's."""
+    z = refs[case]
+    run21, snaps21 = _run(z, case, shape=(2, 1))
+    assert run21.layout.model == 1
+    for a, b in zip(runs[case][0].rounds, run21.rounds):
+        assert rel_gap(a.dists, math.sqrt(2.0) * b.dists) <= 1e-6
+        check_round(z, b, snaps21[b.round], dists=False)
 
 
 def _reference_step_from(tmp_path, z, starts: dict, h: int) -> dict:
@@ -191,10 +236,13 @@ def test_moe_int8_codes_each_slots_pieces(refs, tmp_path):
         < int8_quanta(steps1[1], runs[(2, 1)][1], 1)
 
 
-def test_moe_checkpoint_at_two_slots_resumes_at_one(refs, tmp_path):
-    z = refs["model_moe"]
+def _checkpoint_resumes(refs, tmp_path, case: str) -> None:
+    """A checkpoint of ``case`` saved at (2, 2) holds the reference's
+    whole leaves and resumes at (2, 1) into the trajectory it resumes
+    into at (2, 2)."""
+    z = refs[case]
     ckpt = tmp_path / "ckpt"
-    run, _ = _run(z, "model_moe", rounds=1, checkpoint_dir=str(ckpt),
+    run, _ = _run(z, case, rounds=1, checkpoint_dir=str(ckpt),
                   checkpoint_every=1)
     assert list_steps(str(ckpt)) == [0]
     template = {k: torch.empty((W, *s), device="meta")
@@ -207,7 +255,7 @@ def test_moe_checkpoint_at_two_slots_resumes_at_one(refs, tmp_path):
     for shape in (MESH, (2, 1)):
         here = tmp_path / f"resume{shape[1]}"
         shutil.copytree(ckpt, here)
-        resumed[shape] = _run(z, "model_moe", shape=shape, start=1,
+        resumed[shape] = _run(z, case, shape=shape, start=1,
                               checkpoint_dir=str(here), resume=True)
     (a, snaps_a), (b, snaps_b) = resumed[MESH], resumed[(2, 1)]
     assert a.layout.model == 2 and b.layout.model == 1
@@ -221,15 +269,23 @@ def test_moe_checkpoint_at_two_slots_resumes_at_one(refs, tmp_path):
                                    rtol=0, atol=PARAM_ATOL, err_msg=k)
 
 
+def test_moe_checkpoint_at_two_slots_resumes_at_one(refs, tmp_path):
+    _checkpoint_resumes(refs, tmp_path, "model_moe")
+
+
+def test_xlstm_checkpoint_at_two_slots_resumes_at_one(refs, tmp_path):
+    _checkpoint_resumes(refs, tmp_path, "model_xlstm")
+
+
 # ---------------------------------------------------------------------------
 # piece by piece
 # ---------------------------------------------------------------------------
 
-def _slots_and_whole(cfg, stack: str, idx: tuple):
+def _slots_and_whole(cfg, stack: str, idx: tuple, m: int = 2):
     """One block of ``cfg``'s smoke weights (W = 2 workers, distinct) as
-    the (2, 2) layout's 2 slots' pieces and whole -> (pieces, whole),
+    the (2, m) layout's m slots' pieces and whole -> (pieces, whole),
     leaves requiring grad."""
-    layout = steps.train_layout(cfg, SHAPE, model_mesh())
+    layout = steps.train_layout(cfg, SHAPE, model_mesh((W, m)))
     gen = torch.Generator().manual_seed(3)
     stacked = {k: torch.stack([v, v + 0.01 * torch.randn(
         v.shape, generator=gen)]) for k, v in registry.init_params(
@@ -259,8 +315,8 @@ def _grads_match(pieces, whole, layout, stack, idx, rel) -> None:
         if pieces[0][k].grad is None:
             assert g.grad is None, k
             continue
-        cut = [g.grad] * 2 if dim is None else \
-            list(torch.chunk(g.grad, 2, dim=dim))
+        cut = [g.grad] * len(pieces) if dim is None else \
+            list(torch.chunk(g.grad, len(pieces), dim=dim))
         for j, p in enumerate(pieces):
             if dim is None and j:
                 assert p[k].grad is None, k
@@ -318,3 +374,40 @@ def test_mamba2_block_over_two_slots_matches_apply_mamba2():
     mamba = {k: v for k, v in whole.items() if k.startswith("mamba/")}
     _grads_match([{k: p[k] for k in mamba} for p in pieces], mamba, layout,
                  "mamba", (0, 1), 1e-6)
+
+
+# an xLSTM whose every cut divides over 2 and 4 slots: d_up 192 (4 heads
+# of 48, n_qk 24), w_up 384 columns, w_in 384, the FFN 128 wide
+XLSTM_BLOCKS = dict(d_model=96, num_heads=4, num_kv_heads=4)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("block", ["mlstm", "slstm"])
+def test_xlstm_block_over_slots_matches_the_unsplit_block(block, m):
+    """Output and gradients within 1e-6 of the largest magnitude (the
+    row-parallel w_down / w_ffn_down and ln_inner's RMS over the joined
+    heads reorder sums)."""
+    cfg = dataclasses.replace(get_smoke_config("xlstm-1.3b"),
+                              **XLSTM_BLOCKS)
+    idx = (0, 1) if block == "mlstm" else (0,)
+    pieces, whole, layout = _slots_and_whole(cfg, block, idx, m)
+    split = {k for k in whole if layout.splits.get(f"{block}/{k}")
+             is not None}
+    assert split == ({"w_up", "wq", "wk", "wv", "w_down"} if block ==
+                     "mlstm" else {"w_in", "r", "w_ffn_gate", "w_ffn_up",
+                                   "w_ffn_down"})
+    x = torch.randn(W, 2, 64, cfg.d_model,
+                    generator=torch.Generator().manual_seed(4))
+    x1, x2 = x.clone().requires_grad_(), x.clone().requires_grad_()
+    if block == "mlstm":
+        y = xlstm.apply_mlstm(whole, x1, cfg)
+        yp = xlstm.mlstm_pieces(pieces, x2, cfg)
+    else:
+        y = xlstm.apply_slstm(whole, x1, cfg)[0]
+        yp = xlstm.slstm_pieces(pieces, x2, cfg)[0]
+    _near(yp.detach(), y.detach(), 1e-6)
+    w = torch.randn(y.shape, generator=torch.Generator().manual_seed(5))
+    (y * w).sum().backward()
+    (yp * w).sum().backward()
+    _near(x2.grad, x1.grad, 1e-6)
+    _grads_match(pieces, whole, layout, block, idx, 1e-6)

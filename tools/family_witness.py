@@ -6,7 +6,7 @@ by about one ulp, on one card: the witness behind the learning rates of
     python3 tools/family_witness.py ARCH:LR[:ref] ... [--rounds N]
 
 Each setting runs FedHP on ``chip_smoke.py``'s phase-4 path for ARCH (its
-layers, P and W from ``FAMILY_PATHS``, the ``erdos:0.5`` base) at
+depth, P and W from ``FAMILY_PATHS``, the ``erdos:0.5`` base) at
 learning rate LR through the fused engine twice: from the path's seeded
 weights, and from those weights with every element scaled by
 (1 + 1e-7 z), z standard normal from a fixed seed. With ``:ref`` the
@@ -52,8 +52,8 @@ def _setting(text: str):
     if flag not in ([], ["ref"]):
         raise argparse.ArgumentTypeError(f"bad setting {text!r}")
     if arch == BF16_PATH:
-        return (arch, 4, cs.LM_PARAMS, cs.LM_CFG.num_workers), float(lr), \
-            bool(flag)
+        return (arch, {"num_layers": 4}, cs.LM_PARAMS,
+                cs.LM_CFG.num_workers), float(lr), bool(flag)
     path = next(p for p in cs.FAMILY_PATHS if p[0] == arch)
     return path[:4], float(lr), bool(flag)
 
@@ -104,12 +104,12 @@ def main() -> int:
     print(cs.card_line(), flush=True)
     ops.build()
     data, _ = cs._lm_data()
-    for (arch, layers, params, w), lr, with_ref in args.settings:
+    for (arch, depth, params, w), lr, with_ref in args.settings:
         if arch == BF16_PATH:
             adapter = cs.lm_adapter(cs.LM_BF16_MODEL)
             rounds = args.rounds or cs.LM_BF16_ROUNDS
         else:
-            adapter = cs.family_adapter(arch, layers, params)
+            adapter = cs.family_adapter(arch, depth, params)
             rounds = args.rounds or cs.FAMILY_ROUNDS
         fdata = cs._fleet_data(data, w)
         start = _nudged_start(adapter, w, cs.LM_CFG.seed)
@@ -121,7 +121,7 @@ def main() -> int:
         if with_ref:
             runs["reference"] = _run(adapter, fdata, w, lr, rounds,
                                      fused_engine=False)
-        label = f"{arch}-{layers}l W={w} lr={lr}"
+        label = f"{arch}:{cs._depth_tag(depth)} W={w} lr={lr}"
         for what, (hist, secs) in runs.items():
             a = hist.as_arrays()
             print(f"[witness] {label} run={what} "

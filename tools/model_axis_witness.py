@@ -2,23 +2,28 @@
 """Where a model-axis round's measured distance parts from the same round
 at a model extent of 1, leaf by leaf, against how far the round at extent
 1 parts from itself: the witness behind ``chip_smoke.py`` phase 7's
-distance bound on its (e), (f) and (g) cases.
+cross-extent distance bounds (``ModelCase.dist_rtol``).
 
     python3 tools/model_axis_witness.py LABEL [LABEL ...]
 
-LABEL is a case of ``chip_smoke.MODEL_PIECE_CASES`` (``e``, ``f``,
-``g``). Each case runs phase 7's round (its published config at its
-depth, bf16, the flash kernel, W = 2 at S = 4,096, its seeded init and
-batch) four times: at ``(2, 1)``; at ``(2, 1)`` again (the card's own
-run-to-run spread); at ``(2, 1)`` from the init with every nonzero bf16
-weight moved one bf16 ulp up or down by a fixed-seed coin and every f32
-weight scaled by (1 + 1e-7 z); and at ``(2, 2)``. Each run's
+LABEL is a case of ``chip_smoke.MODEL_PIECE_CASES`` (``e`` to ``j``).
+Each case runs phase 7's round (its published config at its depth,
+bf16, the flash kernel, W = 2 at its global batch, S and lr, its seeded
+init and batch): at ``(2, 1)``; at ``(2, 1)`` again (the card's own
+run-to-run spread); at ``(2, 1)`` from the init nudged one bf16 ulp a
+weight, four ways (``NUDGES``): every nonzero bf16 weight up, every one
+down, and up or down by a coin of two fixed seeds, each f32 weight moved
+one f32 ulp the same way; and at ``(2, 2)``. Each run's
 ``consensus_dist`` calls are watched: worker 0's squared distance to
 its partner, leaf by leaf (at ``(2, 2)`` the slots' pieces added, a leaf
 every slot holds whole once a slot, the reference's rule). It prints one
 JSON line a run (loss, distance) and one a case: each run's relative gap
 from the first run's distance (the ``(2, 2)`` run's from the rule's,
-sqrt(d^2 + d^2 of the whole leaves)), and the leaves that carry the
+sqrt(d^2 + d^2 of the whole leaves)), the nudges' largest gap (the sound
+spread; a bound is twice it), the controls' gaps, which a bound must
+reject (the ``(2, 2)`` distance against the rule counting a whole leaf
+once; the ``(2, 2)`` distance of slot 0's partial alone, a sum over the
+model axis left out, against the rule), and the leaves that carry the
 most of each gap, with their squared distances. Needs a CUDA device and
 ``nvcc``.
 """
@@ -39,91 +44,110 @@ sys.path.insert(0, str(REPO / "src"))
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
-NUDGE = 1e-7
-NUDGE_SEED = 11
+# the nudges of the start: every weight up, every one down, or a coin of
+# a seed for each
+NUDGES = ("up", "down", 11, 12)
 TOP = 8
 
 
-def _nudged(p1: dict) -> dict:
-    """``p1`` with each nonzero bf16 weight one bf16 ulp up or down (a
-    fixed-seed coin) and each f32 weight scaled by (1 + NUDGE z)."""
-    gen = torch.Generator(device="cuda").manual_seed(NUDGE_SEED)
+def _nudged(p1: dict, how) -> dict:
+    """``p1`` with each nonzero bf16 weight one bf16 ulp and each nonzero
+    f32 weight one f32 ulp up (``how`` "up"), down ("down") or up or
+    down by a coin of seed ``how``."""
+    gen = torch.Generator(device="cuda").manual_seed(
+        how if isinstance(how, int) else 0)
     out = {}
     for k, v in p1.items():
-        if v.dtype == torch.bfloat16:
+        if isinstance(how, int):
             sign = torch.randint(0, 2, v.shape, generator=gen,
                                  device="cuda") * 2.0 - 1.0
-            moved = (v.float() + sign * ref.bf16_ulp(v)).to(torch.bfloat16)
-            out[k] = torch.where(v == 0, v, moved)
         else:
-            out[k] = v * (1.0 + NUDGE * torch.randn(
-                v.shape, generator=gen, device="cuda"))
+            sign = torch.full(v.shape, 1.0 if how == "up" else -1.0,
+                              device="cuda")
+        if v.dtype == torch.bfloat16:
+            moved = (v.float() + sign * ref.bf16_ulp(v)).to(torch.bfloat16)
+        else:
+            moved = torch.nextafter(v, sign * torch.inf)
+        out[k] = torch.where(v == 0, v, moved)
     return out
 
 
-def _round(cfg, p1, batches, model: int) -> dict:
-    """One phase-7 round at (2, ``model``) -> {"loss", "dist", "leaves":
-    {name: worker 0's squared distance to its partner, f64}}."""
+def _round(case, cfg, p1, batches, model: int) -> dict:
+    """One phase-7 round of ``case`` at (2, ``model``) -> {"loss", "dist",
+    "leaves": {name: worker 0's squared distance to its partner, f64}}."""
+    shape = cs.case_shape(case)
     mesh = cs._trainer_mesh(cs.TP_WORKERS, cs.TP_WORKERS * model, model)
-    layout = cs.steps.train_layout(cfg, cs.TP_SHAPE, mesh)
+    layout = cs.steps.train_layout(cfg, shape, mesh)
     spans = [(l.name, l.start, l.stop) for l in layout.leaf_offsets()]
     whole = {l.name for l in layout.leaf_offsets()
              if layout.splits.get(l.name) is None}
-    leaves: dict[str, float] = {}
+    calls: list[dict[str, float]] = []
     orig = ops.consensus_dist
 
     def spy(x, u):
-        for name, a, b in spans:
-            d2 = float((x[a:b].double() - u[0, a:b].double()).square().sum())
-            leaves[name] = leaves.get(name, 0.0) + d2
+        calls.append({name: float((x[a:b].double() - u[0, a:b].double())
+                                  .square().sum()) for name, a, b in spans})
         return orig(x, u)
 
     ops.consensus_dist = spy
     try:
-        run, _, _ = cs._train_run(cfg, mesh, p1, batches, 1,
-                                  shape=cs.TP_SHAPE)
+        run, _, _ = cs._train_run(cfg, mesh, p1, batches, 1, shape=shape,
+                                  lr=case.lr)
     finally:
         ops.consensus_dist = orig
     r0 = run.rounds[0]
     del run
     torch.cuda.empty_cache()
+    # a call a slot: their sum is the reference's rule
+    leaves = {k: sum(c[k] for c in calls) for k in calls[0]}
     return {"loss": r0.loss, "dist": float(r0.dists[0]), "leaves": leaves,
-            "whole": sorted(whole) if model > 1 else []}
+            "slot0": calls[0], "whole": sorted(whole) if model > 1 else []}
+
+
+def _gap(got: dict, want: dict) -> dict:
+    """The distance's relative gap of leaves ``got`` from ``want`` and the
+    leaves that carry the most of it."""
+    d_ref = math.sqrt(sum(want.values()))
+    d_got = math.sqrt(sum(got.values()))
+    moved = sorted(want, key=lambda k: -abs(got[k] - want[k]))
+    return {"dist_rel_gap": abs(d_got - d_ref) / d_ref,
+            "top_leaves": [{"leaf": k, "d2": got[k], "d2_ref": want[k]}
+                           for k in moved[:TOP]]}
 
 
 def witness(label: str) -> None:
-    _, arch, layers, _ = next(c for c in cs.MODEL_PIECE_CASES
-                              if c[0] == label)
-    cfg = replace(cs.get_config(arch), num_layers=layers,
-                  use_flash_kernel=True)
+    case = next(c for c in cs.MODEL_PIECE_CASES if c.label == label)
+    cfg = replace(cs.get_config(case.arch), use_flash_kernel=True,
+                  **cs.case_depth(case))
     gen = torch.Generator(device="cuda").manual_seed(cs.TRAIN_SEED)
     p1 = cs.registry.init_params(cfg, gen)
-    batches = [next(cs.trainer.random_batches(cfg, cs.TP_SHAPE,
+    batches = [next(cs.trainer.random_batches(cfg, cs.case_shape(case),
                                               cs.TRAIN_SEED + 1, "cuda"))]
     torch.cuda.memory._set_allocator_settings("expandable_segments:True")
-    runs = {"one": _round(cfg, p1, batches, 1),
-            "one_again": _round(cfg, p1, batches, 1),
-            "one_nudged": _round(cfg, _nudged(p1), batches, 1),
-            "two": _round(cfg, p1, batches, 2)}
+    runs = {"one": _round(case, cfg, p1, batches, 1),
+            "one_again": _round(case, cfg, p1, batches, 1)}
+    for how in NUDGES:
+        runs[f"one_nudged_{how}"] = _round(case, cfg, _nudged(p1, how),
+                                           batches, 1)
+    runs["two"] = _round(case, cfg, p1, batches, 2)
     for name, r in runs.items():
-        print(json.dumps({"case": label, "arch": arch, "run": name,
+        print(json.dumps({"case": label, "arch": case.arch, "run": name,
                           "loss": r["loss"], "dist": r["dist"]}), flush=True)
     base = runs["one"]
     # the rule: a leaf every (2, 2) slot holds whole counts once a slot
     rule = {k: v * (2 if k in runs["two"]["whole"] else 1)
             for k, v in base["leaves"].items()}
-    want = {"one_again": base["leaves"], "one_nudged": base["leaves"],
-            "two": rule}
-    out = {"case": label, "arch": arch}
-    for name, ref_leaves in want.items():
-        got = runs[name]["leaves"]
-        d_ref = math.sqrt(sum(ref_leaves.values()))
-        d_got = math.sqrt(sum(got.values()))
-        moved = sorted(ref_leaves, key=lambda k: -abs(got[k] - ref_leaves[k]))
-        out[name] = {
-            "dist_rel_gap": abs(d_got - d_ref) / d_ref,
-            "top_leaves": [{"leaf": k, "d2": got[k], "d2_ref": ref_leaves[k]}
-                           for k in moved[:TOP]]}
+    out = {"case": label, "arch": case.arch, "bound": case.dist_rtol}
+    for name, r in runs.items():
+        if name != "one":
+            out[name] = _gap(r["leaves"], rule if name == "two"
+                             else base["leaves"])
+    out["spread"] = max(out[f"one_nudged_{how}"]["dist_rel_gap"]
+                        for how in NUDGES)
+    # the controls, each a fault of the (2, 2) distance: the rule counting
+    # a whole leaf once; a slot's partial left out (slot 0's alone)
+    out["control_whole_once"] = _gap(runs["two"]["leaves"], base["leaves"])
+    out["control_one_slot"] = _gap(runs["two"]["slot0"], rule)
     print(json.dumps(out), flush=True)
 
 
